@@ -1,0 +1,101 @@
+"""The whole ported slice on the CPU: stage 1, stage 2, burn-in and
+production sweeps through ``AMSampler``, against the published tutorial
+posteriors and a JAX fused run of the same size."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from automix_tpu.config import EngineConfig as JaxConfig
+from automix_tpu.models import tutorial as jtutorial
+from automix_tpu.sampler import AMSampler as JaxSampler
+from automix_tpu_torch import AMSampler, EngineConfig
+from automix_tpu_torch.models import tutorial
+from _torch_threads import one_torch_thread  # noqa: F401
+
+SIZE = dict(n_chains=1024, n_chains_stage1=128, stage1_sweeps=200,
+            stage1_target_samples=512, max_mix_comps=10, max_em_iters=300,
+            sweep_chunk=100, seed=3)
+BURN, SWEEPS = 100, 600
+
+
+def test_tutorial_slice_matches_published_and_jax():
+    """p(M) within 0.05 of the published 0.7928 / 0.0239 / 0.1834 and of
+    the JAX package's fused interpret-mode run of the same size (1024
+    chains x 600 sweeps: the Monte Carlo error of a visit fraction is
+    ~0.01 here, and the two runs share the hash words but not every
+    trajectory)."""
+    am = AMSampler(tutorial.tutorial_set(), EngineConfig(**SIZE),
+                   device="cpu")
+    am.estimate_conditional_probs()
+    am.burn_samples(BURN)
+    stats = am.rjmcmc_samples(SWEEPS)
+    probs = am.model_probs()
+    assert stats.ksummary.sum() == SIZE["n_chains"] * SWEEPS
+    assert stats.ntrytd == SIZE["n_chains"] * SWEEPS
+    assert 0 < stats.nacctd < stats.ntrytd
+    assert am.chains.sweep == 1 + BURN + SWEEPS
+    np.testing.assert_allclose(probs, tutorial.TUTORIAL_MODEL_PROBS,
+                               atol=0.05)
+
+    jam = JaxSampler(jtutorial.tutorial_set(), JaxConfig(
+        **SIZE, fused="on", fused_rng="hash", fused_stage1="on",
+        trace_chain0=False))
+    jam.estimate_conditional_probs()
+    jam.burn_samples(BURN)
+    jprobs = jam.rjmcmc_samples(SWEEPS, collect=False).model_probs
+    np.testing.assert_allclose(probs, jprobs, atol=0.05)
+
+
+def test_import_leaves_jax_out():
+    """The port imports neither JAX nor the JAX package."""
+    code = ("import sys, automix_tpu_torch, automix_tpu_torch.sampler, "
+            "automix_tpu_torch.convert, automix_tpu_torch.kernels.fused, "
+            "automix_tpu_torch.kernels.fused_stage1; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
+            " or m == 'automix_tpu']; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_device_raises_without_cuda(monkeypatch):
+    """device='cuda' (the default) never carries on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AMSampler(tutorial.tutorial_set(), EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AMSampler(tutorial.tutorial_set(), EngineConfig(), device="cuda")
+
+
+@pytest.mark.parametrize("knob", [dict(perm=True), dict(student_t_dof=3),
+                                  dict(pk_mode="pooled"),
+                                  dict(within_move="hmc"),
+                                  dict(mix_fit="autorj"),
+                                  dict(stage1_adapt="log"),
+                                  dict(trace_every=4),
+                                  dict(trace_chain0=True)])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError):
+        EngineConfig(**knob)
+
+
+def test_collect_raises_and_wrappers_take_the_plain_path_on_cpu():
+    from automix_tpu_torch.kernels import fused, fused_stage1
+    am = AMSampler(tutorial.tutorial_set(), EngineConfig(
+        n_chains=64, n_chains_stage1=16, stage1_sweeps=20,
+        stage1_target_samples=64, max_mix_comps=4, max_em_iters=50),
+        device="cpu")
+    with pytest.raises(NotImplementedError):
+        am.rjmcmc_samples(10, collect=True)
+    before = (fused.sweep_chunk.launches, fused_stage1.segment.launches)
+    am.burn_samples(5)
+    assert (fused.sweep_chunk.launches,
+            fused_stage1.segment.launches) == before
