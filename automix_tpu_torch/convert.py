@@ -28,6 +28,15 @@ def proposal_from_numpy(lam, mu, B, logdetB, nmix, sig,
                     sig=_t(sig, f32, device))
 
 
+def proposal_from_arrays(prop, device="cpu") -> Proposal:
+    """Proposal from any object whose lam, mu, B, logdetB, nmix and sig
+    attributes convert to numpy arrays (a JAX ``Proposal`` of any K, L and
+    D, for one)."""
+    return proposal_from_numpy(
+        **{f: np.asarray(getattr(prop, f)) for f in
+           ("lam", "mu", "B", "logdetB", "nmix", "sig")}, device=device)
+
+
 def chains_from_numpy(k, theta, logp, pk, pkllim, nreinit, sweep,
                       device="cpu") -> Chains:
     """Chains from k [S], theta [S, D], logp [S], pk [S, K], pkllim [S],

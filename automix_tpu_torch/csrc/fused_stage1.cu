@@ -12,7 +12,10 @@
 //     sig = max(sig + 10 * gamma_t * (acc / C - 0.25), 0)
 // from the sweep-start sig.  The TPU kernel's trailing surplus sweeps
 // (t_rel >= n_active) are exact no-ops, so this kernel simply stops after
-// n_active sweeps.
+// n_active sweeps.  Perturbations are Box-Muller normals, or Bailey polar
+// t(dof) variates from the same two words when ``tconsts`` is given.  The
+// choice is a template parameter (kT), as K1's variants are compile-time
+// units, so the Normal instantiation carries no Student-t code.
 //
 // Layout: ONE block holds the whole population, because the pooled update
 // needs every chain's accept indicator every sweep.  Each of up to 1024
@@ -26,8 +29,11 @@
 // segment runs on one SM (2-3 chains per thread, two barriers per sweep);
 // the rest of the card is idle.  Stage 1 is ~2200 sweeps once per run, so
 // the design keeps the pooled semantics exact rather than spreading the
-// population over blocks (that is the multi-block K3 structure, a later
-// port).
+// population over blocks.  A population whose (D + 1) * N floats and the
+// kernel's static shared arrays do not fit the block's shared memory runs
+// on the one-sweep kernel of fused_stage1_sweep.cu instead
+// (kernels/fused_stage1.py fits_one_block routes it, and
+// am_fused_stage1_smem reports the static size that rule bounds).
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -39,11 +45,11 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
-template <int K, int D>
+template <int K, int D, bool kT>
 __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
     int N, int C, int sweep0, uint32_t seed, int nburn, int n_active,
-    const int* __restrict__ kinds_g, const float* __restrict__ consts_g,
-    const int* __restrict__ dims_g, const float* __restrict__ th_in,
+    AmT tc, const int* __restrict__ kinds_g,
+    const float* __restrict__ consts_g, const int* __restrict__ dims_g, const float* __restrict__ th_in,
     const float* __restrict__ sig_in, const int* __restrict__ nacc_in,
     const int* __restrict__ ntry_in, float* __restrict__ th_out,
     float* __restrict__ sig_out, int* __restrict__ nacc_out,
@@ -80,7 +86,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
       th_s[(size_t)d * N + i] = th[d];
     }
     const int m = i / C;
-    lp_s[i] = am_logpost(kinds_s[m], consts_s + m * AM_N_CONSTS, th);
+    lp_s[i] = am_logpost<D>(kinds_s[m], consts_s + m * AM_N_CONSTS, dims_s[m],
+                         th);
   }
 
   const int NW = 3 * D;
@@ -108,7 +115,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
       for (int j = 0; j < D; ++j) {
         float u1 = am_u01(am_word(sa, cb + D + j));
         float u2 = am_u01(am_word(sa, cb + 2 * D + j));
-        z[j] = sqrtf(-2.0f * log1pf(-u1)) * cosf(AM_TWO_PI * u2);
+        z[j] = kT ? am_bailey_t(u1, u2, tc)
+                  : am_bm_radius(u1) * cosf(AM_TWO_PI * u2);
       }
       if (do_block) {
         // sig is 0 on coordinates the model lacks, which therefore stay put
@@ -116,7 +124,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d)
           prop[d] = (d < dm) ? th[d] + sig_s[m * D + d] * z[d] : th[d];
-        float lpn = am_logpost(kind, cm, prop);
+        float lpn = am_logpost<D>(kind, cm, dm, prop);
         float acc = (am_u01(am_word(sa, cb)) < am_accept(lpn - lp)) ? 1.0f
                                                                     : 0.0f;
 #pragma unroll
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
 #pragma unroll
           for (int d = 0; d < D; ++d) prop[d] = th[d];
           prop[j] = th[j] + sig_s[m * D + j] * z[j];
-          float lpn = am_logpost(kind, cm, prop);
+          float lpn = am_logpost<D>(kind, cm, dm, prop);
           float acc = (am_u01(am_word(sa, cb + j)) < am_accept(lpn - lp))
                           ? 1.0f
                           : 0.0f;
@@ -184,35 +192,89 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
   }
 }
 
+template <int K, int D, bool kT>
+int launch_segment(int N, int C, int sweep0, unsigned int seed, int nburn,
+                   int n_active, AmT tc, const void* kinds,
+                   const void* consts, const void* dims, const void* th_in,
+                   const void* sig_in, const void* nacc_in,
+                   const void* ntry_in, void* th_out, void* sig_out,
+                   void* nacc_out, void* ntry_out, void* lp_out,
+                   cudaStream_t st) {
+  const size_t smem = sizeof(float) * (size_t)(D + 1) * (size_t)N;
+  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stage1_kernel<K, D, kT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_stage1_kernel<K, D, kT><<<1, threads, smem, st>>>(
+      N, C, sweep0, seed, nburn, n_active, tc, (const int*)kinds,
+      (const float*)consts, (const int*)dims, (const float*)th_in,
+      (const float*)sig_in, (const int*)nacc_in, (const int*)ntry_in,
+      (float*)th_out, (float*)sig_out, (int*)nacc_out, (int*)ntry_out,
+      (float*)lp_out);
+  return (int)cudaGetLastError();
+}
+
+template <int K, int D, bool kT>
+int static_smem(int* bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fused_stage1_kernel<K, D, kT>);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = (int)a.sharedSizeBytes;
+  return 0;
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
 // Launch one segment on ``stream``; returns cudaGetLastError() after the
-// launch, or -1 for a (K, D) pair without an instantiation.
+// launch, or -1 for a (K, D) pair without an instantiation.  ``tconsts``
+// is a host array of the five Student-t constants (AmT), or null for
+// Box-Muller normals.
 extern "C" int am_fused_stage1(
     int K, int D, int N, int C, int sweep0, unsigned int seed, int nburn,
-    int n_active, const void* kinds, const void* consts, const void* dims,
-    const void* th_in, const void* sig_in, const void* nacc_in,
-    const void* ntry_in, void* th_out, void* sig_out, void* nacc_out,
-    void* ntry_out, void* lp_out, void* stream) {
+    int n_active, const float* tconsts, const void* kinds,
+    const void* consts, const void* dims, const void* th_in,
+    const void* sig_in, const void* nacc_in, const void* ntry_in,
+    void* th_out, void* sig_out, void* nacc_out, void* ntry_out,
+    void* lp_out, void* stream) {
   if (N < 1 || C < 1 || N != K * C) return -1;
-  const size_t smem = sizeof(float) * (size_t)(D + 1) * (size_t)N;
-  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
+  AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
+                     tconsts[4]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (K == 3 && D == 2) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_stage1_kernel<3, 2>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    fused_stage1_kernel<3, 2><<<1, threads, smem, st>>>(
-        N, C, sweep0, seed, nburn, n_active, (const int*)kinds,
-        (const float*)consts, (const int*)dims, (const float*)th_in,
-        (const float*)sig_in, (const int*)nacc_in, (const int*)ntry_in,
-        (float*)th_out, (float*)sig_out, (int*)nacc_out, (int*)ntry_out,
-        (float*)lp_out);
-  } else {
-    return -1;
-  }
-  return (int)cudaGetLastError();
+#define AM_LAUNCH(k, d, t)                                                   \
+  launch_segment<k, d, t>(N, C, sweep0, seed, nburn, n_active, tc, kinds,    \
+                          consts, dims, th_in, sig_in, nacc_in, ntry_in,     \
+                          th_out, sig_out, nacc_out, ntry_out, lp_out, st)
+#define AM_CASE(k, d)                                                        \
+  if (K == k && D == d)                                                      \
+    return tconsts ? AM_LAUNCH(k, d, true) : AM_LAUNCH(k, d, false);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+#undef AM_LAUNCH
+  return -1;
+}
+
+// The static shared memory of the (K, D) instantiation, Student-t when
+// ``use_t``, into ``*static_bytes``, and the card's opt-in shared memory
+// per block into ``*optin_bytes``: a block fits when static plus dynamic
+// bytes are within the opt-in.  Returns 0, a CUDA error, or -1 for a pair
+// without an instantiation.
+extern "C" int am_fused_stage1_smem(int K, int D, int use_t,
+                                    int* static_bytes, int* optin_bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin_bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+#define AM_CASE(k, d)                                                        \
+  if (K == k && D == d)                                                      \
+    return use_t ? static_smem<k, d, true>(static_bytes)                     \
+                 : static_smem<k, d, false>(static_bytes);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
 }
 #endif

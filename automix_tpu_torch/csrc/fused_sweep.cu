@@ -1,30 +1,36 @@
 // Stage-3 reversible-jump sweep kernel: a whole chunk of sweeps per chain.
 //
 // Replaces the Pallas kernel of automix_tpu/kernels/fused.py
-// (build_fused_chunk_runner._built -> kernel, pallas_call at line 859) on
-// its main-path configuration: per-chain pk, Gaussian proposals, no perm,
-// stateless column densities, counter-hash randomness.  The plain PyTorch
-// twin is automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
+// (build_fused_chunk_runner._built -> kernel, pallas_call at line 859)
+// with per-chain pk, stateless column densities and counter-hash
+// randomness, in four variants: Normal or Student-t perturbations
+// (AM_TDIST: Bailey polar draws and the t latent density) and with or
+// without the latent permutation (AM_PERM: the stable bubble network over
+// per-slot uniform keys).  Each variant is its own compilation unit and
+// exports its launcher as AM_K1_SYMBOL.  The plain PyTorch twin is
+// automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
 // pkllim, nreinit) and its chunk statistics stay in registers for the whole
 // chunk; device memory sees one read and one write of the state per chunk.
-// The proposal tables (K*L*(2D^2+D+3)+K*D floats, under 8 KB at L = 30) are
-// copied to shared memory once per block.
+// The proposal tables (K*L*(2D^2+D+3)+K*D floats, under 38 KB at K = D = 5
+// and L = 32) are copied to shared memory once per block.
 //
 // What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads
-// and writes nothing in device memory and costs ~NW = 3D+1+2L+K hash words,
-// ~2L+K+4 logf/expf/log1pf, two cosf/sinf and 2L small triangular matvecs.
-// Unlike the TPU kernel, which evaluates every model and every (model,
-// component) residual on every lane and mask-selects because lanes cannot
-// branch, a thread branches: it loops over its own model's L components for
-// the forward allocation and the destination model's for the reverse one,
-// recomputes the selected component's residual instead of keeping K*L*D of
-// them, evaluates only its own model's density, and computes each random
-// word when it is used.  Densities are sanitized to finite values, so the
-// TPU kernel's 0*x + 1*y mask sums equal the directly selected y; its
-// accept blends x + a*(y - x) are kept as blends, since they are not
-// always equal to a select in floating point.
+// and writes nothing in device memory and costs ~NW hash words (NW = 3D+1+
+// 2L+K, plus D with perm and 2D with Student-t), ~2L+K+4 logf/expf/log1pf,
+// a few cosf/sinf and 2L small triangular matvecs.  Unlike the TPU kernel,
+// which evaluates every model and every (model, component) residual on
+// every lane and mask-selects because lanes cannot branch, a thread
+// branches: it loops over its own model's L components for the forward
+// allocation and the destination model's for the reverse one, recomputes
+// the selected component's residual instead of keeping K*L*D of them,
+// evaluates only its own model's density, and computes each random word
+// when it is used.  Densities are sanitized to finite values, so the TPU
+// kernel's 0*x + 1*y mask sums equal the directly selected y; its accept
+// blends x + a*(y - x) are kept as blends, since they are not always equal
+// to a select in floating point.  The variant switches are compile-time
+// constants, so the main-path variant carries no Student-t or perm code.
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -32,14 +38,26 @@
 
 #include "common.cuh"
 
+#ifndef AM_PERM
+#define AM_PERM 0
+#endif
+#ifndef AM_TDIST
+#define AM_TDIST 0
+#endif
+#ifndef AM_K1_SYMBOL
+#define AM_K1_SYMBOL am_fused_sweep_p0_t0
+#endif
+
 namespace {
 
 constexpr int kLMax = 32;        // mixture components per model (runtime L)
 constexpr int kThreads = 128;
+constexpr bool kPerm = AM_PERM != 0;
+constexpr bool kTdist = AM_TDIST != 0;
 
 template <int K, int D>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
-    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,
+    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
     const float* __restrict__ tab, const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,
     const int* __restrict__ k_in, const float* __restrict__ th_in,
@@ -102,11 +120,34 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   }
   int cnt[6] = {0, 0, 0, 0, 0, 0};
 
-  // Random word slots of one sweep (kernels/fused.py s_* offsets).
-  const int NW = 3 * D + 1 + 2 * L + K;
+  // Random word slots of one sweep (kernels/fused.py s_* offsets):
+  // D accept words, the RJ accept, L + K + L Gumbel words, D permutation
+  // keys with perm, then the perturbation words: D Box-Muller pairs (cos
+  // for the RWM move, sin for the latent) or, with Student-t, one Bailey
+  // pair each for the RWM move and the latent.
   const int s_uacc = D, s_gall = D + 1, s_gmod = D + 1 + L;
-  const int s_gcmp = D + 1 + L + K, s_bm = D + 1 + 2 * L + K;
+  const int s_gcmp = D + 1 + L + K, s_perm = D + 1 + 2 * L + K;
+  const int s_bm = s_perm + (kPerm ? D : 0);
+  const int NW = s_bm + (kTdist ? 4 * D : 2 * D);
   const uint32_t cbase = (uint32_t)i * (uint32_t)NW;
+  // RWM perturbation and latent filler of coordinate d this sweep
+  auto z_rwm = [&](const AmSalts& sa, int d) {
+    float u1 = am_u01(am_word(sa, cbase + s_bm + d));
+    float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
+    if (kTdist) return am_bailey_t(u1, u2, tc);
+    return am_bm_radius(u1) * cosf(AM_TWO_PI * u2);
+  };
+  auto z_lat = [&](const AmSalts& sa, int d) {
+    if (kTdist)
+      return am_bailey_t(am_u01(am_word(sa, cbase + s_bm + 2 * D + d)),
+                         am_u01(am_word(sa, cbase + s_bm + 3 * D + d)), tc);
+    float u1 = am_u01(am_word(sa, cbase + s_bm + d));
+    float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
+    return am_bm_radius(u1) * sinf(AM_TWO_PI * u2);
+  };
+  auto lat_lpdf = [&](float w) {
+    return kTdist ? am_t_latent(w, tc) : am_normal_latent(w);
+  };
 
   float logits[kLMax];
 
@@ -119,17 +160,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     if (t % 10 == 0) {
       float prop[D];
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        if (d < dk) {
-          float u1 = am_u01(am_word(sa, cbase + s_bm + d));
-          float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
-          float z = sqrtf(-2.0f * log1pf(-u1)) * cosf(AM_TWO_PI * u2);
-          prop[d] = th[d] + sig[kk * D + d] * z;
-        } else {
-          prop[d] = th[d];
-        }
-      }
-      float lpn = am_logpost(kinds_s[kk], consts_s + kk * AM_N_CONSTS, prop);
+      for (int d = 0; d < D; ++d)
+        prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(sa, d) : th[d];
+      float lpn =
+          am_logpost<D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
       float acc = (am_u01(am_word(sa, cbase)) < am_accept(lpn - lp)) ? 1.0f
                                                                       : 0.0f;
 #pragma unroll
@@ -141,15 +175,12 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
       for (int j = 0; j < D; ++j) {
         if (j >= dk) continue;
-        float u1 = am_u01(am_word(sa, cbase + s_bm + j));
-        float u2 = am_u01(am_word(sa, cbase + s_bm + D + j));
-        float z = sqrtf(-2.0f * log1pf(-u1)) * cosf(AM_TWO_PI * u2);
         float prop[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
-        prop[j] = th[j] + sig[kk * D + j] * z;
+        prop[j] = th[j] + sig[kk * D + j] * z_rwm(sa, j);
         float lpn =
-            am_logpost(kinds_s[kk], consts_s + kk * AM_N_CONSTS, prop);
+            am_logpost<D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
         float acc = (am_u01(am_word(sa, cbase + j)) < am_accept(lpn - lp))
                         ? 1.0f
                         : 0.0f;
@@ -253,26 +284,42 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     }
 
     // latent dimension matching: coordinates the chain's model lacks are
-    // filled with N(0,1) draws (the sin half of the Box-Muller pairs)
+    // filled with latent draws; the "grow" density reads the latent before
+    // the permutation, the "shrink" density after it
     float wf[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      if (d < dk) {
-        wf[d] = work[d];
-      } else {
-        float u1 = am_u01(am_word(sa, cbase + s_bm + d));
-        float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
-        wf[d] = sqrtf(-2.0f * log1pf(-u1)) * sinf(AM_TWO_PI * u2);
+    for (int d = 0; d < D; ++d) wf[d] = (d < dk) ? work[d] : z_lat(sa, d);
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (d >= dk && d < dkn) logratio = logratio - lat_lpdf(wf[d]);
+    if (kPerm) {
+      // random permutation of the first max(dk, dkn) latent slots: a
+      // stable bubble network over per-slot uniform keys, inactive slots
+      // keyed 1 + d (D passes of D - 1 compare-swaps, as in the TPU kernel)
+      const int nact = dk > dkn ? dk : dkn;
+      float keys[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        keys[d] = (d < nact) ? am_u01(am_word(sa, cbase + s_perm + d))
+                             : 1.0f + (float)d;
+#pragma unroll
+      for (int pass = 0; pass < D; ++pass) {
+#pragma unroll
+        for (int j = 0; j < D - 1; ++j) {
+          if (keys[j] > keys[j + 1]) {
+            const float kt = keys[j];
+            keys[j] = keys[j + 1];
+            keys[j + 1] = kt;
+            const float wt = wf[j];
+            wf[j] = wf[j + 1];
+            wf[j + 1] = wt;
+          }
+        }
       }
     }
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      if (d >= dk && d < dkn)
-        logratio = logratio - ((-0.5f * wf[d]) * wf[d] - AM_HALF_LOG_2PI);
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < dk && d >= dkn)
-        logratio = logratio + ((-0.5f * wf[d]) * wf[d] - AM_HALF_LOG_2PI);
+      if (d < dk && d >= dkn) logratio = logratio + lat_lpdf(wf[d]);
 
     // de-standardize into the destination model
     float thn[D];
@@ -313,7 +360,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     const float log_pallocn = logits[ln] - (mxn + logf(sen));
 
     // MH accept
-    const float lpn = am_logpost(kinds_s[kn], consts_s + kn * AM_N_CONSTS, thn);
+    const float lpn =
+        am_logpost<D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
     logratio = logratio + (lpn - lp);
     logratio = logratio + (log_pallocn - log_palloc);
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
@@ -382,36 +430,64 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int c = 0; c < 6; ++c) cnt_out[c * S + i] = cnt[c];
 }
 
+template <int K, int D>
+int launch_sweep(int S, int L, unsigned int seed, int sweep0, int n_sweeps,
+                 int adapt, AmT tc, const void* tab, const void* kinds,
+                 const void* consts, const void* dims, const void* k_in,
+                 const void* th_in, const void* lp_in, const void* pk_in,
+                 const void* pkl_in, const void* nri_in, void* k_out,
+                 void* th_out, void* lp_out, void* pk_out, void* pkl_out,
+                 void* nri_out, void* ks_out, void* ts_out, void* tq_out,
+                 void* cnt_out, cudaStream_t st) {
+  const int KL = K * L;
+  const size_t smem =
+      sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_sweep_kernel<K, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kThreads - 1) / kThreads);
+  fused_sweep_kernel<K, D><<<grid, kThreads, smem, st>>>(
+      S, L, seed, sweep0, n_sweeps, adapt, tc, (const float*)tab,
+      (const int*)kinds, (const float*)consts, (const int*)dims,
+      (const int*)k_in, (const float*)th_in, (const float*)lp_in,
+      (const float*)pk_in, (const float*)pkl_in, (const int*)nri_in,
+      (int*)k_out, (float*)th_out, (float*)lp_out, (float*)pk_out,
+      (float*)pkl_out, (int*)nri_out, (int*)ks_out, (float*)ts_out,
+      (float*)tq_out, (int*)cnt_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
 // Launch on ``stream``; returns cudaGetLastError() after the launch, or -1
 // for a (K, D) pair without an instantiation or an L above kLMax.
-extern "C" int am_fused_sweep(
+// ``tconsts`` is a host array of the five Student-t constants (AmT); the
+// Normal variants ignore it.
+extern "C" int AM_K1_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int adapt, const void* tab, const void* kinds, const void* consts,
-    const void* dims, const void* k_in, const void* th_in, const void* lp_in,
-    const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
-    void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
-    void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
+    int adapt, const float* tconsts, const void* tab, const void* kinds,
+    const void* consts, const void* dims, const void* k_in,
+    const void* th_in, const void* lp_in, const void* pk_in,
+    const void* pkl_in, const void* nri_in, void* k_out, void* th_out,
+    void* lp_out, void* pk_out, void* pkl_out, void* nri_out, void* ks_out,
+    void* ts_out, void* tq_out, void* cnt_out, void* stream) {
   if (L < 1 || L > kLMax || S < 1) return -1;
-  const int KL = K * L;
-  const size_t smem =
-      sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
-  const dim3 grid((S + kThreads - 1) / kThreads);
+  if (kTdist && !tconsts) return -1;
+  AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
+                     tconsts[4]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (K == 3 && D == 2) {
-    fused_sweep_kernel<3, 2><<<grid, kThreads, smem, st>>>(
-        S, L, seed, sweep0, n_sweeps, adapt, (const float*)tab,
-        (const int*)kinds, (const float*)consts, (const int*)dims,
-        (const int*)k_in, (const float*)th_in, (const float*)lp_in,
-        (const float*)pk_in, (const float*)pkl_in, (const int*)nri_in,
-        (int*)k_out, (float*)th_out, (float*)lp_out, (float*)pk_out,
-        (float*)pkl_out, (int*)nri_out, (int*)ks_out, (float*)ts_out,
-        (float*)tq_out, (int*)cnt_out);
-  } else {
-    return -1;
-  }
-  return (int)cudaGetLastError();
+#define AM_CASE(k, d)                                                      \
+  if (K == k && D == d)                                                    \
+    return launch_sweep<k, d>(S, L, seed, sweep0, n_sweeps, adapt, tc, tab, \
+                              kinds, consts, dims, k_in, th_in, lp_in,     \
+                              pk_in, pkl_in, nri_in, k_out, th_out,        \
+                              lp_out, pk_out, pkl_out, nri_out, ks_out,    \
+                              ts_out, tq_out, cnt_out, st);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
 }
 #endif

@@ -2,10 +2,17 @@
 
 The kernels in ``automix_tpu_torch/csrc`` are compiled at first use with
 ``nvcc`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The library is cached under ``build/kernels/`` at the root of
-the checkout, named by a hash of the sources, so a changed source builds
-anew.  Flags: ``sm_90a``, ``-O3``, ``-fmad=false`` and no fast math (see
-``csrc/common.cuh`` for why parity needs both).
+``ctypes``.  Each compilation unit (a source, and for the stage-3 sweep
+kernel one unit per perm / Student-t variant) is compiled by its own
+``nvcc`` process, all started together, then linked.  The (K, D) shapes
+the kernels are instantiated for are :data:`SHAPES`, written for the
+compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
+``csrc/common.cuh`` includes).  The library is
+cached under ``build/kernels/`` at the root of the checkout, named by a
+hash of the sources and flags, so a changed source builds anew; the
+compilers' output (``ptxas -v`` register and spill counts) is kept beside
+it in a ``.log`` file.  Flags: ``sm_90a``, ``-O3``, ``-fmad=false`` and no
+fast math (see ``csrc/common.cuh`` for why parity needs both).
 """
 
 from __future__ import annotations
@@ -19,23 +26,67 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("fused_sweep.cu", "fused_stage1.cu")
 _HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+
+# The (K, D) model-set shapes every kernel is instantiated for.
+SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5))
+
+
+def shapes_header() -> str:
+    """The generated ``am_shapes.h``: :data:`SHAPES` as the X-macro the
+    launchers expand into one case per instantiation."""
+    cases = " ".join(f"X({k}, {d})" for k, d in SHAPES)
+    return ("// Generated by automix_tpu_torch/kernels/_build.py from SHAPES.\n"
+            f"#define AM_SHAPES(X) {cases}\n")
+
+
+def sweep_symbol(perm: bool, tdist: bool) -> str:
+    """Exported name of the stage-3 sweep launcher of one variant."""
+    return f"am_fused_sweep_p{int(perm)}_t{int(tdist)}"
+
+
+# (source, preprocessor definitions) of each compilation unit.
+_UNITS = tuple(
+    ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}",
+                        f"-DAM_K1_SYMBOL={sweep_symbol(p, t)}"))
+    for p in (0, 1) for t in (0, 1)) + (
+    ("fused_stage1.cu", ()),
+    ("fused_stage1_sweep.cu", ()),
+)
 
 _lock = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
-    "am_fused_sweep": [_I, _I, _I, _I, ctypes.c_uint, _I, _I, _I]
-    + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P],
-    "am_fused_stage1": [_I, _I, _I, _I, _I, ctypes.c_uint, _I, _I]
+    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
+       + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
+       for p in (0, 1) for t in (0, 1)},
+    "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
+    "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
+    + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P],
+    "am_fused_stage1_smem": [_I, _I, _I, _P, _P],
 }
+
+
+def tconsts(tdist):
+    """The Student-t constants (``randoms.StudentT``) as the host float
+    array the launchers read, or None (a null pointer) for Normal draws."""
+    return None if tdist is None else (ctypes.c_float * 5)(*tdist)
+
+
+def check_shape(K: int, D: int, name: str):
+    """Raise for a (K, D) pair the kernels are not instantiated for."""
+    if (K, D) not in SHAPES:
+        raise ValueError(
+            f"{name}: no kernel instantiation for K={K}, D={D}; the "
+            f"kernels are instantiated for (K, D) in {list(SHAPES)}")
 
 
 def _nvcc() -> str:
@@ -52,10 +103,11 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in _SOURCES + _HEADERS:
+    for name in sorted({u[0] for u in _UNITS}) + list(_HEADERS):
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr((NVCC_FLAGS, _UNITS)).encode())
+    h.update(shapes_header().encode())
     return h.hexdigest()[:16]
 
 
@@ -66,15 +118,42 @@ def build() -> Path:
     out = BUILD_DIR / f"libautomix_kernels_{_source_hash()}.so"
     if out.exists():
         return out
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(exist_ok=True)
+    (work / "am_shapes.h").write_text(shapes_header())
+    jobs = []
+    try:
+        for i, (src, defines) in enumerate(_UNITS):
+            obj = work / f"{i}_{Path(src).stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *defines, f"-I{work}", "-c", "-o",
+                   str(obj), str(_CSRC / src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        lib_tmp = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib_tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(lib_tmp, out)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -1,6 +1,6 @@
 """Stage 2: Figueiredo-Jain component-annihilating EM, batched over models.
 
-Counterpart of ``fit_figueiredo``, ``fit_proposal`` (figueiredo branch) and
+Counterpart of ``fit_figueiredo``, ``fit_autorj``, ``fit_proposal`` and
 ``trim_proposal`` of ``automix_tpu/kernels/em.py``, in plain torch with a
 leading model axis K.  A component is a slot with an alive mask (dead
 slots keep lam == 0); responsibilities are computed in log space; the fit
@@ -297,19 +297,47 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
     }
 
 
+def fit_autorj(samples, dims):
+    """AutoRJ mode: one Normal per model (the reference's
+    automix.c:1008-1033), batched over K.  ``samples`` [K, N, D], ``dims``
+    [K].  Returns (mean [K, D], lower Cholesky factor B [K, D, D])."""
+    K, N, D = samples.shape
+    coord_mask = linalg.dim_mask(dims, D, samples.dtype)         # [K, D]
+    mean = samples.mean(dim=1) * coord_mask
+    xc = (samples - mean[:, None]) * coord_mask[:, None]
+    cov = torch.einsum("kni,knj->kij", xc, xc) / (N - 1)
+    return mean, linalg.chol(cov, dims, jitter=1e-6)
+
+
 def fit_proposal(modelset, cfg: EngineConfig, samples, sig,
                  generator: torch.Generator = None, seed_idx=None):
-    """Fit every model's proposal mixture: ``samples`` [K, C, D] stage-1
-    output, ``sig`` [K, D] adapted scales.  Returns (Proposal trimmed to
-    the largest live mixture, telemetry dict)."""
-    dims = torch.as_tensor(modelset.dims, device=samples.device)
-    out = fit_figueiredo(samples, dims, cfg.max_mix_comps, cfg.max_em_iters,
-                         generator=generator, seed_idx=seed_idx)
-    lam, mu, B = out["lam"], out["mu"], out["B"]
+    """Fit every model's proposal: ``samples`` [K, C, D] stage-1 output,
+    ``sig`` [K, D] adapted scales.  ``cfg.mix_fit`` selects the
+    Figueiredo-Jain mixture or the AutoRJ single Normal.  Returns
+    (Proposal trimmed to the largest live mixture, telemetry dict; the
+    AutoRJ fit has no telemetry)."""
+    K, _, D = samples.shape
+    dev, dtype = samples.device, samples.dtype
+    dims = torch.as_tensor(modelset.dims, device=dev)
+    lmax = cfg.max_mix_comps
+    if cfg.mix_fit == "autorj":
+        means, Bs = fit_autorj(samples, dims)
+        lam = torch.zeros((K, lmax), dtype=dtype, device=dev)
+        lam[:, 0] = 1.0
+        mu = torch.zeros((K, lmax, D), dtype=dtype, device=dev)
+        mu[:, 0] = means
+        B = torch.eye(D, dtype=dtype, device=dev).repeat(K, lmax, 1, 1)
+        B[:, 0] = Bs
+        nmix = torch.ones((K,), dtype=torch.int32, device=dev)
+        telemetry = {}
+    else:
+        out = fit_figueiredo(samples, dims, lmax, cfg.max_em_iters,
+                             generator=generator, seed_idx=seed_idx)
+        lam, mu, B, nmix = out["lam"], out["mu"], out["B"], out["nmix"]
+        telemetry = {"em_iters": out["iters"], "em_trace": out["tele"]}
     logdetB = linalg.log_det_tri(B, dims[:, None])
-    proposal = Proposal(lam=lam, mu=mu, B=B, logdetB=logdetB,
-                        nmix=out["nmix"], sig=sig)
-    telemetry = {"em_iters": out["iters"], "em_trace": out["tele"]}
+    proposal = Proposal(lam=lam, mu=mu, B=B, logdetB=logdetB, nmix=nmix,
+                        sig=sig)
     return trim_proposal(proposal), telemetry
 
 

@@ -1,17 +1,22 @@
 """Stage 3: reversible-jump sweeps, a whole chunk per kernel launch.
 
-Counterpart of ``automix_tpu/kernels/fused.py`` on its main-path
-configuration (per-chain pk, Gaussian proposals, no perm, stateless column
-densities, ``hash`` randomness): ``_prep_tables``, the chunk runner of
+Counterpart of ``automix_tpu/kernels/fused.py`` with per-chain pk,
+stateless column densities and ``hash`` randomness, with or without perm
+and Student-t: ``_prep_tables``, the chunk runner of
 ``_compiled``/``runner``, and the sweep kernel itself, which is
 ``csrc/fused_sweep.cu`` on the card and :func:`sweep_chunk_ref` on the CPU.
 
-Chain i draws its words at hash counters i * NW + slot, NW = 3D+1+2L+K,
-which is the JAX kernel's chain_id for the flat chain index.  The kernel
-layouts are struct-of-arrays: theta [D, S], pk [K, S]; per-chain chunk
-statistics come back as [K, S], [K*D, S] and [6, S] partial sums that the
-runner reduces with ``torch.sum`` outside the kernel, as JAX reduces them
-outside its ``pallas_call``.
+Chain i draws its words at hash counters i * NW + slot, which is the JAX
+kernel's chain_id for the flat chain index.  The slots follow the JAX
+layout: D RWM accepts, the RJ accept, L + K + L Gumbel words, then
+``s_perm = 2L + K + D + 1`` (D permutation keys with perm),
+``s_bm = s_perm + (D if perm else 0)`` and
+``NW = s_bm + (4D if student_t_dof > 0 else 2D)``; with perm off and
+Normal draws that is NW = 3D + 1 + 2L + K.  The kernel layouts are
+struct-of-arrays: theta [D, S], pk [K, S]; per-chain chunk statistics come
+back as [K, S], [K*D, S] and [6, S] partial sums that the runner reduces
+with ``torch.sum`` outside the kernel, as JAX reduces them outside its
+``pallas_call``.
 """
 
 from __future__ import annotations
@@ -23,11 +28,9 @@ import torch
 from automix_tpu_torch.config import EngineConfig, LOG_ACCEPT_CLAMP, NEG_INF
 from automix_tpu_torch.kernels import _build
 from automix_tpu_torch.ops import linalg, randoms
-from automix_tpu_torch.ops.plmath import HALF_LOG_2PI
 from automix_tpu_torch.state import Chains, Proposal
 
 _LOG_2PI = 1.8378770664093453
-_TWO_PI = 6.283185307179586
 _MAX_L = 32          # csrc/fused_sweep.cu kLMax
 
 
@@ -102,21 +105,35 @@ def _standardize(x, mu, binv, dim, D: int):
     return w, quad
 
 
+def word_slots(K: int, D: int, L: int, perm: bool, tdist: bool):
+    """(s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW): the per-sweep
+    word slots of the JAX kernel (``_built``, fused.py 394-406)."""
+    s_uacc, s_gall = D, D + 1
+    s_gmod = s_gall + L
+    s_gcmp = s_gmod + K
+    s_perm = s_gcmp + L
+    s_bm = s_perm + (D if perm else 0)
+    NW = s_bm + (4 * D if tdist else 2 * D)
+    return s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW
+
+
 def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                     tables: SweepTables, *, seed: int, sweep0: int,
-                    n_sweeps: int, adapt: bool):
+                    n_sweeps: int, adapt: bool, perm: bool = False,
+                    tdist=None):
     """Plain PyTorch twin of the sweep kernel: ``n_sweeps`` sweeps (global
     sweeps sweep0 ...) of every chain.  ``theta`` is [D, S] and ``pk``
-    [K, S].  Returns (k, theta, logp, pk, pkllim, nreinit, ksum [K, S],
-    tsum [K*D, S], tqsum [K*D, S], cnt [6, S])."""
+    [K, S]; ``perm`` permutes the RJ latent and ``tdist`` (a
+    ``randoms.StudentT``) selects Student-t perturbations.  Returns (k,
+    theta, logp, pk, pkllim, nreinit, ksum [K, S], tsum [K*D, S],
+    tqsum [K*D, S], cnt [6, S])."""
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
     dev = k.device
     f32 = torch.float32
-    NW = 3 * D + 1 + 2 * L + K
-    s_uacc, s_gall, s_gmod = D, D + 1, D + 1 + L
-    s_gcmp, s_bm = D + 1 + L + K, D + 1 + 2 * L + K
+    s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW = word_slots(
+        K, D, L, perm, tdist is not None)
     chain = torch.arange(S, device=dev)
     dims = torch.as_tensor(modelset.dims, device=dev).long()
     mu3 = tables.mu.reshape(K, L, D)
@@ -139,10 +156,14 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
         t = sweep0 + tr
         words = randoms.sweep_words(seed, t, chain, range(NW))
         u = randoms.u01(words)                                  # [NW, S]
-        r_bm = torch.sqrt(-2.0 * torch.log1p(-u[s_bm:s_bm + D]))
-        ang = _TWO_PI * u[s_bm + D:s_bm + 2 * D]
-        z_rwm = r_bm * torch.cos(ang)
-        z_lat = r_bm * torch.sin(ang)
+        if tdist is not None:
+            z_rwm = randoms.bailey_t(u[s_bm:s_bm + D],
+                                     u[s_bm + D:s_bm + 2 * D], tdist)
+            z_lat = randoms.bailey_t(u[s_bm + 2 * D:s_bm + 3 * D],
+                                     u[s_bm + 3 * D:s_bm + 4 * D], tdist)
+        else:
+            z_rwm, z_lat = randoms.box_muller(u[s_bm:s_bm + D],
+                                              u[s_bm + D:s_bm + 2 * D])
         dk = dims[kk]
         active = [dk > d for d in range(D)]
         sig_k = tables.sig[kk]                                  # [S, D]
@@ -194,15 +215,31 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
         g_cmp = randoms.gumbel(u[s_gcmp:s_gcmp + L]).T
         ln = torch.argmax(tables.loglam[kn] + g_cmp, dim=1)
 
-        # latent dimension matching (N(0,1) fill on coords k lacks)
+        # latent dimension matching: latent fill on coords k lacks; the
+        # grow density reads the latent before the permutation, the shrink
+        # density after it
         wf = [torch.where(active[d], work[d], z_lat[d]) for d in range(D)]
         for d in range(D):
             up = ~active[d] & active_n[d]
-            lat = -0.5 * wf[d] * wf[d] - HALF_LOG_2PI
+            lat = randoms.latent_lpdf(wf[d], tdist)
             logratio = torch.where(up, logratio - lat, logratio)
+        if perm:
+            # stable bubble network over per-slot keys: uniform on the
+            # first max(dk, dkn) slots, 1 + d beyond
+            keys = [torch.where(active[d] | active_n[d], u[s_perm + d],
+                                torch.full_like(u[s_perm + d], 1.0 + d))
+                    for d in range(D)]
+            for _ in range(D):
+                for j in range(D - 1):
+                    swap = keys[j] > keys[j + 1]
+                    keys[j], keys[j + 1] = (
+                        torch.where(swap, keys[j + 1], keys[j]),
+                        torch.where(swap, keys[j], keys[j + 1]))
+                    wf[j], wf[j + 1] = (torch.where(swap, wf[j + 1], wf[j]),
+                                        torch.where(swap, wf[j], wf[j + 1]))
         for d in range(D):
             down = active[d] & ~active_n[d]
-            lat = -0.5 * wf[d] * wf[d] - HALF_LOG_2PI
+            lat = randoms.latent_lpdf(wf[d], tdist)
             logratio = torch.where(down, logratio + lat, logratio)
 
         # de-standardize into the destination model
@@ -266,23 +303,23 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
 
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
-                n_sweeps: int, adapt: bool):
+                n_sweeps: int, adapt: bool, perm: bool = False,
+                tdist=None):
     """``n_sweeps`` stage-3 sweeps of every chain: the CUDA kernel for
     tensors on the card, its plain twin for tensors on the CPU.  Same
     arguments and results as :func:`sweep_chunk_ref`."""
     if k.device.type == "cpu":
         return sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                                tables, seed=seed, sweep0=sweep0,
-                               n_sweeps=n_sweeps, adapt=adapt)
+                               n_sweeps=n_sweeps, adapt=adapt, perm=perm,
+                               tdist=tdist)
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
     dev = k.device
     if dev.type != "cuda":
         raise ValueError(f"sweep_chunk: unsupported device {dev}")
-    if (K, D) != (3, 2):
-        raise ValueError(f"sweep_chunk: kernel instantiated for K=3, D=2 "
-                         f"only (got K={K}, D={D})")
+    _build.check_shape(K, D, "sweep_chunk")
     if not 1 <= L <= _MAX_L:
         raise ValueError(f"sweep_chunk: L={L} outside 1..{_MAX_L}")
     f32, i32 = torch.float32, torch.int32
@@ -305,15 +342,17 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
             torch.empty((K * D, S), dtype=f32, device=dev),
             torch.empty((K * D, S), dtype=f32, device=dev),
             torch.empty((6, S), dtype=i32, device=dev))
-    lib = _build.library()
-    status = lib.am_fused_sweep(
+    symbol = _build.sweep_symbol(perm, tdist is not None)
+    launch = getattr(_build.library(), symbol)
+    status = launch(
         K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
+        _build.tconsts(tdist),
         tab.data_ptr(), kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
         k.data_ptr(), theta.data_ptr(), logp.data_ptr(), pk.data_ptr(),
         pkllim.data_ptr(), nreinit.data_ptr(),
         *[o.data_ptr() for o in outs],
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "am_fused_sweep")
+    _build.check(status, symbol)
     sweep_chunk.launches += 1
     return outs
 
@@ -328,6 +367,8 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     when ``cfg.adapt`` and not burning."""
     K, D = modelset.nmodels, modelset.dmax
     adapt = cfg.adapt and not burning
+    tdist = (randoms.student_t(cfg.student_t_dof)
+             if cfg.student_t_dof > 0 else None)
     cache = {}
 
     def tables_for(prop: Proposal) -> SweepTables:
@@ -342,7 +383,7 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
             modelset, chains.k, chains.theta.T.contiguous(), chains.logp,
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
             tables_for(prop), seed=int(cfg.seed), sweep0=chains.sweep,
-            n_sweeps=n_sweeps, adapt=adapt)
+            n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist)
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,

@@ -19,8 +19,10 @@ import torch
 
 from automix_tpu_torch.config import NEG_INF
 
-# Constant slots of a CudaDensity (csrc/common.cuh reads the same count).
-N_DENSITY_CONSTS = 5
+# Constant slots of a CudaDensity (csrc/common.cuh AM_N_CONSTS).  Twenty
+# slots hold the largest density of the ported problems, toy1's 2-D
+# three-component mixture: its length, then 6 floats per component.
+N_DENSITY_CONSTS = 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,14 +41,16 @@ class CudaDensity:
 @dataclasses.dataclass(frozen=True)
 class Model:
     """One model: ``dim`` parameters, a column log-posterior, the stage-1
-    start point (uniform [0, 1) draws where None) and an optional CUDA
-    descriptor of the same density."""
+    start point (uniform [0, 1) draws where None), an optional CUDA
+    descriptor of the same density, and an optional column form of the
+    likelihood alone (``loglik``, the second column of ``_lp.data``)."""
 
     name: str
     dim: int
     logp_cols: Callable
     init: Optional[np.ndarray] = None
     cuda: Optional[CudaDensity] = None
+    loglik: Optional[Callable] = None
 
 
 def sanitize(lp):

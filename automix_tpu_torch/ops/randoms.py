@@ -3,7 +3,9 @@
 Counterpart of the in-kernel hash of ``automix_tpu/kernels/fused.py``
 (``_triple32``, ``_lowbias32``, ``_u01``, ``_gumbel`` and the ``hash``
 branch of ``draw_words``) and of the stage-1 batch-wide ``block_coin``
-(``automix_tpu/kernels/fused_stage1.py``).  Every word is a pure function
+(``automix_tpu/kernels/fused_stage1.py``), plus the Box-Muller and
+Bailey polar draws and the latent log-densities built on the words
+(``fused.py`` 337-351, 479-504).  Every word is a pure function
 of (seed, global sweep, global chain, slot), so the port reproduces the
 JAX package's words bit for bit; ``csrc/common.cuh`` holds the same
 functions for the CUDA kernels.
@@ -16,7 +18,13 @@ bits, so the masked result is exact.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
+import numpy as np
 import torch
+
+from automix_tpu_torch.ops.plmath import HALF_LOG_2PI
 
 _M32 = 0xFFFFFFFF
 
@@ -84,3 +92,52 @@ def block_coin(seed: int, t: int) -> bool:
     compare standing for u < 0.1 (one coin per sweep for all chains)."""
     h = triple32(((t * 2654435761 + seed) & _M32) ^ 0xB5297A4D)
     return (h >> 8) < int(0.1 * 2 ** 24)
+
+
+_TWO_PI = 6.283185307179586
+
+
+class StudentT(NamedTuple):
+    """float32 constants of the Student-t draws and latent density for a
+    dof, computed on the host in float64 and rounded once, as the JAX
+    kernels fold them (``kernels/fused.py`` ``_lt_const``)."""
+
+    dof: float             # float32(dof)
+    neg2_over_dof: float   # float32(-2 / dof)
+    half_dof1: float       # float32(0.5 * (dof + 1))
+    inv_dof: float         # float32(1 / dof)
+    lt_const: float        # float32(lgamma((dof+1)/2) - lgamma(dof/2)
+    #                                 - log(dof * pi) / 2)
+
+
+def student_t(dof: int) -> StudentT:
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    return StudentT(
+        dof=f32(dof), neg2_over_dof=f32(-2.0 / dof),
+        half_dof1=f32(0.5 * (dof + 1)), inv_dof=f32(1.0 / dof),
+        lt_const=f32(math.lgamma(0.5 * (dof + 1)) - math.lgamma(0.5 * dof)
+                     - 0.5 * math.log(dof * math.pi)))
+
+
+def bailey_t(u1, u2, tc: StudentT):
+    """Bailey's polar t(dof) variate from two uniforms:
+    sqrt(dof * (u1^(-2/dof) - 1)) * cos(2 pi u2), in the kernels'
+    operation order."""
+    r = torch.sqrt(tc.dof * (torch.exp(tc.neg2_over_dof * torch.log(u1))
+                             - 1.0))
+    return r * torch.cos(_TWO_PI * u2)
+
+
+def box_muller(u1, u2):
+    """(cos, sin) normal pair of the kernels' Box-Muller transform."""
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    ang = _TWO_PI * u2
+    return r * torch.cos(ang), r * torch.sin(ang)
+
+
+def latent_lpdf(w, tc: StudentT | None):
+    """Log-density of one latent filler coordinate: t(dof) when ``tc`` is
+    given, else N(0, 1)."""
+    if tc is not None:
+        return tc.lt_const - tc.half_dof1 * torch.log1p(w * w * tc.inv_dof)
+    return -0.5 * w * w - HALF_LOG_2PI

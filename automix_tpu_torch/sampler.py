@@ -2,11 +2,17 @@
 
 Counterpart of ``automix_tpu/sampler.py``: ``estimate_conditional_probs``
 (stage 1 + stage 2), ``set_proposal``, ``burn_samples``,
-``rjmcmc_samples`` and ``model_probs``.  Stage 3 runs as a host loop over
-``sweep_chunk``-sweep kernel launches; chunk statistics stay on the
-device for ``chunk_flush_every`` chunks, then are absorbed on the host in
-int64/float64.  The chain continues across burn/sample calls through the
-global sweep counter.
+``rjmcmc_samples``, ``model_probs`` and ``save``/``load``.  Stage 3 runs
+as a host loop over ``sweep_chunk``-sweep kernel launches; chunk
+statistics stay on the device for ``chunk_flush_every`` chunks, then are
+absorbed on the host in int64/float64.  The chain continues across
+burn/sample calls through the global sweep counter.
+
+Traces follow the JAX decimation (``trace_every``): a traced run launches
+``trace_every``-sweep chunks and records a snapshot of the state after
+each.  The JAX package records stride-1 traces on its XLA engine; the
+port has one engine, and at ``trace_every=1`` its 1-sweep launches with a
+snapshot after each are exactly a per-sweep trace.
 
 The device is explicit: ``device="cuda"`` (the default) raises when CUDA
 is missing, and nothing falls back to the CPU by itself.
@@ -78,9 +84,11 @@ class AMSampler:
             self.chains = rjmcmc.init_chains(self.modelset, self.cfg,
                                              self.generator, self.device)
 
-    def _run_sweeps(self, nsweeps: int, burning: bool,
+    def _run_sweeps(self, nsweeps: int, burning: bool, collect: bool,
                     stats: Optional[RunStats]):
         runner = self._runner(burning)
+        stride = self.cfg.trace_every
+        chunk_len = stride if collect else self.cfg.sweep_chunk
         done = 0
         chunks = []
 
@@ -90,9 +98,12 @@ class AMSampler:
             chunks.clear()
 
         while done < nsweeps:
-            n = min(self.cfg.sweep_chunk, nsweeps - done)
+            n = min(chunk_len, nsweeps - done)
             self.chains, chunk = runner(self.chains, self.proposal, n)
             if stats is not None:
+                if collect:
+                    chunk = dict(chunk, **self._trace_snapshot())
+                    stats.trace_stride = stride
                 # a bounded window of chunk results stays on the device
                 # (a host sync per chunk would serialize the launches)
                 chunks.append(chunk)
@@ -102,6 +113,18 @@ class AMSampler:
         _sync(self.device)
         if stats is not None and chunks:
             flush()
+
+    def _trace_snapshot(self):
+        """One trace entry from the current chain state."""
+        ch = self.chains
+        nt = min(self.cfg.n_trace_chains, ch.n_chains)
+        return {
+            "k_trace": ch.k[None, :nt].to(torch.int8),
+            "k0_trace": ch.k[None, 0].to(torch.int8),
+            "pk0_trace": ch.pk[None, 0],
+            "logp0_trace": ch.logp[None, 0],
+            "theta0_trace": ch.theta[None, 0],
+        }
 
     # -- public API -------------------------------------------------------
 
@@ -122,9 +145,10 @@ class AMSampler:
         t2 = time.perf_counter()
         self.cpstats.sig_trace = tele["sig_trace"].numpy()
         self.cpstats.accept_trace = tele["accept_trace"].numpy()
-        self.cpstats.em_trace = {k: v.cpu().numpy()
-                                 for k, v in em_tele["em_trace"].items()}
-        self.cpstats.em_iters = em_tele["em_iters"].cpu().numpy()
+        if "em_trace" in em_tele:
+            self.cpstats.em_trace = {k: v.cpu().numpy()
+                                     for k, v in em_tele["em_trace"].items()}
+            self.cpstats.em_iters = em_tele["em_iters"].cpu().numpy()
         self.cpstats.timesecs_stage1 = t1 - t0
         self.cpstats.timesecs_stage2 = t2 - t1
         self.cpstats.timesecs_condprobs = time.perf_counter() - t0
@@ -145,7 +169,7 @@ class AMSampler:
         t0 = time.perf_counter()
         self._ensure_proposal()
         self._ensure_chains()
-        self._run_sweeps(nsweeps, burning=True, stats=None)
+        self._run_sweeps(nsweeps, burning=True, collect=False, stats=None)
         if self.stats is None:
             self.stats = RunStats(self.modelset.nmodels, self.modelset.dmax)
         self.stats.timesecs_burn += time.perf_counter() - t0
@@ -153,11 +177,10 @@ class AMSampler:
     def rjmcmc_samples(self, nsweeps: int,
                        collect: Optional[bool] = None) -> RunStats:
         """Production RJMCMC sweeps; returns the accumulated RunStats.
-        Per-sweep traces (``collect=True``) are not ported yet."""
-        if collect:
-            raise NotImplementedError(
-                "rjmcmc_samples(collect=True): per-sweep traces are not "
-                "ported to automix_tpu_torch yet")
+        ``collect`` (default ``cfg.trace_chain0``) records traces every
+        ``cfg.trace_every`` sweeps."""
+        if collect is None:
+            collect = self.cfg.trace_chain0
         t0 = time.perf_counter()
         self._ensure_proposal()
         self._ensure_chains()
@@ -165,7 +188,8 @@ class AMSampler:
             self.stats = RunStats(self.modelset.nmodels, self.modelset.dmax)
         stats = self.stats
         stats.n_chains = self.chains.n_chains
-        self._run_sweeps(nsweeps, burning=False, stats=stats)
+        self._run_sweeps(nsweeps, burning=False, collect=collect,
+                         stats=stats)
         stats.nsweeps += nsweeps
         stats.timesecs_rjmcmc += time.perf_counter() - t0
         return stats
@@ -174,3 +198,15 @@ class AMSampler:
         if self.stats is None:
             raise RuntimeError("run rjmcmc_samples first")
         return self.stats.model_probs
+
+    def save(self, path: str):
+        """Checkpoint the resumable state (chains, proposal, statistics);
+        see io/checkpoint.py."""
+        from automix_tpu_torch.io import checkpoint
+        checkpoint.save_checkpoint(path, self)
+
+    def load(self, path: str):
+        """Restore state written by :meth:`save`; the next burn/rjmcmc call
+        continues the exact trajectories."""
+        from automix_tpu_torch.io import checkpoint
+        checkpoint.load_checkpoint(path, self)

@@ -53,8 +53,16 @@ class Chains:
         return self.k.shape[0]
 
 
+# Trace entries of a chunk and their host dtypes.
+_TRACES = {"k_trace": np.int8, "k0_trace": np.int8, "pk0_trace": np.float64,
+           "logp0_trace": np.float64, "theta0_trace": np.float64}
+
+
 class RunStats:
-    """Host-side accumulated stage-3 statistics (int64/float64)."""
+    """Host-side accumulated stage-3 statistics (int64/float64), and the
+    traces of a traced run: the model index of the first
+    ``n_trace_chains`` chains and chain 0's k, pk, logp and theta, one
+    entry every ``trace_stride`` sweeps."""
 
     def __init__(self, nmodels: int, dmax: int):
         self.nmodels = nmodels
@@ -71,6 +79,10 @@ class RunStats:
         self.ntrytd = 0
         self.nsweeps = 0
         self.n_chains = 0
+        # Sweeps between trace entries (RunStats.trace_stride of the JAX
+        # package): Sokal tau of a trace is scaled by it into sweeps.
+        self.trace_stride = 1
+        self._traces = {name: [] for name in _TRACES}
         self.timesecs_burn = 0.0
         self.timesecs_rjmcmc = 0.0
 
@@ -85,6 +97,34 @@ class RunStats:
         self.ntryrwms += int(chunk["ntryrwms"])
         self.nacctd += int(chunk["nacctd"])
         self.ntrytd += int(chunk["ntrytd"])
+        for name, dtype in _TRACES.items():
+            if name in chunk:
+                self._traces[name].append(np.asarray(chunk[name], dtype))
+
+    def _trace(self, name: str):
+        parts = self._traces[name]
+        return np.concatenate(parts, axis=0) if parts else None
+
+    @property
+    def k_trace(self):
+        """[n_entries, n_trace_chains] model-index traces (Sokal IACT)."""
+        return self._trace("k_trace")
+
+    @property
+    def k0_trace(self):
+        return self._trace("k0_trace")
+
+    @property
+    def pk_trace(self):
+        return self._trace("pk0_trace")
+
+    @property
+    def logp_trace(self):
+        return self._trace("logp0_trace")
+
+    @property
+    def theta0_trace(self):
+        return self._trace("theta0_trace")
 
     @property
     def model_probs(self) -> np.ndarray:

@@ -84,3 +84,36 @@ def test_block_coin_bitwise():
     got = np.array([randoms.block_coin(seed, int(t)) for t in ts])
     np.testing.assert_array_equal(got, want)
     assert 0.07 < got.mean() < 0.13
+
+
+@pytest.mark.parametrize("dof", [3, 5, 7])
+def test_bailey_t_and_t_latent_match_jax(dof):
+    """On uniforms from a grid of hash words, the Bailey polar t draws and
+    the t latent log-density against the JAX kernel formulas
+    (kernels/fused.py 338-351 and 488-491).  The folded float32 constants
+    are equal; the values agree within 2e-6 relative (an ulp of exp, log,
+    cos and log1p between the two libraries through the formula)."""
+    import math
+    w = _jax_words(123, 45, np.arange(4096), 2)
+    u = randoms.u01(torch.as_tensor(w.astype(np.int64)))
+    tc = randoms.student_t(dof)
+    got = randoms.bailey_t(u[0], u[1], tc).numpy()
+    u1, u2 = jnp.asarray(u[0].numpy()), jnp.asarray(u[1].numpy())
+    r = jnp.sqrt(np.float32(dof) * (jnp.exp(
+        np.float32(-2.0 / dof) * jnp.log(u1)) - 1.0))
+    want = np.asarray(r * jnp.cos(6.283185307179586 * u2))
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+    lt_const = np.float32(math.lgamma(0.5 * (dof + 1))
+                          - math.lgamma(0.5 * dof)
+                          - 0.5 * math.log(dof * math.pi))
+    assert tc.lt_const == float(lt_const)
+    z = jnp.asarray(want)
+    want_lat = np.asarray(lt_const - np.float32(0.5 * (dof + 1))
+                          * jnp.log1p(z * z * np.float32(1.0 / dof)))
+    got_lat = randoms.latent_lpdf(torch.tensor(want), tc).numpy()
+    np.testing.assert_allclose(got_lat, want_lat, rtol=2e-6, atol=2e-6)
+    # and the normal latent of the Gaussian runs
+    np.testing.assert_array_equal(
+        randoms.latent_lpdf(torch.tensor(want), None).numpy(),
+        np.asarray(-0.5 * z * z - 0.9189385332046727))

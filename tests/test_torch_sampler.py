@@ -2,6 +2,7 @@
 production sweeps through ``AMSampler``, against the published tutorial
 posteriors and a JAX fused run of the same size."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +56,10 @@ def test_import_leaves_jax_out():
     """The port imports neither JAX nor the JAX package."""
     code = ("import sys, automix_tpu_torch, automix_tpu_torch.sampler, "
             "automix_tpu_torch.convert, automix_tpu_torch.kernels.fused, "
-            "automix_tpu_torch.kernels.fused_stage1; "
+            "automix_tpu_torch.kernels.fused_stage1, automix_tpu_torch.cli, "
+            "automix_tpu_torch.diagnostics, automix_tpu_torch.io.reports, "
+            "automix_tpu_torch.io.checkpoint, automix_tpu_torch.models.toy, "
+            "automix_tpu_torch.models.builtin; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
@@ -75,27 +79,70 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         AMSampler(tutorial.tutorial_set(), EngineConfig(), device="cuda")
 
 
-@pytest.mark.parametrize("knob", [dict(perm=True), dict(student_t_dof=3),
+def test_config_defaults_match_jax():
+    """Every field the port's EngineConfig honours has the JAX default,
+    the trace fields included (trace_chain0=True, trace_every=1,
+    n_trace_chains=8)."""
+    port, ref = EngineConfig(), JaxConfig()
+    names = [f.name for f in dataclasses.fields(EngineConfig)]
+    assert {"trace_chain0", "trace_every", "n_trace_chains"} <= set(names)
+    for name in names:
+        if name == "dtype":
+            assert str(port.dtype) == f"torch.{np.dtype(ref.dtype).name}"
+        else:
+            assert getattr(port, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("knob", [dict(perm=True, pk_mode="pooled"),
+                                  dict(student_t_dof=3, within_move="hmc"),
                                   dict(pk_mode="pooled"),
                                   dict(within_move="hmc"),
-                                  dict(mix_fit="autorj"),
+                                  dict(mix_fit="autorj", stage1_adapt="log"),
                                   dict(stage1_adapt="log"),
-                                  dict(trace_every=4),
-                                  dict(trace_chain0=True)])
+                                  dict(trace_every=4, pk_mode="pooled"),
+                                  dict(dtype=torch.float64)])
 def test_unported_knobs_raise(knob):
+    """Pooled pk, HMC, the log stage-1 rule and float64 are not ported:
+    each raises, alone or beside a ported knob."""
     with pytest.raises(NotImplementedError):
         EngineConfig(**knob)
 
 
+@pytest.mark.parametrize("knob", [dict(perm=True), dict(student_t_dof=3),
+                                  dict(mix_fit="autorj"), dict(trace_every=4),
+                                  dict(trace_chain0=False)])
+def test_ported_knobs_accepted(knob):
+    cfg = EngineConfig(**knob)
+    for name, value in knob.items():
+        assert getattr(cfg, name) == value
+
+
+@pytest.mark.parametrize("knob", [dict(trace_every=0),
+                                  dict(student_t_dof=-1),
+                                  dict(mix_fit="em")])
+def test_invalid_knobs_raise_as_in_jax(knob):
+    with pytest.raises(ValueError):
+        EngineConfig(**knob)
+    with pytest.raises(ValueError):
+        JaxConfig(**knob)
+
+
 def test_collect_raises_and_wrappers_take_the_plain_path_on_cpu():
+    """model_probs raises before any production sweep; collect=True
+    records one trace entry per trace_every sweeps; on CPU tensors no
+    kernel is launched."""
     from automix_tpu_torch.kernels import fused, fused_stage1
     am = AMSampler(tutorial.tutorial_set(), EngineConfig(
         n_chains=64, n_chains_stage1=16, stage1_sweeps=20,
-        stage1_target_samples=64, max_mix_comps=4, max_em_iters=50),
-        device="cpu")
-    with pytest.raises(NotImplementedError):
-        am.rjmcmc_samples(10, collect=True)
-    before = (fused.sweep_chunk.launches, fused_stage1.segment.launches)
+        stage1_target_samples=64, max_mix_comps=4, max_em_iters=50,
+        trace_every=4, n_trace_chains=3), device="cpu")
+    with pytest.raises(RuntimeError):
+        am.model_probs()
+    before = (fused.sweep_chunk.launches, fused_stage1.segment.launches,
+              fused_stage1.sweep.launches)
     am.burn_samples(5)
-    assert (fused.sweep_chunk.launches,
-            fused_stage1.segment.launches) == before
+    stats = am.rjmcmc_samples(10, collect=True)
+    assert (fused.sweep_chunk.launches, fused_stage1.segment.launches,
+            fused_stage1.sweep.launches) == before
+    assert stats.trace_stride == 4 and stats.k_trace.shape == (3, 3)
+    assert stats.ksummary.sum() == 64 * 10

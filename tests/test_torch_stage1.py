@@ -5,15 +5,17 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from automix_tpu.config import EngineConfig as JaxConfig
 from automix_tpu.kernels import fused_stage1 as jstage1
+from automix_tpu.models import toy as jtoy
 from automix_tpu.models import tutorial as jtutorial
 from automix_tpu_torch.config import EngineConfig
 from automix_tpu_torch.convert import stage1_state_from_numpy
 from automix_tpu_torch.kernels import fused_stage1, rwm
-from automix_tpu_torch.models import tutorial
+from automix_tpu_torch.models import toy, tutorial
 from _torch_threads import one_torch_thread  # noqa: F401
 
 C, NSWEEPS, SEED = 64, 200, 5
@@ -94,3 +96,88 @@ def test_run_stage1_telemetry():
     acc = tele["accept_trace"].numpy()
     assert np.all((acc >= 0) & (acc <= 1))
     assert np.isfinite(samples.numpy()).all()
+
+
+# toy1 and toy2 have no or zero start points; a fixed numpy start point
+# goes to both packages.
+_TOY_INIT = {"toy1": np.array([[0.3, 0.0], [0.2, 0.6]], np.float32),
+             "toy2": np.linspace(-0.4, 0.4, 25).reshape(5, 5)
+             .astype(np.float32) * np.tri(5, 5).astype(np.float32)}
+
+
+def _toy_sets(name):
+    return getattr(jtoy, f"{name}_set")(), getattr(toy, f"{name}_set")()
+
+
+def _agree_with_jax(got, want):
+    """The tolerance of test_run_fused_stage1_matches_jax_interpret."""
+    sig, samples, tele_sig, tele_acc, lp = got
+    assert samples.shape == want[1].shape and tele_sig.shape == want[2].shape
+    np.testing.assert_allclose(sig, want[0], rtol=1e-5)
+    np.testing.assert_allclose(tele_sig, want[2], rtol=1e-5)
+    np.testing.assert_allclose(tele_acc, want[3], atol=2e-3)
+    close = np.all(np.abs(samples - want[1]) <= 1e-4 * (1 + np.abs(want[1])),
+                   axis=-1)
+    assert close.mean() >= 0.95, close.mean()
+    ok = np.abs(lp - want[4]) <= 1e-4 * (1 + np.abs(want[4]))
+    assert ok.mean() >= 0.95
+
+
+def test_segment_ref_student_t_matches_jax_interpret():
+    """toy1 (dims 1 and 2) with Bailey t perturbations (dof 5): the
+    segment runner against JAX ``run_fused_stage1`` at C=64, 200 sweeps,
+    with the Normal test's tolerances (the t draws add one exp and one
+    log per variate, each within an ulp between the libraries)."""
+    init = _TOY_INIT["toy1"]
+    jms, ms = _toy_sets("toy1")
+    want = [np.asarray(x) for x in jstage1.run_fused_stage1(
+        jms, JaxConfig(seed=SEED, fused_stage1="on", student_t_dof=5),
+        NSWEEPS, C, jnp.asarray(init))]
+    got = [x.numpy() for x in fused_stage1.run_fused_stage1(
+        ms, EngineConfig(seed=SEED, student_t_dof=5), NSWEEPS, C,
+        torch.tensor(init), "cpu")]
+    _agree_with_jax(got, want)
+    assert np.all(got[1][0, :, 1:] == 0.0)        # model 1 lacks coord 1
+
+
+@pytest.mark.parametrize("name,dof", [("toy2", 0), ("toy1", 5)])
+def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof):
+    """The one-sweep runner (K3's twin plus the pooled update between
+    sweeps) against JAX ``run_fused_stage1_sharded`` on a 1-device CPU
+    mesh, with the tolerances of the segment runner's JAX test, and
+    BITWISE against the port's own segment runner: same sig, samples,
+    telemetry and logp."""
+    from automix_tpu.parallel import mesh as mesh_lib
+    init = _TOY_INIT[name]
+    jms, ms = _toy_sets(name)
+    nsweeps = 120
+    jcfg = JaxConfig(seed=SEED, fused_stage1="on", student_t_dof=dof)
+    want = [np.asarray(x) for x in jstage1.run_fused_stage1_sharded(
+        jms, jcfg, nsweeps, C, jnp.asarray(init), mesh_lib.make_mesh(1))]
+    cfg = EngineConfig(seed=SEED, student_t_dof=dof)
+    args = (ms, cfg, nsweeps, C, torch.tensor(init), "cpu")
+    got = fused_stage1.run_fused_stage1_sweeps(*args)
+    seg = fused_stage1.run_fused_stage1(*args)
+    for a, b in zip(got, seg):
+        assert torch.equal(a, b)
+    _agree_with_jax([x.numpy() for x in got], want)
+
+
+def test_stage1_routes_by_one_block_capacity():
+    """K2's one block holds (D + 1) * K * C floats of 4 bytes beside its
+    static shared arrays within 227 KiB: toy2 at the CLI's 2048 chains per
+    model does not fit (K3), the tutorial at 1024 does (K2).  At toy2's
+    bound the static arrays decide: 1930 chains per model would fit the
+    dynamic part alone."""
+    assert not fused_stage1.fits_one_block(5, 5, 2048)
+    assert fused_stage1.fits_one_block(5, 5, 1024)
+    assert fused_stage1.fits_one_block(3, 2, 1024)
+    assert fused_stage1.fits_one_block(5, 5, 1929)
+    assert 6 * 5 * 1930 * 4 <= fused_stage1._MAX_SMEM
+    assert not fused_stage1.fits_one_block(5, 5, 1930)
+    before = (fused_stage1.segment.launches, fused_stage1.sweep.launches)
+    cfg = dataclasses.replace(EngineConfig(seed=1), n_chains_stage1=16)
+    rwm.run_stage1(toy.toy2_set(), cfg, torch.Generator(), 20, "cpu")
+    # the CPU path runs the twins and counts no launch
+    assert (fused_stage1.segment.launches,
+            fused_stage1.sweep.launches) == before
