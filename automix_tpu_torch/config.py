@@ -2,8 +2,8 @@
 
 Counterpart of ``automix_tpu/config.py``.  The constants are the same
 numbers, and every knob the port honours has the JAX default.  The knobs
-that select a path the port has not ported yet (pooled pk, HMC, the log
-stage-1 rule) are rejected with ``NotImplementedError``.
+that select a path the port has not ported yet (HMC, the log stage-1
+rule) are rejected with ``NotImplementedError``.
 
 The port has a single engine: the semantics of the JAX package's fused
 kernels in their counter-hash (``fused_rng="hash"``) mode.  There is no
@@ -42,19 +42,24 @@ EM_DEGENERATE_PENALTY = -500.0
 # yet, with the value that keeps the ported path.
 _UNPORTED = {
     "within_move": "rwm",
-    "pk_mode": "per_chain",
     "stage1_adapt": "aap",
 }
+
+# Stage-3 pk adaptation scopes (automix_tpu/config.py pk_mode): every chain
+# adapts its own pk, or one shared pk adapts from the population's visit
+# histogram (automix.c:1258-1281).
+PK_MODES = ("per_chain", "pooled")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static configuration of the ported engine (float32, per-chain pk,
-    counter-hash randomness).  Field meanings and defaults are those of
+    """Static configuration of the ported engine (float32, counter-hash
+    randomness).  Field meanings and defaults are those of
     the JAX ``EngineConfig``."""
 
     seed: int
     adapt: bool                   # pk diminishing adaptation in stage 3
+    pk_mode: str                  # "per_chain" or "pooled"
     perm: bool                    # permute the RJ latent (doPerm)
     student_t_dof: int            # Student-t perturbations; 0 = Normal
     mix_fit: str                  # "figueiredo" or "autorj"
@@ -71,7 +76,8 @@ class EngineConfig:
     trace_every: int              # sweeps between trace records
     dtype: torch.dtype
 
-    def __init__(self, seed: int = 0, adapt: bool = True, perm: bool = False,
+    def __init__(self, seed: int = 0, adapt: bool = True,
+                 pk_mode: str = "per_chain", perm: bool = False,
                  student_t_dof: int = 0, mix_fit: str = FIGUEIREDO_MIX_FIT,
                  max_mix_comps: int = 30, max_em_iters: int = 5000,
                  n_chains: int = 4096, n_chains_stage1: int = 2048,
@@ -87,6 +93,8 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to automix_tpu_torch "
                     f"yet (only {name}={_UNPORTED[name]!r})")
+        if pk_mode not in PK_MODES:
+            raise ValueError(f"unknown pk_mode {pk_mode!r}")
         if mix_fit not in (FIGUEIREDO_MIX_FIT, AUTORJ_MIX_FIT):
             raise ValueError(f"unknown mix_fit {mix_fit!r}")
         if dtype != torch.float32:
@@ -99,7 +107,7 @@ class EngineConfig:
             raise ValueError("trace_every must be >= 1")
         if student_t_dof < 0:
             raise ValueError("student_t_dof must be >= 0")
-        fields = dict(seed=seed, adapt=adapt, perm=perm,
+        fields = dict(seed=seed, adapt=adapt, pk_mode=pk_mode, perm=perm,
                       student_t_dof=student_t_dof, mix_fit=mix_fit,
                       max_mix_comps=max_mix_comps, max_em_iters=max_em_iters,
                       n_chains=n_chains, n_chains_stage1=n_chains_stage1,

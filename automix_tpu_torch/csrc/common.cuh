@@ -5,9 +5,9 @@
 // densities of the ported problems, each in the operation order of its twin
 // in the JAX package (automix_tpu/kernels/fused.py
 // _triple32/_lowbias32/_u01/_gumbel/lat_lpdf/t_draw, automix_tpu/ops/
-// plmath.py pal_gammaln, automix_tpu/models/builtin.py and toy.py column
-// forms) and in this package's torch versions (ops/randoms.py,
-// ops/plmath.py, models/builtin.py, models/toy.py).
+// plmath.py pal_gammaln, automix_tpu/models/builtin.py, toy.py and rb9.py
+// column forms) and in this package's torch versions (ops/randoms.py,
+// ops/plmath.py, models/builtin.py, models/toy.py, models/rb9.py).
 //
 // Floating point: the kernels are built without --use_fast_math (logf,
 // expf, log1pf, cosf, sinf are the accurate library versions) and with
@@ -35,11 +35,17 @@
 #define AM_KIND_BETA_SAMPLER 6
 #define AM_KIND_MIXTURE 7
 #define AM_KIND_TOY2 8
+#define AM_KIND_RB9 9
 
 // AM_SHAPES(X): the (K, D) model-set shapes every kernel is instantiated
 // for, generated at build time from automix_tpu_torch/kernels/_build.py
 // SHAPES.
 #include "am_shapes.h"
+
+// The rb9 family's data (per-group sufficient statistics, distinct counts
+// and multiplicities, hyperparameters), generated at build time from
+// automix_tpu_torch/models/rb9.py header().
+#include "am_rb9.h"
 
 __device__ __forceinline__ uint32_t am_triple32(uint32_t x) {
   x ^= x >> 17;
@@ -254,10 +260,71 @@ __device__ __forceinline__ float am_density_toy2(const float* c, int d,
   return am_logaddexp(c1, c2) + c[4];
 }
 
-// Sanitized log-posterior of a model of density ``kind`` and dimension
-// ``dim`` <= D: NaN -> NEG_INF, clamp to [NEG_INF, -NEG_INF] (fmaxf also
-// sends NaN to NEG_INF).
+// rb9 model of dimension d (models/rb9.py family_cols), evaluated for the
+// chain's own model only: the one-hot mask sums of the family form equal
+// this select bit for bit, and every term of another model is an exact
+// zero there.  c = (ql, qk, the 4 groups' rate indices, their dispersion
+// indices, their NB flags, the prior constant).  Every thread of a warp
+// walks the same group and distinct-count loops, so the am_rb9.h tables
+// read as broadcasts.  Out of support: -1e6, as in the family form.
 template <int D>
+__device__ __forceinline__ float am_density_rb9(const float* c, int d,
+                                                const float* th) {
+  const int ql = (int)c[0];
+  bool ok = true;
+  float ths[D], lth[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const bool in = i < d;
+    const bool pos = th[i] > 0.0f;
+    ok = ok && (pos || !in);
+    ths[i] = (pos && in) ? th[i] : 1.0f;
+    lth[i] = in ? logf(ths[i]) : 0.0f;
+  }
+  float lp = c[14];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i >= d) break;
+    const float a = i < ql ? AM_RB9_ALPHA1 : AM_RB9_ALPHA2;
+    const float b = i < ql ? AM_RB9_BETA1 : AM_RB9_BETA2;
+    lp = lp + (a - 1.0f) * lth[i];
+    lp = lp - b * ths[i];
+  }
+#pragma unroll
+  for (int g = 0; g < AM_RB9_G; ++g) {
+    const int li = (int)c[2 + g], ki = (int)c[6 + g];
+    float lam = 1.0f, llam = 0.0f, kap = 1.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (i == li) {
+        lam = ths[i];
+        llam = lth[i];
+      }
+      if (i == ki) kap = ths[i];
+    }
+    const float n = am_rb9_n[g], sx = am_rb9_sx[g];
+    const float base = sx * llam - am_rb9_clg[g];
+    if (c[10 + g] != 0.0f) {
+      const float km1 = 1.0f / fmaxf(kap, 1e-30f);
+      float nb = base + n * (km1 * logf(km1) - am_pal_gammaln(km1));
+      nb = nb - (sx + n * km1) * logf(lam + km1);
+      for (int j = am_rb9_off[g]; j < am_rb9_off[g + 1]; ++j)
+        nb = nb + am_rb9_cnt[j] * am_pal_gammaln(am_rb9_val[j] + km1);
+      lp = lp + nb;
+    } else {
+      lp = lp + (base - n * lam);
+    }
+  }
+  return ok ? lp : -1e6f;
+}
+
+// Sanitized log-posterior of a model of density ``kind`` and dimension
+// ``dim`` <= D in a (K, D) model set: NaN -> NEG_INF, clamp to
+// [NEG_INF, -NEG_INF] (fmaxf also sends NaN to NEG_INF).  The rb9 density
+// is compiled into the rb9 family's own shape only: inlined into every
+// instantiation, it raised the tutorial's sweep kernel from 64 to 72
+// registers and slowed it by a quarter.
+template <int K, int D>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
                                             int dim, const float* th) {
   float lp;
@@ -272,6 +339,12 @@ __device__ __forceinline__ float am_logpost(int kind, const float* c,
     case AM_KIND_BETA_SAMPLER: lp = am_density_beta_sampler(c, th[0]); break;
     case AM_KIND_MIXTURE: lp = am_density_mixture<D>(c, dim, th); break;
     case AM_KIND_TOY2: lp = am_density_toy2<D>(c, dim, th); break;
+    case AM_KIND_RB9:
+      if constexpr (K == AM_RB9_K && D == AM_RB9_D)
+        lp = am_density_rb9<D>(c, dim, th);
+      else
+        lp = AM_NEG_INF;
+      break;
     default: lp = AM_NEG_INF; break;
   }
   return fminf(fmaxf(lp, AM_NEG_INF), -AM_NEG_INF);

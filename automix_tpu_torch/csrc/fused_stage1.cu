@@ -86,8 +86,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
       th_s[(size_t)d * N + i] = th[d];
     }
     const int m = i / C;
-    lp_s[i] = am_logpost<D>(kinds_s[m], consts_s + m * AM_N_CONSTS, dims_s[m],
-                         th);
+    lp_s[i] = am_logpost<K, D>(kinds_s[m], consts_s + m * AM_N_CONSTS,
+                               dims_s[m], th);
   }
 
   const int NW = 3 * D;
@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d)
           prop[d] = (d < dm) ? th[d] + sig_s[m * D + d] * z[d] : th[d];
-        float lpn = am_logpost<D>(kind, cm, dm, prop);
+        float lpn = am_logpost<K, D>(kind, cm, dm, prop);
         float acc = (am_u01(am_word(sa, cb)) < am_accept(lpn - lp)) ? 1.0f
                                                                     : 0.0f;
 #pragma unroll
@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
 #pragma unroll
           for (int d = 0; d < D; ++d) prop[d] = th[d];
           prop[j] = th[j] + sig_s[m * D + j] * z[j];
-          float lpn = am_logpost<D>(kind, cm, dm, prop);
+          float lpn = am_logpost<K, D>(kind, cm, dm, prop);
           float acc = (am_u01(am_word(sa, cb + j)) < am_accept(lpn - lp))
                           ? 1.0f
                           : 0.0f;

@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) fused_stage1_sweep_kernel(
     float th[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) th[d] = th_in[(size_t)d * N + i];
-    float lp = seg_start ? am_logpost<D>(kind, cm, dm, th) : lp_in[i];
+    float lp = seg_start ? am_logpost<K, D>(kind, cm, dm, th) : lp_in[i];
     float z[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) fused_stage1_sweep_kernel(
 #pragma unroll
       for (int d = 0; d < D; ++d)
         prop[d] = (d < dm) ? th[d] + sig_s[m * D + d] * z[d] : th[d];
-      float lpn = am_logpost<D>(kind, cm, dm, prop);
+      float lpn = am_logpost<K, D>(kind, cm, dm, prop);
       float acc = (am_u01(am_word(sa, cb)) < am_accept(lpn - lp)) ? 1.0f
                                                                   : 0.0f;
 #pragma unroll
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) fused_stage1_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
         prop[j] = th[j] + sig_s[m * D + j] * z[j];
-        float lpn = am_logpost<D>(kind, cm, dm, prop);
+        float lpn = am_logpost<K, D>(kind, cm, dm, prop);
         float acc = (am_u01(am_word(sa, cb + j)) < am_accept(lpn - lp))
                         ? 1.0f
                         : 0.0f;

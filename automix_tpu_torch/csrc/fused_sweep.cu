@@ -2,19 +2,46 @@
 //
 // Replaces the Pallas kernel of automix_tpu/kernels/fused.py
 // (build_fused_chunk_runner._built -> kernel, pallas_call at line 859)
-// with per-chain pk, stateless column densities and counter-hash
-// randomness, in four variants: Normal or Student-t perturbations
-// (AM_TDIST: Bailey polar draws and the t latent density) and with or
-// without the latent permutation (AM_PERM: the stable bubble network over
-// per-slot uniform keys).  Each variant is its own compilation unit and
-// exports its launcher as AM_K1_SYMBOL.  The plain PyTorch twin is
-// automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
+// with stateless column densities and counter-hash randomness, in four
+// variants: Normal or Student-t perturbations (AM_TDIST: Bailey polar
+// draws and the t latent density) and with or without the latent
+// permutation (AM_PERM: the stable bubble network over per-slot uniform
+// keys).  Each variant is its own compilation unit and exports three
+// functions: the per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1
+// and adapt = 0 it is also the per-sweep kernel of the pooled runner, K1d,
+// the JAX _built(1, L, S, False)), the pooled-pk launcher AM_K1C_SYMBOL
+// (K1c, the JAX in-kernel pooled branch, fused.py:773-779) and
+// AM_K1C_CAP_SYMBOL, the number of chains K1c can hold resident.  The
+// plain PyTorch twin is automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
-// pkllim, nreinit) and its chunk statistics stay in registers for the whole
-// chunk; device memory sees one read and one write of the state per chunk.
-// The proposal tables (K*L*(2D^2+D+3)+K*D floats, under 38 KB at K = D = 5
-// and L = 32) are copied to shared memory once per block.
+// pkllim, nreinit) stays in registers for the whole chunk; device memory
+// sees one read and one write of the state per chunk.  The proposal tables
+// (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5,
+// L = 32) are copied to shared memory once per block.  The chunk sums
+// (K visit counts, 2*K*D theta sums) stay in registers up to K*D = 25; above
+// that (rb9, K*D = 50) they would take 110 registers of the 255 a thread
+// has, so each thread keeps them in its own column of shared memory
+// (kThreads * (2*K*D + K) * 4 bytes, 56 KB at rb9) and adds to its own
+// model's entries only: the twin's 0 * theta additions are exact.
+//
+// K1c: the JAX kernel keeps the population in one lane block, so its
+// visit histogram is a cross-lane sum.  Here the population spans many
+// blocks, so K1c is a cooperative launch over blocks that the card holds
+// resident at once (the launcher refuses a population above that bound;
+// nothing falls back).  Each sweep, after the RJ accept, every warp counts
+// its chains per model with ballots, every block adds its counts to a
+// shared histogram and then, with one atomicAdd per model, to this sweep's
+// global histogram (three buffers in turn: the one read in the previous
+// sweep is zeroed after this sweep's grid barrier, when nobody reads it
+// any more and before anybody writes it again); after the grid barrier
+// every thread reads the counts and applies the update of fused.py:768-792
+// with oh = count * (1/S).  Integer counts make the update exact and
+// independent of order, so K1c equals the per-sweep runner (K1d) and the
+// twin bit for bit.  The gain of each sweep comes from the gains table of
+// the runner (kernels/fused.py pk_gains), which K1d uses too.  Threads
+// past S run a copy of chain 0, count nothing and store nothing: they
+// must reach every barrier.
 //
 // What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads
 // and writes nothing in device memory and costs ~NW hash words (NW = 3D+1+
@@ -34,6 +61,7 @@
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -47,17 +75,40 @@
 #ifndef AM_K1_SYMBOL
 #define AM_K1_SYMBOL am_fused_sweep_p0_t0
 #endif
+#ifndef AM_K1C_SYMBOL
+#define AM_K1C_SYMBOL am_fused_sweep_pooled_p0_t0
+#endif
+#ifndef AM_K1C_CAP_SYMBOL
+#define AM_K1C_CAP_SYMBOL am_fused_sweep_pooled_cap_p0_t0
+#endif
 
 namespace {
 
 constexpr int kLMax = 32;        // mixture components per model (runtime L)
 constexpr int kThreads = 128;
+constexpr int kRegSumsMax = 25;  // K*D up to which chunk sums stay in registers
 constexpr bool kPerm = AM_PERM != 0;
 constexpr bool kTdist = AM_TDIST != 0;
 
 template <int K, int D>
+__host__ __device__ constexpr bool smem_sums() {
+  return K * D > kRegSumsMax;
+}
+
+// Dynamic shared memory of one block: the tables, then the chunk sums
+// when they live there.
+template <int K, int D>
+size_t sweep_smem(int L) {
+  const int KL = K * L;
+  size_t n = (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
+  if (smem_sums<K, D>()) n += (size_t)(2 * K * D + K) * kThreads;
+  return sizeof(float) * n;
+}
+
+template <int K, int D, bool kPooled>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
+    const float* __restrict__ gains, int* __restrict__ ghist, float inv_S,
     const float* __restrict__ tab, const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,
     const int* __restrict__ k_in, const float* __restrict__ th_in,
@@ -75,6 +126,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   __shared__ float consts_s[K * AM_N_CONSTS];
   __shared__ int kinds_s[K];
   __shared__ int dims_s[K];
+  __shared__ int hist_s[K];
   const int KL = K * L;
   const int n_tab = K * D + 3 * KL + KL * D + 2 * KL * D * D;
   for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
@@ -83,6 +135,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int m = threadIdx.x; m < K; m += blockDim.x) {
     kinds_s[m] = kinds_g[m];
     dims_s[m] = dims_g[m];
+    hist_s[m] = 0;
   }
   __syncthreads();
   const float* sig = smem;
@@ -94,28 +147,45 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   const float* Bm = binv + KL * D * D;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S) return;
+  const bool valid = i < S;
+  if (!kPooled && !valid) return;
+  const int ci = valid ? i : 0;    // K1c: threads past S copy chain 0
 
   // ---- chain state into registers -----------------------------------------
-  int kk = k_in[i];
+  int kk = k_in[ci];
   float th[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) th[d] = th_in[d * S + i];
-  float lp = lp_in[i];
+  for (int d = 0; d < D; ++d) th[d] = th_in[d * S + ci];
+  float lp = lp_in[ci];
   float pk[K];
 #pragma unroll
-  for (int m = 0; m < K; ++m) pk[m] = pk_in[m * S + i];
-  float pkl = pkl_in[i];
-  int nri = nri_in[i];
-  int ks[K];
-  float ts[K * D], tq[K * D];
+  for (int m = 0; m < K; ++m) pk[m] = pk_in[m * S + ci];
+  float pkl = pkl_in[ci];
+  int nri = nri_in[ci];
+  // chunk sums: registers, or this thread's column of shared memory
+  constexpr bool kSmemSums = smem_sums<K, D>();
+  constexpr int kRegSums = kSmemSums ? 1 : K * D;
+  int ks[kSmemSums ? 1 : K];
+  float ts[kRegSums], tq[kRegSums];
+  float* ts_s = smem + n_tab;
+  float* tq_s = ts_s + K * D * kThreads;
+  int* ks_s = reinterpret_cast<int*>(tq_s + K * D * kThreads);
+  const int col = threadIdx.x;
+  if constexpr (kSmemSums) {
+    for (int j = 0; j < K * D; ++j) {
+      ts_s[j * kThreads + col] = 0.0f;
+      tq_s[j * kThreads + col] = 0.0f;
+    }
+    for (int m = 0; m < K; ++m) ks_s[m * kThreads + col] = 0;
+  } else {
 #pragma unroll
-  for (int m = 0; m < K; ++m) {
-    ks[m] = 0;
+    for (int m = 0; m < K; ++m) {
+      ks[m] = 0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      ts[m * D + d] = 0.0f;
-      tq[m * D + d] = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        ts[m * D + d] = 0.0f;
+        tq[m * D + d] = 0.0f;
+      }
     }
   }
   int cnt[6] = {0, 0, 0, 0, 0, 0};
@@ -163,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       for (int d = 0; d < D; ++d)
         prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(sa, d) : th[d];
       float lpn =
-          am_logpost<D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
+          am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
       float acc = (am_u01(am_word(sa, cbase)) < am_accept(lpn - lp)) ? 1.0f
                                                                       : 0.0f;
 #pragma unroll
@@ -179,8 +249,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
         prop[j] = th[j] + sig[kk * D + j] * z_rwm(sa, j);
-        float lpn =
-            am_logpost<D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
+        float lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS,
+                                     dk, prop);
         float acc = (am_u01(am_word(sa, cbase + j)) < am_accept(lpn - lp))
                         ? 1.0f
                         : 0.0f;
@@ -361,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 
     // MH accept
     const float lpn =
-        am_logpost<D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
+        am_logpost<K, D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
     logratio = logratio + (lpn - lp);
     logratio = logratio + (log_pallocn - log_palloc);
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
@@ -377,12 +447,36 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 
     // ---- (c) pk diminishing adaptation with the re-init safeguard --------
     if (adapt && K > 1) {
-      const float gamma = am_gain(t);
+      // K1c: this sweep's population histogram (header note)
+      const int* gh = nullptr;
+      if constexpr (kPooled) {
+        gh = ghist + (tr % 3) * K;
+        const int lane = threadIdx.x & 31;
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const unsigned b = __ballot_sync(0xffffffffu, valid && kk == m);
+          if (lane == 0 && b != 0u) atomicAdd(&hist_s[m], __popc(b));
+        }
+        __syncthreads();
+        if (threadIdx.x < K) {
+          const int c = hist_s[threadIdx.x];
+          hist_s[threadIdx.x] = 0;
+          if (c != 0) atomicAdd(ghist + (tr % 3) * K + threadIdx.x, c);
+        }
+        cooperative_groups::this_grid().sync();
+        if (blockIdx.x == 0 && threadIdx.x < K)
+          ghist[((tr + 2) % 3) * K + threadIdx.x] = 0;
+      }
+      const float gamma = kPooled ? gains[tr] : am_gain(t);
       float newpk[K];
       bool reinit = false;
 #pragma unroll
       for (int m = 0; m < K; ++m) {
-        float oh = (kk == m) ? 1.0f : 0.0f;
+        float oh;
+        if constexpr (kPooled)
+          oh = (float)__ldcg(gh + m) * inv_S;
+        else
+          oh = (kk == m) ? 1.0f : 0.0f;
         newpk[m] = pk[m] + gamma * (oh - pk[m]);
         reinit = reinit || (newpk[m] < pkl);
       }
@@ -395,14 +489,25 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     }
 
     // ---- chunk statistics -------------------------------------------------
-#pragma unroll
-    for (int m = 0; m < K; ++m) {
-      if (m != kk) continue;
-      ks[m] += 1;
+    if constexpr (kSmemSums) {
+      ks_s[kk * kThreads + col] += 1;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        ts[m * D + d] = ts[m * D + d] + th[d];
-        tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
+        float* a = ts_s + (kk * D + d) * kThreads + col;
+        float* q = tq_s + (kk * D + d) * kThreads + col;
+        *a = *a + th[d];
+        *q = *q + th[d] * th[d];
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        if (m != kk) continue;
+        ks[m] += 1;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          ts[m * D + d] = ts[m * D + d] + th[d];
+          tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
+        }
       }
     }
     cnt[4] += acci;
@@ -410,52 +515,131 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   }
 
   // ---- state and per-chain statistics out -----------------------------------
+  if (!valid) return;
   k_out[i] = kk;
 #pragma unroll
   for (int d = 0; d < D; ++d) th_out[d * S + i] = th[d];
   lp_out[i] = lp;
 #pragma unroll
-  for (int m = 0; m < K; ++m) {
-    pk_out[m * S + i] = pk[m];
-    ks_out[m * S + i] = ks[m];
-  }
+  for (int m = 0; m < K; ++m) pk_out[m * S + i] = pk[m];
   pkl_out[i] = pkl;
   nri_out[i] = nri;
+  if constexpr (kSmemSums) {
+    for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks_s[m * kThreads + col];
+    for (int j = 0; j < K * D; ++j) {
+      ts_out[j * S + i] = ts_s[j * kThreads + col];
+      tq_out[j * S + i] = tq_s[j * kThreads + col];
+    }
+  } else {
 #pragma unroll
-  for (int j = 0; j < K * D; ++j) {
-    ts_out[j * S + i] = ts[j];
-    tq_out[j * S + i] = tq[j];
+    for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks[m];
+#pragma unroll
+    for (int j = 0; j < K * D; ++j) {
+      ts_out[j * S + i] = ts[j];
+      tq_out[j * S + i] = tq[j];
+    }
   }
 #pragma unroll
   for (int c = 0; c < 6; ++c) cnt_out[c * S + i] = cnt[c];
 }
 
+// Kernel arguments after the launch configuration, in the kernel's order.
+struct SweepArgs {
+  int S, L;
+  unsigned int seed;
+  int sweep0, n_sweeps, adapt;
+  AmT tc;
+  const float* gains;
+  int* ghist;
+  float inv_S;
+  const float* tab;
+  const int *kinds, *dims;
+  const float* consts;
+  const int* k_in;
+  const float *th_in, *lp_in, *pk_in, *pkl_in;
+  const int* nri_in;
+  int* k_out;
+  float *th_out, *lp_out, *pk_out, *pkl_out;
+  int *nri_out, *ks_out;
+  float *ts_out, *tq_out;
+  int* cnt_out;
+};
+
+template <int K, int D, bool kPooled>
+cudaError_t set_smem(int L) {
+  return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sweep_smem<K, D>(L));
+}
+
+// Chains K1c can hold resident at once on the current device at this L:
+// blocks per SM (occupancy at the kernel's registers and shared memory)
+// times SMs times kThreads; 0 where the device has no cooperative launch.
 template <int K, int D>
-int launch_sweep(int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-                 int adapt, AmT tc, const void* tab, const void* kinds,
-                 const void* consts, const void* dims, const void* k_in,
-                 const void* th_in, const void* lp_in, const void* pk_in,
-                 const void* pkl_in, const void* nri_in, void* k_out,
-                 void* th_out, void* lp_out, void* pk_out, void* pkl_out,
-                 void* nri_out, void* ks_out, void* ts_out, void* tq_out,
-                 void* cnt_out, cudaStream_t st) {
-  const int KL = K * L;
-  const size_t smem =
-      sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_sweep_kernel<K, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+int pooled_capacity(int L, int* chains) {
+  cudaError_t e = set_smem<K, D, true>(L);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  fused_sweep_kernel<K, D><<<grid, kThreads, smem, st>>>(
-      S, L, seed, sweep0, n_sweeps, adapt, tc, (const float*)tab,
-      (const int*)kinds, (const float*)consts, (const int*)dims,
-      (const int*)k_in, (const float*)th_in, (const float*)lp_in,
-      (const float*)pk_in, (const float*)pkl_in, (const int*)nri_in,
-      (int*)k_out, (float*)th_out, (float*)lp_out, (float*)pk_out,
-      (float*)pkl_out, (int*)nri_out, (int*)ks_out, (float*)ts_out,
-      (float*)tq_out, (int*)cnt_out);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_sweep_kernel<K, D, true>, kThreads,
+      sweep_smem<K, D>(L));
+  if (e != cudaSuccess) return (int)e;
+  *chains = coop ? per_sm * sms * kThreads : 0;
+  return 0;
+}
+
+template <int K, int D, bool kPooled>
+int launch_sweep(SweepArgs a, cudaStream_t st) {
+  cudaError_t e = set_smem<K, D, kPooled>(a.L);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.S + kThreads - 1) / kThreads);
+  const size_t smem = sweep_smem<K, D>(a.L);
+  if constexpr (kPooled) {
+    // refuse a population the card cannot hold resident
+    int cap = 0;
+    const int rc = pooled_capacity<K, D>(a.L, &cap);
+    if (rc != 0) return rc;
+    if (a.S > cap) return -2;
+    void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
+                    &a.tc, &a.gains, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
+                    &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
+                    &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
+                    &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
+                    &a.ts_out, &a.tq_out, &a.cnt_out};
+    e = cudaLaunchCooperativeKernel(
+        (const void*)fused_sweep_kernel<K, D, true>, grid, dim3(kThreads),
+        args, smem, st);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
+        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.gains,
+        a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
+        a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
+        a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
+        a.cnt_out);
+  }
   return (int)cudaGetLastError();
+}
+
+AmT t_consts(const float* tconsts) {
+  AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
+                     tconsts[4]};
+  return tc;
+}
+
+template <bool kPooled>
+int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
+#define AM_CASE(k, d) \
+  if (K == k && D == d) return launch_sweep<k, d, kPooled>(a, st);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
 }
 
 }  // namespace
@@ -475,17 +659,51 @@ extern "C" int AM_K1_SYMBOL(
     void* ts_out, void* tq_out, void* cnt_out, void* stream) {
   if (L < 1 || L > kLMax || S < 1) return -1;
   if (kTdist && !tconsts) return -1;
-  AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
-                     tconsts[4]};
-  cudaStream_t st = (cudaStream_t)stream;
-#define AM_CASE(k, d)                                                      \
-  if (K == k && D == d)                                                    \
-    return launch_sweep<k, d>(S, L, seed, sweep0, n_sweeps, adapt, tc, tab, \
-                              kinds, consts, dims, k_in, th_in, lp_in,     \
-                              pk_in, pkl_in, nri_in, k_out, th_out,        \
-                              lp_out, pk_out, pkl_out, nri_out, ks_out,    \
-                              ts_out, tq_out, cnt_out, st);
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, t_consts(tconsts),
+                 nullptr, nullptr, 0.0f,
+                 (const float*)tab, (const int*)kinds, (const int*)dims,
+                 (const float*)consts, (const int*)k_in,
+                 (const float*)th_in, (const float*)lp_in,
+                 (const float*)pk_in, (const float*)pkl_in,
+                 (const int*)nri_in, (int*)k_out, (float*)th_out,
+                 (float*)lp_out, (float*)pk_out, (float*)pkl_out,
+                 (int*)nri_out, (int*)ks_out, (float*)ts_out,
+                 (float*)tq_out, (int*)cnt_out};
+  return dispatch<false>(K, D, a, (cudaStream_t)stream);
+}
+
+// K1c: the same sweeps with pooled pk adaptation (adapt must be 1).
+// ``gains`` is a device float[n_sweeps] of the sweeps' gains, ``ghist`` a
+// zeroed device int[3 * K], ``inv_S`` float32(1 / S).  Returns -2 when S
+// exceeds the chains the card holds resident (AM_K1C_CAP_SYMBOL).
+extern "C" int AM_K1C_SYMBOL(
+    int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
+    const float* tconsts, const void* gains, void* ghist, float inv_S,
+    const void* tab, const void* kinds, const void* consts, const void* dims,
+    const void* k_in, const void* th_in, const void* lp_in,
+    const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
+    void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
+    void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
+  if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
+  if (kTdist && !tconsts) return -1;
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, t_consts(tconsts),
+                 (const float*)gains, (int*)ghist, inv_S,
+                 (const float*)tab, (const int*)kinds, (const int*)dims,
+                 (const float*)consts, (const int*)k_in,
+                 (const float*)th_in, (const float*)lp_in,
+                 (const float*)pk_in, (const float*)pkl_in,
+                 (const int*)nri_in, (int*)k_out, (float*)th_out,
+                 (float*)lp_out, (float*)pk_out, (float*)pkl_out,
+                 (int*)nri_out, (int*)ks_out, (float*)ts_out,
+                 (float*)tq_out, (int*)cnt_out};
+  return dispatch<true>(K, D, a, (cudaStream_t)stream);
+}
+
+// Chains K1c can hold resident at (K, D, L) on the current device.
+extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int* chains) {
+  if (L < 1 || L > kLMax) return -1;
+#define AM_CASE(k, d) \
+  if (K == k && D == d) return pooled_capacity<k, d>(L, chains);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;

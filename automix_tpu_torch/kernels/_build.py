@@ -7,7 +7,8 @@ kernel one unit per perm / Student-t variant) is compiled by its own
 ``nvcc`` process, all started together, then linked.  The (K, D) shapes
 the kernels are instantiated for are :data:`SHAPES`, written for the
 compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
-``csrc/common.cuh`` includes).  The library is
+``csrc/common.cuh`` includes); the rb9 family's data are written into a
+generated ``am_rb9.h`` from ``models/rb9.py``.  The library is
 cached under ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source builds anew; the
 compilers' output (``ptxas -v`` register and spill counts) is kept beside
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 # The (K, D) model-set shapes every kernel is instantiated for.
-SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5))
+SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5))
 
 
 def shapes_header() -> str:
@@ -43,15 +44,28 @@ def shapes_header() -> str:
             f"#define AM_SHAPES(X) {cases}\n")
 
 
-def sweep_symbol(perm: bool, tdist: bool) -> str:
-    """Exported name of the stage-3 sweep launcher of one variant."""
-    return f"am_fused_sweep_p{int(perm)}_t{int(tdist)}"
+def generated_headers() -> dict:
+    """The generated headers by file name: ``am_shapes.h`` and
+    ``am_rb9.h``."""
+    from automix_tpu_torch.models import rb9
+    return {"am_shapes.h": shapes_header(), "am_rb9.h": rb9.header()}
+
+
+def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
+    """Exported name of a stage-3 sweep function of one variant: the
+    per-chain launcher (``kind=""``), the pooled launcher (``"pooled"``)
+    or the pooled capacity query (``"pooled_cap"``)."""
+    infix = f"_{kind}" if kind else ""
+    return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
 
 
 # (source, preprocessor definitions) of each compilation unit.
 _UNITS = tuple(
     ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}",
-                        f"-DAM_K1_SYMBOL={sweep_symbol(p, t)}"))
+                        f"-DAM_K1_SYMBOL={sweep_symbol(p, t)}",
+                        f"-DAM_K1C_SYMBOL={sweep_symbol(p, t, 'pooled')}",
+                        "-DAM_K1C_CAP_SYMBOL="
+                        f"{sweep_symbol(p, t, 'pooled_cap')}"))
     for p in (0, 1) for t in (0, 1)) + (
     ("fused_stage1.cu", ()),
     ("fused_stage1_sweep.cu", ()),
@@ -63,9 +77,15 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
+       for p in (0, 1) for t in (0, 1)},
+    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
+       + [_P, _P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
+       for p in (0, 1) for t in (0, 1)},
+    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)},
     "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
@@ -107,7 +127,9 @@ def _source_hash() -> str:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(repr((NVCC_FLAGS, _UNITS)).encode())
-    h.update(shapes_header().encode())
+    for name, text in sorted(generated_headers().items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return h.hexdigest()[:16]
 
 
@@ -121,7 +143,8 @@ def build() -> Path:
     nvcc = _nvcc()
     work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
     work.mkdir(exist_ok=True)
-    (work / "am_shapes.h").write_text(shapes_header())
+    for name, text in generated_headers().items():
+        (work / name).write_text(text)
     jobs = []
     try:
         for i, (src, defines) in enumerate(_UNITS):
@@ -176,5 +199,8 @@ def check(status: int, name: str):
     error."""
     if status == -1:
         raise ValueError(f"{name}: shape not instantiated in the kernel")
+    if status == -2:
+        raise ValueError(f"{name}: more chains than the card holds resident "
+                         "for a cooperative launch")
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")

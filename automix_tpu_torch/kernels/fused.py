@@ -1,10 +1,22 @@
 """Stage 3: reversible-jump sweeps, a whole chunk per kernel launch.
 
-Counterpart of ``automix_tpu/kernels/fused.py`` with per-chain pk,
-stateless column densities and ``hash`` randomness, with or without perm
-and Student-t: ``_prep_tables``, the chunk runner of
-``_compiled``/``runner``, and the sweep kernel itself, which is
+Counterpart of ``automix_tpu/kernels/fused.py`` with stateless column
+densities and ``hash`` randomness, with or without perm and Student-t:
+``_prep_tables``, the chunk runners of ``_compiled``, ``_compiled_pooled``
+and ``runner``, and the sweep kernel itself, which is
 ``csrc/fused_sweep.cu`` on the card and :func:`sweep_chunk_ref` on the CPU.
+
+Pooled pk (``pk_mode="pooled"``: one shared pk adapted from the
+population's visit histogram, automix.c:1258-1281) takes one of two
+routes while it adapts.  K1c (:func:`sweep_chunk` with ``pooled=True``)
+does the update inside the kernel, a cooperative launch over every chain,
+for a population the card holds resident at once
+(:func:`pooled_capacity`).  A larger population takes K1d
+(:func:`pooled_sweeps`): one launch of the per-chain kernel per sweep with
+pk frozen, and the shared update between launches in plain torch on the
+device, as the JAX ``_compiled_pooled``.  The two routes give bitwise the
+same chains.  Burn-in and ``adapt=False`` runs keep the per-chunk kernel,
+pk being frozen.
 
 Chain i draws its words at hash counters i * NW + slot, which is the JAX
 kernel's chain_id for the flat chain index.  The slots follow the JAX
@@ -21,6 +33,7 @@ with ``torch.sum`` outside the kernel, as JAX reduces them outside its
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -117,16 +130,28 @@ def word_slots(K: int, D: int, L: int, perm: bool, tdist: bool):
     return s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW
 
 
+def pk_gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
+    """float32 [n_sweeps] gains gamma_t = (t + 1)^(-2/3) of the pooled
+    update for sweeps sweep0 ...: computed in float64 as exp(-2/3 log(t +
+    1)) and rounded once, so that a gain does not depend on how a run is
+    cut into chunks.  K1c, its twin and the K1d runner all read it."""
+    t = torch.arange(sweep0, sweep0 + n_sweeps, dtype=torch.float64,
+                     device=device)
+    return torch.exp((-2.0 / 3.0) * torch.log(t + 1.0)).to(torch.float32)
+
+
 def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                     tables: SweepTables, *, seed: int, sweep0: int,
                     n_sweeps: int, adapt: bool, perm: bool = False,
-                    tdist=None):
+                    tdist=None, pooled: bool = False, gains=None):
     """Plain PyTorch twin of the sweep kernel: ``n_sweeps`` sweeps (global
     sweeps sweep0 ...) of every chain.  ``theta`` is [D, S] and ``pk``
     [K, S]; ``perm`` permutes the RJ latent and ``tdist`` (a
-    ``randoms.StudentT``) selects Student-t perturbations.  Returns (k,
-    theta, logp, pk, pkllim, nreinit, ksum [K, S], tsum [K*D, S],
-    tqsum [K*D, S], cnt [6, S])."""
+    ``randoms.StudentT``) selects Student-t perturbations.  ``pooled``
+    (K1c's twin) adapts pk from the population's visit histogram with the
+    :func:`pk_gains` ``gains``; every row of pk, pkllim and nreinit then
+    stays equal.  Returns (k, theta, logp, pk, pkllim, nreinit, ksum
+    [K, S], tsum [K*D, S], tqsum [K*D, S], cnt [6, S])."""
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -140,6 +165,7 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     binv4 = tables.binv.reshape(K, L, D, D)
     B4 = tables.B.reshape(K, L, D, D)
     inv_k = torch.tensor(1.0 / K, dtype=f32, device=dev)
+    inv_s = torch.tensor(1.0 / S, dtype=f32, device=dev)
 
     kk = k.long()
     th = [theta[d].clone() for d in range(D)]
@@ -274,10 +300,14 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
 
         # (c) pk diminishing adaptation with the re-init safeguard
         if adapt and K > 1:
-            tf = torch.tensor(float(t), dtype=f32, device=dev)
-            gamma = torch.exp((-2.0 / 3.0) * torch.log(tf + 1.0))
-            newpk = [pkv[m] + gamma * ((kk == m).to(f32) - pkv[m])
-                     for m in range(K)]
+            if pooled:
+                gamma = gains[tr]
+                oh = [(kk == m).sum().to(f32) * inv_s for m in range(K)]
+            else:
+                tf = torch.tensor(float(t), dtype=f32, device=dev)
+                gamma = torch.exp((-2.0 / 3.0) * torch.log(tf + 1.0))
+                oh = [(kk == m).to(f32) for m in range(K)]
+            newpk = [pkv[m] + gamma * (oh[m] - pkv[m]) for m in range(K)]
             reinit = newpk[0] < pkl
             for m in range(1, K):
                 reinit = reinit | (newpk[m] < pkl)
@@ -301,18 +331,39 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
             nri, ks, ts, tq, cnt)
 
 
+def pooled_capacity(modelset, L: int, device, perm: bool = False,
+                    tdist=None) -> int:
+    """Chains the pooled kernel (K1c) can hold resident on the card at
+    once at this proposal size L: the CUDA occupancy of the kernel's
+    block times the SM count times its threads.  The routing bound of
+    pooled runs."""
+    K, D = modelset.nmodels, modelset.dmax
+    _build.check_shape(K, D, "pooled_capacity")
+    chains = ctypes.c_int()
+    symbol = _build.sweep_symbol(perm, tdist is not None, "pooled_cap")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            K, D, L, ctypes.byref(chains)), symbol)
+    return chains.value
+
+
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
                 n_sweeps: int, adapt: bool, perm: bool = False,
-                tdist=None):
+                tdist=None, pooled: bool = False, gains=None):
     """``n_sweeps`` stage-3 sweeps of every chain: the CUDA kernel for
     tensors on the card, its plain twin for tensors on the CPU.  Same
-    arguments and results as :func:`sweep_chunk_ref`."""
+    arguments and results as :func:`sweep_chunk_ref`.  ``pooled`` launches
+    K1c (counted in ``sweep_chunk.pooled_launches``), whose launcher
+    refuses a population above :func:`pooled_capacity` (then this
+    raises); the per-chain kernel counts in ``sweep_chunk.launches``."""
+    if pooled and not (adapt and modelset.nmodels > 1):
+        raise ValueError("sweep_chunk: pooled pk needs adapt and K > 1")
     if k.device.type == "cpu":
         return sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                                tables, seed=seed, sweep0=sweep0,
                                n_sweeps=n_sweeps, adapt=adapt, perm=perm,
-                               tdist=tdist)
+                               tdist=tdist, pooled=pooled, gains=gains)
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -342,31 +393,134 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
             torch.empty((K * D, S), dtype=f32, device=dev),
             torch.empty((K * D, S), dtype=f32, device=dev),
             torch.empty((6, S), dtype=i32, device=dev))
+    state = (tab.data_ptr(), kinds.data_ptr(), consts.data_ptr(),
+             dims.data_ptr(), k.data_ptr(), theta.data_ptr(),
+             logp.data_ptr(), pk.data_ptr(), pkllim.data_ptr(),
+             nreinit.data_ptr(), *[o.data_ptr() for o in outs],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if pooled:
+        if (gains is None or gains.device != dev or gains.dtype != f32
+                or tuple(gains.shape) != (n_sweeps,)):
+            raise ValueError(f"sweep_chunk: gains must be a float32 "
+                             f"({n_sweeps},) tensor on {dev}")
+        ghist = torch.zeros(3 * K, dtype=i32, device=dev)
+        symbol = _build.sweep_symbol(perm, tdist is not None, "pooled")
+        status = getattr(_build.library(), symbol)(
+            K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps,
+            _build.tconsts(tdist), gains.data_ptr(), ghist.data_ptr(),
+            float(torch.tensor(1.0 / S, dtype=f32)), *state)
+        _build.check(status, symbol)
+        sweep_chunk.pooled_launches += 1
+        return outs
     symbol = _build.sweep_symbol(perm, tdist is not None)
-    launch = getattr(_build.library(), symbol)
-    status = launch(
+    status = getattr(_build.library(), symbol)(
         K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
-        _build.tconsts(tdist),
-        tab.data_ptr(), kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
-        k.data_ptr(), theta.data_ptr(), logp.data_ptr(), pk.data_ptr(),
-        pkllim.data_ptr(), nreinit.data_ptr(),
-        *[o.data_ptr() for o in outs],
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.tconsts(tdist), *state)
     _build.check(status, symbol)
     sweep_chunk.launches += 1
     return outs
 
 
 sweep_chunk.launches = 0
+sweep_chunk.pooled_launches = 0
+
+
+def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
+    """The shared pk update of one sweep from its visit histogram (the
+    JAX ``_compiled_pooled`` step, fused.py:1028-1043): ``pk_vec`` [K],
+    ``pkl`` and ``nri`` 0-dim, ``hist`` [K] integer counts, ``gamma`` the
+    sweep's gain, ``inv_s`` and ``inv_k`` float32 1/S and 1/K.  The
+    re-init is a device-side blend, not a host branch, and an arithmetic
+    one as in the kernel.  Returns (pk_vec, pkl, nri)."""
+    f32 = torch.float32
+    oh = hist.to(f32) * inv_s
+    newpk = pk_vec + gamma * (oh - pk_vec)
+    reinit = (newpk < pkl).any()
+    nri = nri + reinit.to(nri.dtype)
+    pkl = torch.where(reinit, 1.0 / (10.0 * nri.to(f32)), pkl)
+    rf = reinit.to(f32)
+    return newpk + rf * (inv_k - newpk), pkl, nri
+
+
+def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
+                  *, seed: int, perm: bool = False, tdist=None,
+                  sweep_fn=None):
+    """K1d, the per-sweep pooled runner (the JAX ``_compiled_pooled``):
+    each sweep one launch of the per-chain kernel with pk frozen (its
+    plain twin on the CPU), then :func:`pooled_update` of the shared pk
+    from the sweep's integer histogram, all on the chains' device with no
+    host sync.  Returns (chains', chunk) as the chunk runner does; the
+    float sums are summed sweep by sweep, so they may differ from K1c's in
+    the last bits.  ``pooled_sweeps.launches`` counts the kernel
+    launches.  ``sweep_fn=sweep_chunk_ref`` is the runner's plain twin on
+    any device."""
+    sweep_fn = sweep_fn or sweep_chunk
+    K, D = modelset.nmodels, modelset.dmax
+    S = chains.n_chains
+    dev = chains.k.device
+    f32, i64 = torch.float32, torch.int64
+    inv_s = torch.tensor(1.0 / S, dtype=f32, device=dev)
+    inv_k = torch.tensor(1.0 / K, dtype=f32, device=dev)
+    gains = pk_gains(chains.sweep, n_sweeps, dev)
+    pk_vec = chains.pk[0].clone()
+    pkl, nri = chains.pkllim[0].clone(), chains.nreinit[0].clone()
+    pk_in = pk_vec[:, None].expand(K, S).contiguous()
+    k, th, lp = chains.k, chains.theta.T.contiguous(), chains.logp
+    ks_a = torch.zeros(K, dtype=i64, device=dev)
+    ts_a = torch.zeros(K * D, dtype=f32, device=dev)
+    tq_a = torch.zeros(K * D, dtype=f32, device=dev)
+    cnt_a = torch.zeros(6, dtype=i64, device=dev)
+    for tr in range(n_sweeps):
+        outs = sweep_fn(modelset, k, th, lp, pk_in, chains.pkllim,
+                        chains.nreinit, tables, seed=seed,
+                        sweep0=chains.sweep + tr, n_sweeps=1, adapt=False,
+                        perm=perm, tdist=tdist)
+        if dev.type == "cuda" and sweep_fn is sweep_chunk:
+            pooled_sweeps.launches += 1
+        k, th, lp = outs[0], outs[1], outs[2]
+        hist = outs[6].sum(dim=1, dtype=i64)
+        ks_a += hist
+        ts_a += outs[7].sum(dim=1)
+        tq_a += outs[8].sum(dim=1)
+        cnt_a += outs[9].sum(dim=1, dtype=i64)
+        pk_vec, pkl, nri = pooled_update(pk_vec, pkl, nri, hist, gains[tr],
+                                         inv_s, inv_k)
+        pk_in.copy_(pk_vec[:, None].expand(K, S))
+    chains_out = Chains(k=k, theta=th.T.contiguous(), logp=lp,
+                        pk=pk_vec[None, :].expand(S, K).contiguous(),
+                        pkllim=pkl.expand(S).contiguous(),
+                        nreinit=nri.expand(S).contiguous(),
+                        sweep=chains.sweep + n_sweeps)
+    return chains_out, _chunk(ks_a, ts_a, tq_a, cnt_a, K, D)
+
+
+pooled_sweeps.launches = 0
+
+
+def _chunk(ks, ts, tq, cnt, K: int, D: int) -> dict:
+    """The chunk statistics from the summed visit counts [K], theta sums
+    [K*D] and counters [6]."""
+    return {
+        "ksummary": ks,
+        "theta_sum": ts.reshape(K, D),
+        "theta_sqsum": tq.reshape(K, D),
+        "naccrwmb": cnt[0], "ntryrwmb": cnt[1],
+        "naccrwms": cnt[2], "ntryrwms": cnt[3],
+        "nacctd": cnt[4], "ntrytd": cnt[5],
+    }
 
 
 def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     """``runner(chains, prop, n_sweeps) -> (chains', chunk)`` where
     ``chunk`` holds device tensors: ksummary [K], theta_sum and
     theta_sqsum [K, D], and the six acceptance counters.  pk adapts only
-    when ``cfg.adapt`` and not burning."""
+    when ``cfg.adapt`` and not burning.  An adapting pooled run takes K1c
+    when the card holds the population resident (on the CPU, where both
+    routes are twins, always) and K1d otherwise or when
+    ``_FORCE_POOLED_SCAN`` is set."""
     K, D = modelset.nmodels, modelset.dmax
     adapt = cfg.adapt and not burning
+    pooled = cfg.pk_mode == "pooled" and adapt and K > 1
     tdist = (randoms.student_t(cfg.student_t_dof)
              if cfg.student_t_dof > 0 else None)
     cache = {}
@@ -379,24 +533,36 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
         return cache["tables"]
 
     def runner(chains: Chains, prop: Proposal, n_sweeps: int):
+        tables = tables_for(prop)
+        dev = chains.k.device
+        gains = None
+        if pooled:
+            L = tables.loglam.shape[1]
+            if _FORCE_POOLED_SCAN or (
+                    dev.type == "cuda" and chains.n_chains > pooled_capacity(
+                        modelset, L, dev, cfg.perm, tdist)):
+                return pooled_sweeps(modelset, chains, tables, n_sweeps,
+                                     seed=int(cfg.seed), perm=cfg.perm,
+                                     tdist=tdist)
+            gains = pk_gains(chains.sweep, n_sweeps, dev)
         outs = sweep_chunk(
             modelset, chains.k, chains.theta.T.contiguous(), chains.logp,
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
-            tables_for(prop), seed=int(cfg.seed), sweep0=chains.sweep,
-            n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist)
+            tables, seed=int(cfg.seed), sweep0=chains.sweep,
+            n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist,
+            pooled=pooled, gains=gains)
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,
                             nreinit=nri2, sweep=chains.sweep + n_sweeps)
-        cnt_tot = cnt2.sum(dim=1, dtype=torch.int64)
-        chunk = {
-            "ksummary": ks2.sum(dim=1, dtype=torch.int64),
-            "theta_sum": ts2.sum(dim=1).reshape(K, D),
-            "theta_sqsum": tq2.sum(dim=1).reshape(K, D),
-            "naccrwmb": cnt_tot[0], "ntryrwmb": cnt_tot[1],
-            "naccrwms": cnt_tot[2], "ntryrwms": cnt_tot[3],
-            "nacctd": cnt_tot[4], "ntrytd": cnt_tot[5],
-        }
-        return chains_out, chunk
+        return chains_out, _chunk(
+            ks2.sum(dim=1, dtype=torch.int64), ts2.sum(dim=1),
+            tq2.sum(dim=1), cnt2.sum(dim=1, dtype=torch.int64), K, D)
 
     return runner
+
+
+# Test hook: send adapting pooled runs to the per-sweep runner (K1d) even
+# where the card holds the population resident, so that its bitwise
+# equality with K1c can be shown (the JAX package's hook of this name).
+_FORCE_POOLED_SCAN = False

@@ -61,11 +61,17 @@ def sanitize(lp):
 
 
 class ModelSet:
-    """A fixed collection of models padded to a common ``dmax``."""
+    """A fixed collection of models padded to a common ``dmax``.
 
-    def __init__(self, models: Sequence[Model]):
+    ``batched_logpost_cols(k, rows)``, where given, evaluates the whole
+    family in one column form (``ModelSet(batched_logpost_cols=...)`` of
+    the JAX package, which passes one-hot masks where this takes ``k``)."""
+
+    def __init__(self, models: Sequence[Model],
+                 batched_logpost_cols: Optional[Callable] = None):
         if not models:
             raise ValueError("need at least one model")
+        self.batched_logpost_cols = batched_logpost_cols
         self.models = tuple(models)
         self.nmodels = len(self.models)
         self.dims = np.array([m.dim for m in self.models], dtype=np.int32)
@@ -75,6 +81,8 @@ class ModelSet:
     def logpost_cols(self, k, rows):
         """Sanitized log-posterior of each chain under its own model:
         ``k`` [S] model indices, ``rows`` dmax tensors [S]."""
+        if self.batched_logpost_cols is not None:
+            return sanitize(self.batched_logpost_cols(k, rows))
         out = None
         for m, model in enumerate(self.models):
             lp = sanitize(model.logp_cols(rows[:model.dim]))

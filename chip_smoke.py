@@ -15,11 +15,23 @@ PyTorch twin on the card, then drives the port's paths at full size:
   ``_mix.data`` at its defaults (perm on, traces every 16th sweep), p(M)
   against the exact 0.5 / 0.25 / 0.125 / 0.0625 / 0.0625;
 * the CLI on toy1 with Student-t perturbations (``-t 5``), p(M) against
-  the exact 0.3 / 0.7.
+  the exact 0.3 / 0.7;
+* rb9 (10 models, dmax 5): stages 1-2 through ``AMSampler`` at the bench
+  size (1024 stage-1 chains per model: the one-sweep stage-1 kernel's
+  path, 2000 stage-1 sweeps, seed 0) and the ported writers, then the CLI
+  in mode 1 at its defaults (per-chain pk, perm, traces every 16th sweep)
+  at 131072 chains, then pooled pk through ``AMSampler`` from the same
+  proposal at 16384 chains (the in-kernel pooled kernel K1c) and 131072
+  chains (the per-sweep runner K1d), p(M) each against the reference C
+  code's ``tests/data/heavy_oracle.json`` rb9 mean, and a short K1d run
+  forced on the 16384 chains, bitwise equal to K1c.
 
 Every kernel's launch counter is set to 0 just before a path and read
 just after it.  Any failed check exits non-zero without printing a
-result.
+result.  The kernels' JSON record gives each kernel's time, its plain
+twin's time and its bound: the larger of the operations it does on these
+inputs over the card's float32 peak and the bytes it must move over the
+card's memory rate (``bound``).
 
     python3 chip_smoke.py
 
@@ -54,6 +66,124 @@ TIME_SWEEPS = 100
 TOY2_C_K2 = 1024          # toy2 chains per model that fit K2's one block
 TOY2_C_K3 = 2048          # the CLI default: the one-sweep kernel's path
 
+# rb9: the JAX package's heavy-model configuration (tests/test_heavy_models
+# .py, bench_suite.py:368) held to the C oracle's p(M) mean.
+RB9_C_STAGE1 = 1024       # bench size: the one-sweep stage-1 kernel's path
+RB9_C_K2 = 512            # rb9 chains per model for K2's twin check
+RB9_POOLED_K1C = 16_384   # bench_suite.py:368, held resident: K1c
+RB9_POOLED_K1D = 131_072  # above the co-residency bound: K1d
+RB9_MAX_MIX = 30
+RB9_BURN = 2000
+RB9_FORCED = (100, 300)   # burn-in, production sweeps of the forced run
+K1D_CHECK_SWEEPS = 20
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
+# cores and HBM3.  Every bound below is against these.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per call, counted from csrc/common.cuh: the counter hash and
+# u01 of one word, and the accurate libdevice functions (no fast math),
+# approximately.  A multiply and an add count as one operation each:
+# -fmad=false forbids fusing them, while the 67 TFLOP/s peak counts a fused
+# multiply-add as two, so this code can reach half the peak at most.
+OPS = {"word": 27, "log": 16, "exp": 12, "log1p": 20, "trig": 24,
+       "sqrt": 4, "div": 8}
+OPS["gammaln"] = 2 * OPS["log"] + OPS["div"] + 16
+OPS["gumbel"] = OPS["log1p"] + OPS["log"] + 2
+OPS["normal"] = OPS["log1p"] + OPS["sqrt"] + OPS["trig"] + 3
+OPS["bailey"] = OPS["log"] + OPS["exp"] + OPS["sqrt"] + OPS["trig"] + 4
+
+
+def density_ops(ms, probs):
+    """Operations of one log-posterior evaluation, averaged over the
+    models with weights ``probs``, counted from the density's code."""
+    import numpy as np
+    from automix_tpu_torch.models import rb9
+    per = []
+    for m in ms.models:
+        kind, c, d = m.cuda.kind, m.cuda.consts, m.dim
+        if kind == 1:          # Normal params
+            ops = OPS["log"] + OPS["div"] + 12
+        elif kind == 2:        # Beta params
+            ops = 3 * OPS["gammaln"] + 12
+        elif kind == 3:        # Gamma params
+            ops = OPS["log"] + OPS["gammaln"] + 10
+        elif kind in (4, 5):   # Normal and truncated-Normal samplers
+            ops = 5
+        elif kind == 6:        # Beta sampler
+            ops = OPS["log"] + OPS["log1p"] + 5
+        elif kind == 7:        # Normal mixture of c[0] components
+            L = int(c[0])
+            ops = L * (d * (d + 1) + 2 * d + 3) \
+                + (L - 1) * (OPS["exp"] + OPS["log1p"] + 4)
+        elif kind == 8:        # toy2
+            ops = 6 * d + 8 + OPS["exp"] + OPS["log1p"] + 4
+        elif kind == rb9.KIND_RB9:
+            ops = d * (OPS["log"] + 6) + 2
+            for g, stats in enumerate(rb9.group_stats()):
+                if c[10 + g]:
+                    nv = len(stats[3])
+                    ops += (OPS["div"] + 2 * OPS["log"] + OPS["gammaln"]
+                            + nv * (OPS["gammaln"] + 3) + 12)
+                else:
+                    ops += 5
+        else:
+            raise ValueError(f"no operation count for density kind {kind}")
+        per.append(ops + 2)    # the sanitizing clamp
+    return float(np.dot(probs, per))
+
+
+def sweep_ops(ms, L, probs, perm=False, tdist=False):
+    """Operations of one stage-3 chain-sweep (K1): random words, the
+    within-model move, both allocations (L triangular matvecs each), the
+    destination draws, the latent fill, the accept, the pk update and the
+    chunk sums, at the mean model dimension under ``probs``."""
+    import numpy as np
+    K, D = ms.nmodels, ms.dmax
+    dk = float(np.dot(probs, ms.dims))
+    z = OPS["bailey"] if tdist else OPS["normal"]
+    words = 3 * dk + 1 + 2 * L + K + 2 * (D - dk) + (D if perm else 0)
+    moves = 0.9 * dk + 0.1            # componentwise, block every 10th
+    alloc = L * (1.5 * dk * (dk + 1) + 2 * dk + 3) + L * OPS["exp"] \
+        + OPS["log"] + 2 * L
+    ops = (words * OPS["word"]
+           + (2 * L + K) * OPS["gumbel"]
+           + dk * z + moves * (OPS["exp"] + 8)
+           + 2 * alloc
+           + (D - dk) * (z + 4) + (D * D if perm else 0)
+           + dk * (dk + 1) + OPS["exp"] + 20
+           + K * (OPS["log"] + 6) + OPS["exp"] + OPS["log"]
+           + 3 * D + 2
+           + (moves + 1) * density_ops(ms, probs))
+    return ops
+
+
+def stage1_ops(ms, probs):
+    """Operations of one stage-1 chain-sweep (K2, K3): 3 words and one
+    perturbation per active coordinate, componentwise accepts."""
+    import numpy as np
+    dk = float(np.dot(probs, ms.dims))
+    return (3 * dk * OPS["word"] + dk * (OPS["normal"] + OPS["exp"] + 10)
+            + dk * density_ops(ms, probs))
+
+
+def state_bytes(K, D):
+    """Bytes of one chain's stage-3 state read and written once: k, theta,
+    logp, pk, pkllim and nreinit in and out, the chunk sums and counters
+    out."""
+    return 4 * 2 * (3 + D + K + 1) + 4 * (K + 2 * K * D + 6)
+
+
+def tables_bytes(K, D, L):
+    return 4 * (K * L * (2 * D * D + D + 3) + K * D)
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ops over the float32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
 
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -83,15 +213,26 @@ def cuda_ms(fn, reps: int) -> float:
 def reset_counts():
     from automix_tpu_torch.kernels import fused, fused_stage1
     fused.sweep_chunk.launches = 0
+    fused.sweep_chunk.pooled_launches = 0
+    fused.pooled_sweeps.launches = 0
     fused_stage1.segment.launches = 0
     fused_stage1.sweep.launches = 0
 
 
 def read_counts():
+    """Launches since the last reset: K1 (every per-chain kernel launch,
+    K1d's included), K1c, K1d (the per-sweep runner's launches), K2, K3."""
     from automix_tpu_torch.kernels import fused, fused_stage1
     return {"K1": fused.sweep_chunk.launches,
+            "K1c": fused.sweep_chunk.pooled_launches,
+            "K1d": fused.pooled_sweeps.launches,
             "K2": fused_stage1.segment.launches,
             "K3": fused_stage1.sweep.launches}
+
+
+def uniform(ms):
+    import numpy as np
+    return np.full(ms.nmodels, 1.0 / ms.nmodels)
 
 
 def stage1_start(ms, C, dev):
@@ -135,16 +276,20 @@ def check_segment(ms, C, dev, tdist=None, label="K2"):
                                                 **kw), 20)
     ms_p = cuda_ms(lambda: fused_stage1.segment_ref(ms, theta, sig, zi, zi,
                                                     **kw), 2)
-    log(f"{label} segment ({ms.nmodels * C} chains x 100 sweeps): kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
-    return float(th_err.max()), ms_k, ms_p
+    N = ms.nmodels * C
+    b_ms, b_by = bound(100 * N * stage1_ops(ms, uniform(ms)),
+                       N * 4 * 2 * (ms.dmax + 1))
+    log(f"{label} segment ({N} chains x 100 sweeps): kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=float(th_err.max()), ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by)
 
 
-def check_sweep_kernel(ms, C, dev):
-    """K3 against sweep_ref: one 100-sweep segment of toy2 at 5 x 2048
-    chains (the CLI default), sweep by sweep from the same state.  The
-    per-sweep accept counts must be equal; theta and logp agree within
-    float32 tolerance on >= 99% of lanes."""
+def check_sweep_kernel(ms, C, dev, label="K3"):
+    """K3 against sweep_ref: one 100-sweep segment of K x C chains, sweep
+    by sweep from the same state.  The per-sweep accept counts must be
+    equal; theta and logp agree within float32 tolerance on >= 99% of
+    lanes."""
     import torch
     from automix_tpu_torch.kernels import fused_stage1
     theta, sig, _ = stage1_start(ms, C, dev)
@@ -164,20 +309,24 @@ def check_sweep_kernel(ms, C, dev):
     close = ((th_err <= 1e-5 * (1 + th_p.abs())).all(0)
              & ((lp_k - lp_p).abs() <= 1e-5 * (1 + lp_p.abs())))
     frac = float(close.float().mean())
-    log(f"K3 vs sweep_ref ({ms.nmodels} x {C} chains x 100 sweeps): theta "
-        f"max|err| {float(th_err.max()):.3e}, lanes within 1e-5: "
+    log(f"{label} vs sweep_ref ({ms.nmodels} x {C} chains x 100 sweeps): "
+        f"theta max|err| {float(th_err.max()):.3e}, lanes within 1e-5: "
         f"{frac:.6f}, accept counts equal {counts_equal}")
     if not counts_equal:
-        fail("K3 accept counts differ from sweep_ref")
+        fail(f"{label} accept counts differ from sweep_ref")
     if frac < 0.99:
-        fail(f"K3 agrees on only {frac:.4f} of lanes")
+        fail(f"{label} agrees on only {frac:.4f} of lanes")
     ms_k = cuda_ms(lambda: fused_stage1.sweep(ms, theta, lp_k, sig, t=60,
                                               seg_start=False, **kw), 200)
     ms_p = cuda_ms(lambda: fused_stage1.sweep_ref(
         ms, theta, lp_k, sig, t=60, seg_start=False, **kw), 5)
-    log(f"K3 sweep ({ms.nmodels * C} chains x 1 sweep): kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
-    return float(th_err.max()), ms_k, ms_p
+    N = ms.nmodels * C
+    b_ms, b_by = bound(N * stage1_ops(ms, uniform(ms)),
+                       N * 4 * 2 * (ms.dmax + 1))
+    log(f"{label} sweep ({N} chains x 1 sweep): kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=float(th_err.max()), ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_sweep_runner(ms, dev):
@@ -203,6 +352,13 @@ def check_sweep_runner(ms, dev):
         f"{frac:.6f}")
     if sig_rel > 1e-6 or frac < 0.99:
         fail("the one-sweep runner disagrees with the segment runner")
+
+
+def k_probs(ms, k):
+    """The share of chains in each model of a state."""
+    import torch
+    return (torch.bincount(k.long().cpu(), minlength=ms.nmodels).double()
+            / k.numel()).numpy()
 
 
 def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
@@ -251,9 +407,115 @@ def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
     kw = dict(kw, n_sweeps=TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *full, tabs, **kw), 5)
     ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *full, tabs, **kw), 1)
+    L = tabs.loglam.shape[1]
+    K, D = ms.nmodels, ms.dmax
+    b_ms, b_by = bound(
+        ch.n_chains * TIME_SWEEPS * sweep_ops(ms, L, k_probs(ms, ch.k), perm,
+                                              tdist is not None),
+        ch.n_chains * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"{label} sweep chunk ({ch.n_chains} chains x {TIME_SWEEPS} sweeps): "
-        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-    return th_err, ms_k, ms_p
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_pooled(ms, prop, chains, dev):
+    """K1c against the pooled twin (run on the card) from a pooled run's
+    state: every chain, 50 sweeps.  k equal on >= 99% of chains, theta and
+    logp within float32 tolerance on those; where every chain agrees, the
+    integer histogram makes the shared pk, pkllim and nreinit bitwise
+    equal.  Timed on the same state x 100 sweeps."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    ch = chains
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit)
+
+    def kw(n):
+        return dict(seed=13, sweep0=ch.sweep, n_sweeps=n, adapt=True,
+                    pooled=True, gains=fused.pk_gains(ch.sweep, n, dev))
+
+    got = fused.sweep_chunk(ms, *args, tabs, **kw(K1_SWEEPS))
+    want = fused.sweep_chunk_ref(ms, *args, tabs, **kw(K1_SWEEPS))
+    torch.cuda.synchronize()
+    same = got[0] == want[0]
+    frac = float(same.float().mean())
+    th_err = float((got[1] - want[1]).abs()[:, same].max())
+    lp_err = float(((got[2] - want[2]).abs()
+                    / (1 + want[2].abs()))[same].max())
+    shared = all(torch.equal(got[i], want[i]) for i in (3, 4, 5))
+    log(f"K1c vs pooled twin ({ch.n_chains} chains x {K1_SWEEPS} sweeps): k "
+        f"equal on {frac:.6f}, theta max|err| {th_err:.3e}, logp max rel "
+        f"err {lp_err:.3e}, shared pk/pkllim/nreinit equal {shared}")
+    if frac < 0.99:
+        fail(f"K1c k agrees on only {frac:.4f} of chains")
+    if th_err > 1e-3 or lp_err > 1e-4:
+        fail(f"K1c theta/logp differ: {th_err:.3e} / {lp_err:.3e}")
+    if frac == 1.0 and not shared:
+        fail("K1c shared pk differs on identical trajectories")
+    kt = kw(TIME_SWEEPS)
+    ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 5)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    b_ms, b_by = bound(
+        ch.n_chains * TIME_SWEEPS * (sweep_ops(ms, L, k_probs(ms, ch.k))
+                                     + 2 * K),
+        ch.n_chains * state_bytes(K, D) + tables_bytes(K, D, L))
+    log(f"K1c pooled chunk ({ch.n_chains} chains x {TIME_SWEEPS} sweeps): "
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_pooled_runner(ms, prop, chains, dev):
+    """The K1d runner against the same loop over the twin, both on the
+    card, from a pooled run's state: the first 16384 chains x 20 sweeps.
+    k equal on >= 99% of chains; where all agree, the shared pk and the
+    visit counts bitwise equal.  Timed per sweep on every chain of the
+    state (one K1 launch and the shared update in torch)."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.state import Chains
+    tabs = fused.prep_tables(prop, ms.dims)
+    n = K1_CHAINS
+    sub = Chains(**{f: getattr(chains, f)[:n].contiguous() for f in
+                    ("k", "theta", "logp", "pk", "pkllim", "nreinit")},
+                 sweep=chains.sweep)
+    a, ca = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17)
+    b, cb = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
+                                sweep_fn=fused.sweep_chunk_ref)
+    torch.cuda.synchronize()
+    same = a.k == b.k
+    frac = float(same.float().mean())
+    th_err = float((a.theta - b.theta).abs()[same].max())
+    shared = (torch.equal(a.pk, b.pk) and torch.equal(a.nreinit, b.nreinit)
+              and torch.equal(ca["ksummary"], cb["ksummary"]))
+    log(f"K1d runner vs twin runner ({n} chains x {K1D_CHECK_SWEEPS} "
+        f"sweeps): k equal on {frac:.6f}, theta max|err| {th_err:.3e}, "
+        f"shared pk and visit counts equal {shared}")
+    if frac < 0.99:
+        fail(f"K1d k agrees on only {frac:.4f} of chains")
+    if th_err > 1e-3:
+        fail(f"K1d theta differs by {th_err:.3e}")
+    if frac == 1.0 and not shared:
+        fail("K1d shared pk differs on identical trajectories")
+    ms_k = cuda_ms(lambda: fused.pooled_sweeps(
+        ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17), 2) / K1D_CHECK_SWEEPS
+    ms_p = cuda_ms(lambda: fused.pooled_sweeps(
+        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref), 1) / 2
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    S = chains.n_chains
+    b_ms, b_by = bound(
+        S * (sweep_ops(ms, L, k_probs(ms, chains.k)) + K) + 20 * K,
+        S * state_bytes(K, D) + 4 * S * (K + 2 * K * D + 6)
+        + tables_bytes(K, D, L))
+    log(f"K1d runner ({S} chains, per sweep): {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def run_cli(argv, reset=True):
@@ -282,10 +544,10 @@ def probs_of(out):
             if line.startswith("p(M=")]
 
 
-def check_probs(name, probs, exact):
+def check_probs(name, probs, exact, what="exact"):
     import numpy as np
     err = float(np.abs(np.asarray(probs) - np.asarray(exact)).max())
-    log(f"{name}: p(M) = {[round(p, 4) for p in probs]} vs exact "
+    log(f"{name}: p(M) = {[round(float(p), 4) for p in probs]} vs {what} "
         f"{list(exact)}: max err {err:.4f}")
     if len(probs) != len(exact) or err > PARITY_TOL:
         fail(f"{name}: p(M) misses the exact values by {err:.4f}")
@@ -300,8 +562,8 @@ def main():
 
     from automix_tpu_torch import AMSampler, EngineConfig
     from automix_tpu_torch.io import reports
-    from automix_tpu_torch.kernels import _build
-    from automix_tpu_torch.models import toy
+    from automix_tpu_torch.kernels import _build, fused
+    from automix_tpu_torch.models import rb9, toy
     from automix_tpu_torch.models.tutorial import tutorial_set
     from automix_tpu_torch.ops import randoms
 
@@ -330,9 +592,9 @@ def main():
 
     # ---- 3. stage-1 kernels against their twins ------------------------------
     t0 = time.perf_counter()
-    k2_err, k2_ms, k2_plain = check_segment(ms, N_CHAINS_STAGE1, dev)
+    k2 = check_segment(ms, N_CHAINS_STAGE1, dev)
     check_segment(toy2, TOY2_C_K2, dev, tdist=t5, label="K2 Student-t toy2")
-    k3_err, k3_ms, k3_plain = check_sweep_kernel(toy2, TOY2_C_K3, dev)
+    k3 = check_sweep_kernel(toy2, TOY2_C_K3, dev)
     check_sweep_runner(toy2, dev)
     log(f"phase stage-1 kernel checks: {time.perf_counter() - t0:.2f} s")
 
@@ -383,7 +645,7 @@ def main():
 
     # ---- 5. K1 against its twin on the main path's proposal and state --------
     t0 = time.perf_counter()
-    k1_err, k1_ms, k1_plain = check_sweep(ms, am.proposal, am.chains, dev)
+    k1 = check_sweep(ms, am.proposal, am.chains, dev)
     del am
     log(f"phase K1 check: {time.perf_counter() - t0:.2f} s")
 
@@ -434,40 +696,150 @@ def main():
             trace_chain0=False), device="cuda")
         am.set_proposal(prop)
         am.burn_samples(200)
-        check_sweep(toy2, am.proposal, am.chains, dev, perm=True, tdist=t5,
-                    label="K1 perm + Student-t toy2")
+        k1a = check_sweep(toy2, am.proposal, am.chains, dev, perm=True,
+                          tdist=t5, label="K1 perm + Student-t toy2")
         check_sweep(toy2, am.proposal, am.chains, dev, perm=True,
                     label="K1 perm toy2")
         del am
         log(f"phase K1 variant checks: {time.perf_counter() - t1:.2f} s")
 
-        # ---- 8. the CLI on toy1 with Student-t ---------------------------------
-        out, counts, secs = run_cli(
+        # ---- 8. the CLI on toy1 with Student-t -------------------------------
+        out, t_counts, secs = run_cli(
             ["toy1", "-t", "5", "--chains", str(N_CHAINS), "-N",
              str(CLI_SWEEPS), "-s", "2", "-f", os.path.join(tmp, "toy1")])
-        log(f"launches on the toy1 Student-t CLI path: {counts}")
+        log(f"launches on the toy1 Student-t CLI path: {t_counts}")
         check_probs("toy1 -t 5 CLI", probs_of(out), TOY1_EXACT)
-        if counts["K1"] == 0 or counts["K2"] == 0:
+        if t_counts["K1"] == 0 or t_counts["K2"] == 0:
             fail("the toy1 CLI run did not launch K1 and K2")
         log(f"phase toy1 Student-t CLI: {secs:.2f} s")
 
+        # ---- 9. rb9: stages 1-2 at the bench size, reports -----------------
+        oracle = json.load(open(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+            "heavy_oracle.json")))["rb9"]["mean"]
+        rb = rb9.rb9_set()
+        stem = os.path.join(tmp, "rb9")
+        reset_counts()
+        t0 = time.perf_counter()
+        am = AMSampler(rb, EngineConfig(
+            n_chains_stage1=RB9_C_STAGE1, stage1_sweeps=STAGE1_SWEEPS,
+            max_mix_comps=RB9_MAX_MIX, seed=0), device="cuda")
+        am.estimate_conditional_probs()
+        reports.report_cond_prob_estimation(stem, am)
+        cp = am.cpstats
+        rb_prop = am.proposal
+        log(f"rb9 stages 1-2: stage 1 {cp.timesecs_stage1:.3f} s "
+            f"({RB9_C_STAGE1} chains per model, {STAGE1_SWEEPS * 11 // 10} "
+            f"sweeps), stage 2 {cp.timesecs_stage2:.3f} s (lmax "
+            f"{RB9_MAX_MIX}, EM iterations {cp.em_iters.tolist()}, "
+            f"L={rb_prop.lmax})")
+        del am
+        log(f"phase rb9 stages 1-2: {time.perf_counter() - t0:.2f} s")
+
+        # ---- 10. rb9: the CLI in mode 1 at its defaults ----------------------
+        out, _, secs = run_cli(
+            ["rb9", "-m", "1", "--chains", str(N_CHAINS), "-N",
+             str(CLI_SWEEPS), "-s", "1", "-f", stem], reset=False)
+        rb_counts = read_counts()
+        log(f"launches on the rb9 path (stages 1-2 + CLI): {rb_counts}")
+        check_probs("rb9 CLI mode 1", probs_of(out), oracle,
+                    what="C oracle mean")
+        if rb_counts["K1"] == 0 or rb_counts["K3"] == 0:
+            fail("the rb9 path did not launch K1 (perm) and K3")
+        log(f"phase rb9 CLI mode 1: {secs:.2f} s")
+
+        # ---- 11. rb9 kernel checks at (10, 5) --------------------------------
+        t0 = time.perf_counter()
+        check_segment(rb, RB9_C_K2, dev, label="K2 rb9")
+        check_sweep_kernel(rb, RB9_C_STAGE1, dev, label="K3 rb9")
+        am = AMSampler(rb, EngineConfig(n_chains=N_CHAINS, seed=7,
+                                        trace_chain0=False), device="cuda")
+        am.set_proposal(rb_prop)
+        am.burn_samples(200)
+        check_sweep(rb, am.proposal, am.chains, dev, label="K1 rb9")
+        k1b = check_sweep(rb, am.proposal, am.chains, dev, perm=True,
+                          label="K1 perm rb9")
+        del am
+        log(f"phase rb9 kernel checks: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 12. rb9 pooled pk: K1c, K1d, and K1d forced against K1c -------------
+    pooled_cfg = dict(pk_mode="pooled", seed=11, trace_chain0=False)
+    pooled = {}
+    for n_chains, route in ((RB9_POOLED_K1C, "K1c"),
+                            (RB9_POOLED_K1D, "K1d")):
+        t0 = time.perf_counter()
+        am = AMSampler(rb, EngineConfig(n_chains=n_chains, **pooled_cfg),
+                       device="cuda")
+        am.set_proposal(rb_prop)
+        am.burn_samples(RB9_BURN)
+        reset_counts()
+        t1 = time.perf_counter()
+        stats = am.rjmcmc_samples(CLI_SWEEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = read_counts()
+        log(f"rb9 pooled, {n_chains} chains: {CLI_SWEEPS} sweeps in "
+            f"{secs:.3f} s = {n_chains * CLI_SWEEPS / secs:.6e} "
+            f"chain-sweeps/s; launches {counts}")
+        check_probs(f"rb9 pooled {n_chains} chains", stats.model_probs,
+                    oracle, what="C oracle mean")
+        other = "K1d" if route == "K1c" else "K1c"
+        if counts[route] == 0 or counts[other] != 0:
+            fail(f"the pooled run at {n_chains} chains did not take {route}")
+        if not bool((am.chains.pk == am.chains.pk[0]).all()):
+            fail("the pooled pk rows differ")
+        pooled[route] = (am, counts[route])
+        log(f"phase rb9 pooled {route}: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    short = {}
+    for force in (False, True):
+        fused._FORCE_POOLED_SCAN = force
+        try:
+            am = AMSampler(rb, EngineConfig(n_chains=RB9_POOLED_K1C,
+                                            sweep_chunk=100, **pooled_cfg),
+                           device="cuda")
+            am.set_proposal(rb_prop)
+            am.burn_samples(RB9_FORCED[0])
+            reset_counts()
+            st = am.rjmcmc_samples(RB9_FORCED[1])
+            short[force] = (am.chains, st.ksummary.copy(), read_counts())
+        finally:
+            fused._FORCE_POOLED_SCAN = False
+    (a, ka, ca), (b, kb, cb) = short[False], short[True]
+    equal = (torch.equal(a.k, b.k) and torch.equal(a.pk, b.pk)
+             and torch.equal(a.theta, b.theta) and bool((ka == kb).all()))
+    log(f"rb9 pooled {RB9_POOLED_K1C} chains, {RB9_FORCED[1]} sweeps: K1c "
+        f"(launches {ca}) vs K1d forced (launches {cb}): k, theta, pk and "
+        f"ksummary bitwise equal {equal}")
+    if not equal or ca["K1c"] == 0 or cb["K1d"] == 0:
+        fail("the forced K1d run is not bitwise equal to K1c")
+    k1c = check_pooled(rb, rb_prop, pooled["K1c"][0].chains, dev)
+    k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev)
+    log(f"phase rb9 pooled checks: {time.perf_counter() - t0:.2f} s")
+
     log(f"total: {time.perf_counter() - t_all:.2f} s")
+
+    def entry(name, source, replaces, launches, check):
+        return {"name": name, "route": "cuda",
+                "source": f"automix_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, **check,
+                "library_ms": None}
+
+    k1_src, k1_at = "fused_sweep.cu", "automix_tpu/kernels/fused.py:859"
     log(json.dumps({"kernels": [
-        {"name": "fused_sweep", "route": "cuda",
-         "source": "automix_tpu_torch/csrc/fused_sweep.cu",
-         "replaces": "automix_tpu/kernels/fused.py:859",
-         "launches": main_counts["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "fused_stage1_segment", "route": "cuda",
-         "source": "automix_tpu_torch/csrc/fused_stage1.cu",
-         "replaces": "automix_tpu/kernels/fused_stage1.py:696",
-         "launches": main_counts["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "fused_stage1_sweep", "route": "cuda",
-         "source": "automix_tpu_torch/csrc/fused_stage1_sweep.cu",
-         "replaces": "automix_tpu/kernels/fused_stage1.py:416",
-         "launches": toy2_counts["K3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain},
+        entry("fused_sweep", k1_src, k1_at, main_counts["K1"], k1),
+        entry("fused_sweep_student_t", k1_src, k1_at, t_counts["K1"], k1a),
+        entry("fused_sweep_perm_rb9", k1_src, k1_at, rb_counts["K1"], k1b),
+        entry("fused_sweep_pooled", k1_src, k1_at, pooled["K1c"][1], k1c),
+        entry("fused_sweep_pooled_runner", k1_src, k1_at, pooled["K1d"][1],
+              k1d),
+        entry("fused_stage1_segment", "fused_stage1.cu",
+              "automix_tpu/kernels/fused_stage1.py:696", main_counts["K2"],
+              k2),
+        entry("fused_stage1_sweep", "fused_stage1_sweep.cu",
+              "automix_tpu/kernels/fused_stage1.py:416", toy2_counts["K3"],
+              k3),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

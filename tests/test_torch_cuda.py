@@ -16,7 +16,7 @@ import torch
 
 from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import _build, fused, fused_stage1
-from automix_tpu_torch.models import builtin, toy
+from automix_tpu_torch.models import builtin, rb9, toy
 from automix_tpu_torch.models.tutorial import TUTORIAL_MODEL_PROBS, \
     tutorial_set
 from automix_tpu_torch.ops import randoms
@@ -156,12 +156,13 @@ def test_toy2_on_the_card(cuda):
 
 
 # One model set for each instantiated (K, D): the builtin sets (1, 1),
-# (1, 2) and (2, 2), toy1 (2, 2), the tutorial (3, 2) and toy2 (5, 5).
+# (1, 2) and (2, 2), toy1 (2, 2), the tutorial (3, 2), toy2 (5, 5) and
+# rb9 (10, 5).
 _SHAPE_SETS = {"normal": builtin.normal_sampler_set,
                "normal_params": builtin.normal_params_set,
                "gamma_beta": builtin.gamma_beta_set,
                "toy1": toy.toy1_set, "tutorial": tutorial_set,
-               "toy2": toy.toy2_set}
+               "toy2": toy.toy2_set, "rb9": rb9.rb9_set}
 
 
 def test_shape_sets_cover_every_instantiation():
@@ -302,3 +303,124 @@ def test_segment_kernel_at_the_block_bound(cuda, dof):
     assert not fused_stage1.fits_one_block(5, 5, C + 1)
     _assert_segment_matches(ms, C, cuda,
                             randoms.student_t(dof) if dof else None)
+
+
+def _rb9_state(dev, S, seed=0):
+    """rb9 chains at the start points under the two-component start
+    proposal; pk uniform, so every row is the shared pooled vector."""
+    ms = rb9.rb9_set()
+    K = ms.nmodels
+    tabs = fused.prep_tables(_start_proposal(ms), ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(dev)
+                         for f in tabs.__dataclass_fields__})
+    init = ms.init_points(torch.Generator().manual_seed(0))
+    k = torch.as_tensor(np.random.default_rng(seed).integers(0, K, S),
+                        dtype=torch.int32)
+    theta = init[k.long()]
+    logp = ms.logpost_cols(k.long(), list(theta.T))
+    from automix_tpu_torch.state import Chains
+    chains = Chains(k=k.to(dev), theta=theta.to(dev), logp=logp.to(dev),
+                    pk=torch.full((S, K), 1.0 / K, device=dev),
+                    pkllim=torch.full((S,), 0.1, device=dev),
+                    nreinit=torch.ones(S, dtype=torch.int32, device=dev),
+                    sweep=5)
+    return ms, chains, tabs
+
+
+@pytest.mark.parametrize("perm", [False, True], ids=["noperm", "perm"])
+def test_pooled_kernel_matches_twin(cuda, perm):
+    """K1c at rb9's (10, 5) against the pooled twin run on the card, 4096
+    chains x 30 sweeps: one launch; k equal on >= 99% of chains, theta
+    and logp within 1e-4 on those; where every chain agrees the
+    histogram is the same integer every sweep, so the shared pk, pkllim
+    and nreinit are bitwise equal."""
+    ms, ch, tabs = _rb9_state(cuda, 4096)
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit, tabs)
+    kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=30, adapt=True, perm=perm,
+              pooled=True, gains=fused.pk_gains(ch.sweep, 30, cuda))
+    before = fused.sweep_chunk.pooled_launches
+    got = fused.sweep_chunk(ms, *args, **kw)
+    assert fused.sweep_chunk.pooled_launches == before + 1
+    want = fused.sweep_chunk_ref(ms, *args, **kw)
+    same = got[0] == want[0]
+    assert same.float().mean() >= 0.99
+    assert (got[0] != ch.k).float().mean() > 0.05
+    torch.testing.assert_close(got[1][:, same], want[1][:, same],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-4,
+                               atol=1e-4)
+    assert bool((got[3] == got[3][:, :1]).all())         # one shared pk
+    if bool(same.all()):
+        for i in (3, 4, 5):
+            assert torch.equal(got[i], want[i]), i
+
+
+def test_pooled_runner_matches_twin(cuda):
+    """The K1d runner (one K1 launch per sweep) against the same loop over
+    the twin on the card, 4096 rb9 chains x 20 sweeps: 20 launches; k
+    equal on >= 99% of chains; where all agree, pk, pkllim, nreinit and
+    the visit counts are bitwise equal."""
+    ms, ch, tabs = _rb9_state(cuda, 4096, seed=1)
+    before = fused.pooled_sweeps.launches
+    a, ca = fused.pooled_sweeps(ms, ch, tabs, 20, seed=4)
+    assert fused.pooled_sweeps.launches == before + 20
+    b, cb = fused.pooled_sweeps(ms, ch, tabs, 20, seed=4,
+                                sweep_fn=fused.sweep_chunk_ref)
+    same = a.k == b.k
+    assert same.float().mean() >= 0.99
+    if bool(same.all()):
+        for f in ("pk", "pkllim", "nreinit"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(ca["ksummary"], cb["ksummary"])
+
+
+def test_pooled_routes_bitwise_on_card(cuda):
+    """K1c and the K1d runner through the chunk runner on 4096 rb9 chains,
+    two chunks (15 + 10 sweeps): bitwise equal in k, theta, pk, pkllim,
+    nreinit and the visit counts and counters; the float sums within
+    1e-5 (another summation order)."""
+    ms, ch, tabs = _rb9_state(cuda, 4096, seed=2)
+    prop = _start_proposal(ms)
+    prop = Proposal(**{f: getattr(prop, f).to(cuda)
+                       for f in prop.__dataclass_fields__})
+    out = {}
+    for force in (False, True):
+        fused._FORCE_POOLED_SCAN = force
+        try:
+            run = fused.build_fused_chunk_runner(
+                ms, EngineConfig(seed=6, pk_mode="pooled"), burning=False)
+            c, chunks = ch, []
+            for n in (15, 10):
+                c, chunk = run(c, prop, n)
+                chunks.append(chunk)
+            out[force] = (c, chunks)
+        finally:
+            fused._FORCE_POOLED_SCAN = False
+    (a, ca), (b, cb) = out[False], out[True]
+    for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for x, y in zip(ca, cb):
+        for name in x:
+            if name.startswith("theta"):
+                torch.testing.assert_close(x[name], y[name], rtol=1e-5,
+                                           atol=1e-2)
+            else:
+                assert torch.equal(x[name], y[name]), name
+
+
+def test_pooled_kernel_raises_above_its_bound(cuda):
+    """One chain above the co-residency bound, K1c raises: no launch, no
+    fallback to another route."""
+    ms = rb9.rb9_set()
+    cap = fused.pooled_capacity(ms, 2, cuda)
+    assert cap >= 128
+    ms, ch, tabs = _rb9_state(cuda, cap + 1)
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches)
+    with pytest.raises(ValueError, match="resident"):
+        fused.sweep_chunk(ms, ch.k, ch.theta.T.contiguous(), ch.logp,
+                          ch.pk.T.contiguous(), ch.pkllim, ch.nreinit, tabs,
+                          seed=1, sweep0=5, n_sweeps=2, adapt=True,
+                          pooled=True, gains=fused.pk_gains(5, 2, cuda))
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.pooled_launches) == before

@@ -59,7 +59,8 @@ def test_import_leaves_jax_out():
             "automix_tpu_torch.kernels.fused_stage1, automix_tpu_torch.cli, "
             "automix_tpu_torch.diagnostics, automix_tpu_torch.io.reports, "
             "automix_tpu_torch.io.checkpoint, automix_tpu_torch.models.toy, "
-            "automix_tpu_torch.models.builtin; "
+            "automix_tpu_torch.models.builtin, "
+            "automix_tpu_torch.models.rb9; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
@@ -82,10 +83,11 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 def test_config_defaults_match_jax():
     """Every field the port's EngineConfig honours has the JAX default,
     the trace fields included (trace_chain0=True, trace_every=1,
-    n_trace_chains=8)."""
+    n_trace_chains=8) and pk_mode ("per_chain")."""
     port, ref = EngineConfig(), JaxConfig()
     names = [f.name for f in dataclasses.fields(EngineConfig)]
-    assert {"trace_chain0", "trace_every", "n_trace_chains"} <= set(names)
+    assert {"trace_chain0", "trace_every", "n_trace_chains",
+            "pk_mode"} <= set(names)
     for name in names:
         if name == "dtype":
             assert str(port.dtype) == f"torch.{np.dtype(ref.dtype).name}"
@@ -93,24 +95,24 @@ def test_config_defaults_match_jax():
             assert getattr(port, name) == getattr(ref, name), name
 
 
-@pytest.mark.parametrize("knob", [dict(perm=True, pk_mode="pooled"),
-                                  dict(student_t_dof=3, within_move="hmc"),
-                                  dict(pk_mode="pooled"),
+@pytest.mark.parametrize("knob", [dict(student_t_dof=3, within_move="hmc"),
                                   dict(within_move="hmc"),
                                   dict(mix_fit="autorj", stage1_adapt="log"),
                                   dict(stage1_adapt="log"),
-                                  dict(trace_every=4, pk_mode="pooled"),
                                   dict(dtype=torch.float64)])
 def test_unported_knobs_raise(knob):
-    """Pooled pk, HMC, the log stage-1 rule and float64 are not ported:
-    each raises, alone or beside a ported knob."""
+    """HMC, the log stage-1 rule and float64 are not ported: each raises,
+    alone or beside a ported knob."""
     with pytest.raises(NotImplementedError):
         EngineConfig(**knob)
 
 
 @pytest.mark.parametrize("knob", [dict(perm=True), dict(student_t_dof=3),
                                   dict(mix_fit="autorj"), dict(trace_every=4),
-                                  dict(trace_chain0=False)])
+                                  dict(trace_chain0=False),
+                                  dict(perm=True, pk_mode="pooled"),
+                                  dict(pk_mode="pooled"),
+                                  dict(trace_every=4, pk_mode="pooled")])
 def test_ported_knobs_accepted(knob):
     cfg = EngineConfig(**knob)
     for name, value in knob.items():
