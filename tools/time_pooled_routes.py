@@ -9,14 +9,18 @@ milliseconds per sweep of 100 sweeps:
 
 * ``k1_adapt``: one K1 launch of 100 sweeps with per-chain adaptation;
 * ``k1_frozen``: one K1 launch of 100 sweeps with pk frozen;
-* ``k1_single``: 100 K1 launches of one sweep each, pk frozen (the
-  kernel K1d launches);
+* ``k1_single``: 100 K1 launches of one sweep each, pk frozen, each
+  from the state;
+* ``k1_single_fed`` and ``k1_ten_fed``: 100 one-sweep and 10 ten-sweep
+  launches, pk frozen, each from the previous launch's chains (the
+  kernel part of K1d, and a shorter chunk);
 * ``k1d``: the K1d runner, 100 sweeps (those launches plus the shared
   update in torch);
 * on a state with every pk row set to the pooled state's shared pk,
   ``k1_frozen_shared``.
 
-The difference ``k1d - k1_single`` is the runner's per-sweep overhead.
+The difference ``k1d - k1_single_fed`` is the runner's per-sweep
+overhead.
 Prints the card's name and power limit, each state's model shares and
 one JSON line, which also holds K1c's co-residency bound at this L.
 
@@ -90,9 +94,18 @@ def main():
                                   sweep0=ch.sweep + t, n_sweeps=1,
                                   adapt=False)
 
+        def fed(n):
+            k, th, lp = args[0], args[1], args[2]
+            for j in range(N // n):
+                k, th, lp = fused.sweep_chunk(
+                    ms, k, th, lp, *args[3:], tabs, seed=5,
+                    sweep0=ch.sweep + j * n, n_sweeps=n, adapt=False)[:3]
+
         res = {"k1_adapt": per_sweep_ms(lambda: chunk(True)),
                "k1_frozen": per_sweep_ms(lambda: chunk(False)),
                "k1_single": per_sweep_ms(singles),
+               "k1_single_fed": per_sweep_ms(lambda: fed(1)),
+               "k1_ten_fed": per_sweep_ms(lambda: fed(10)),
                "k1d": per_sweep_ms(lambda: fused.pooled_sweeps(
                    ms, ch, tabs, N, seed=5))}
         shared = states["pooled"].pk[0]

@@ -12,6 +12,10 @@ that two versions can be timed in turns within one machine:
 
 Prints the card's name and power limit, then one JSON line of the mean
 milliseconds per launch of each repetition.
+
+``--chunks`` times instead the milliseconds per sweep of 100 sweeps run
+as 100 launches of 1 sweep, 10 of 10 and 1 of 100, all from the same
+state, on the tutorial, toy2 (Normal, no perm) and rb9 (L = 2).
 """
 
 import argparse
@@ -46,7 +50,9 @@ def proposal(ms, L, scale, rng):
                     sig=t(0.5 * mask))
 
 
-def time_case(ms, L, perm, tdist, reps):
+def setup(ms, L):
+    """(args, tables) of a 131072-chain state at the start points under
+    the ``proposal`` of ``ms``, on the card."""
     import numpy as np
     import torch
     from automix_tpu_torch.kernels import fused
@@ -64,6 +70,13 @@ def time_case(ms, L, perm, tdist, reps):
     args = [x.to(dev) for x in (k, theta, logp, torch.full((K, S), 1.0 / K),
                                 torch.full((S,), 0.1),
                                 torch.ones(S, dtype=torch.int32))]
+    return args, tabs
+
+
+def time_case(ms, L, perm, tdist, reps):
+    import torch
+    from automix_tpu_torch.kernels import fused
+    args, tabs = setup(ms, L)
     kw = dict(seed=1, sweep0=11, n_sweeps=SWEEPS, adapt=True, perm=perm,
               tdist=tdist)
     out = []
@@ -81,11 +94,36 @@ def time_case(ms, L, perm, tdist, reps):
     return out
 
 
+def time_chunks(ms, L):
+    """Milliseconds per sweep of SWEEPS sweeps cut into launches of 1, 10
+    and SWEEPS sweeps (pk frozen), from one state."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    args, tabs = setup(ms, L)
+    out = {}
+    for n in (1, 10, SWEEPS):
+        def run():
+            for j in range(SWEEPS // n):
+                fused.sweep_chunk(ms, *args, tabs, seed=1, sweep0=11 + j * n,
+                                  n_sweeps=n, adapt=False)
+        run()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        out[n] = a.elapsed_time(b) / SWEEPS
+    return out
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--chunks", action="store_true")
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -99,6 +137,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     _build.library()
+    if args.chunks:
+        from automix_tpu_torch.models.rb9 import rb9_set
+        print(json.dumps({
+            "ms_per_sweep_by_launch_length": {
+                "tutorial": time_chunks(tutorial_set(), 8),
+                "toy2": time_chunks(toy.toy2_set(), 2),
+                "rb9": time_chunks(rb9_set(), 2)}}), flush=True)
+        return
     print(json.dumps({
         "root": os.path.abspath(args.root),
         "tutorial_ms": time_case(tutorial_set(), 8, False, None, args.reps),
