@@ -19,11 +19,11 @@
 // sees one read and one write of the state per chunk.  The proposal tables
 // (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5,
 // L = 32) are copied to shared memory once per block.  The chunk sums
-// (K visit counts, 2*K*D theta sums) stay in registers up to K*D = 25; above
-// that (rb9, K*D = 50) they would take 110 registers of the 255 a thread
-// has, so each thread keeps them in its own column of shared memory
-// (kThreads * (2*K*D + K) * 4 bytes, 56 KB at rb9) and adds to its own
-// model's entries only: the twin's 0 * theta additions are exact.
+// (K visit counts, 2*K*D theta sums) stay in registers too, and a sweep adds
+// to its own model's entries only (the twin's 0 * theta additions are
+// exact).  At rb9's K*D = 50 that takes K1 to 232-250 registers with no
+// spills, 2 blocks per SM; keeping the sums in shared memory instead (56 KB a
+// block, 3 blocks per SM) made a 100-sweep launch on rb9 5 times slower.
 //
 // K1c: the JAX kernel keeps the population in one lane block, so its
 // visit histogram is a cross-lane sum.  Here the population spans many
@@ -38,10 +38,10 @@
 // every thread reads the counts and applies the update of fused.py:768-792
 // with oh = count * (1/S).  Integer counts make the update exact and
 // independent of order, so K1c equals the per-sweep runner (K1d) and the
-// twin bit for bit.  The gain of each sweep comes from the gains table of
-// the runner (kernels/fused.py pk_gains), which K1d uses too.  Threads
-// past S run a copy of chain 0, count nothing and store nothing: they
-// must reach every barrier.
+// twin bit for bit; the gain is am_gain(t), the float32 expression the
+// twin and the K1d runner compute in torch (kernels/fused.py _gains).
+// Threads past S run a copy of chain 0, count nothing and store nothing:
+// they must reach every barrier.
 //
 // What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads
 // and writes nothing in device memory and costs ~NW hash words (NW = 3D+1+
@@ -86,29 +86,20 @@ namespace {
 
 constexpr int kLMax = 32;        // mixture components per model (runtime L)
 constexpr int kThreads = 128;
-constexpr int kRegSumsMax = 25;  // K*D up to which chunk sums stay in registers
 constexpr bool kPerm = AM_PERM != 0;
 constexpr bool kTdist = AM_TDIST != 0;
 
-template <int K, int D>
-__host__ __device__ constexpr bool smem_sums() {
-  return K * D > kRegSumsMax;
-}
-
-// Dynamic shared memory of one block: the tables, then the chunk sums
-// when they live there.
+// Dynamic shared memory of one block: the tables.
 template <int K, int D>
 size_t sweep_smem(int L) {
   const int KL = K * L;
-  size_t n = (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
-  if (smem_sums<K, D>()) n += (size_t)(2 * K * D + K) * kThreads;
-  return sizeof(float) * n;
+  return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
 }
 
 template <int K, int D, bool kPooled>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
-    const float* __restrict__ gains, int* __restrict__ ghist, float inv_S,
+    int* __restrict__ ghist, float inv_S,
     const float* __restrict__ tab, const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,
     const int* __restrict__ k_in, const float* __restrict__ th_in,
@@ -162,30 +153,15 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int m = 0; m < K; ++m) pk[m] = pk_in[m * S + ci];
   float pkl = pkl_in[ci];
   int nri = nri_in[ci];
-  // chunk sums: registers, or this thread's column of shared memory
-  constexpr bool kSmemSums = smem_sums<K, D>();
-  constexpr int kRegSums = kSmemSums ? 1 : K * D;
-  int ks[kSmemSums ? 1 : K];
-  float ts[kRegSums], tq[kRegSums];
-  float* ts_s = smem + n_tab;
-  float* tq_s = ts_s + K * D * kThreads;
-  int* ks_s = reinterpret_cast<int*>(tq_s + K * D * kThreads);
-  const int col = threadIdx.x;
-  if constexpr (kSmemSums) {
-    for (int j = 0; j < K * D; ++j) {
-      ts_s[j * kThreads + col] = 0.0f;
-      tq_s[j * kThreads + col] = 0.0f;
-    }
-    for (int m = 0; m < K; ++m) ks_s[m * kThreads + col] = 0;
-  } else {
+  int ks[K];
+  float ts[K * D], tq[K * D];
 #pragma unroll
-    for (int m = 0; m < K; ++m) {
-      ks[m] = 0;
+  for (int m = 0; m < K; ++m) {
+    ks[m] = 0;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        ts[m * D + d] = 0.0f;
-        tq[m * D + d] = 0.0f;
-      }
+    for (int d = 0; d < D; ++d) {
+      ts[m * D + d] = 0.0f;
+      tq[m * D + d] = 0.0f;
     }
   }
   int cnt[6] = {0, 0, 0, 0, 0, 0};
@@ -467,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         if (blockIdx.x == 0 && threadIdx.x < K)
           ghist[((tr + 2) % 3) * K + threadIdx.x] = 0;
       }
-      const float gamma = kPooled ? gains[tr] : am_gain(t);
+      const float gamma = am_gain(t);
       float newpk[K];
       bool reinit = false;
 #pragma unroll
@@ -489,25 +465,14 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     }
 
     // ---- chunk statistics -------------------------------------------------
-    if constexpr (kSmemSums) {
-      ks_s[kk * kThreads + col] += 1;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      if (m != kk) continue;
+      ks[m] += 1;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        float* a = ts_s + (kk * D + d) * kThreads + col;
-        float* q = tq_s + (kk * D + d) * kThreads + col;
-        *a = *a + th[d];
-        *q = *q + th[d] * th[d];
-      }
-    } else {
-#pragma unroll
-      for (int m = 0; m < K; ++m) {
-        if (m != kk) continue;
-        ks[m] += 1;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          ts[m * D + d] = ts[m * D + d] + th[d];
-          tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
-        }
+        ts[m * D + d] = ts[m * D + d] + th[d];
+        tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
       }
     }
     cnt[4] += acci;
@@ -524,20 +489,12 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int m = 0; m < K; ++m) pk_out[m * S + i] = pk[m];
   pkl_out[i] = pkl;
   nri_out[i] = nri;
-  if constexpr (kSmemSums) {
-    for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks_s[m * kThreads + col];
-    for (int j = 0; j < K * D; ++j) {
-      ts_out[j * S + i] = ts_s[j * kThreads + col];
-      tq_out[j * S + i] = tq_s[j * kThreads + col];
-    }
-  } else {
 #pragma unroll
-    for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks[m];
+  for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks[m];
 #pragma unroll
-    for (int j = 0; j < K * D; ++j) {
-      ts_out[j * S + i] = ts[j];
-      tq_out[j * S + i] = tq[j];
-    }
+  for (int j = 0; j < K * D; ++j) {
+    ts_out[j * S + i] = ts[j];
+    tq_out[j * S + i] = tq[j];
   }
 #pragma unroll
   for (int c = 0; c < 6; ++c) cnt_out[c * S + i] = cnt[c];
@@ -549,7 +506,6 @@ struct SweepArgs {
   unsigned int seed;
   int sweep0, n_sweeps, adapt;
   AmT tc;
-  const float* gains;
   int* ghist;
   float inv_S;
   const float* tab;
@@ -606,7 +562,7 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
     if (rc != 0) return rc;
     if (a.S > cap) return -2;
     void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
-                    &a.tc, &a.gains, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
+                    &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
                     &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
                     &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
                     &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
@@ -617,8 +573,8 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
     if (e != cudaSuccess) return (int)e;
   } else {
     fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
-        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.gains,
-        a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
+        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.ghist,
+        a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
         a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
         a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
         a.cnt_out);
@@ -660,7 +616,7 @@ extern "C" int AM_K1_SYMBOL(
   if (L < 1 || L > kLMax || S < 1) return -1;
   if (kTdist && !tconsts) return -1;
   SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, t_consts(tconsts),
-                 nullptr, nullptr, 0.0f,
+                 nullptr, 0.0f,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,
                  (const float*)th_in, (const float*)lp_in,
@@ -673,12 +629,12 @@ extern "C" int AM_K1_SYMBOL(
 }
 
 // K1c: the same sweeps with pooled pk adaptation (adapt must be 1).
-// ``gains`` is a device float[n_sweeps] of the sweeps' gains, ``ghist`` a
-// zeroed device int[3 * K], ``inv_S`` float32(1 / S).  Returns -2 when S
-// exceeds the chains the card holds resident (AM_K1C_CAP_SYMBOL).
+// ``ghist`` is a zeroed device int[3 * K], ``inv_S`` float32(1 / S).
+// Returns -2 when S exceeds the chains the card holds resident
+// (AM_K1C_CAP_SYMBOL).
 extern "C" int AM_K1C_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    const float* tconsts, const void* gains, void* ghist, float inv_S,
+    const float* tconsts, void* ghist, float inv_S,
     const void* tab, const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
@@ -687,7 +643,7 @@ extern "C" int AM_K1C_SYMBOL(
   if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
   if (kTdist && !tconsts) return -1;
   SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, t_consts(tconsts),
-                 (const float*)gains, (int*)ghist, inv_S,
+                 (int*)ghist, inv_S,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,
                  (const float*)th_in, (const float*)lp_in,

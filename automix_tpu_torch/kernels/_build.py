@@ -83,7 +83,7 @@ _SIGNATURES = {
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
-       + [_P, _P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
+       + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)},

@@ -130,28 +130,27 @@ def word_slots(K: int, D: int, L: int, perm: bool, tdist: bool):
     return s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW
 
 
-def pk_gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
-    """float32 [n_sweeps] gains gamma_t = (t + 1)^(-2/3) of the pooled
-    update for sweeps sweep0 ...: computed in float64 as exp(-2/3 log(t +
-    1)) and rounded once, so that a gain does not depend on how a run is
-    cut into chunks.  K1c, its twin and the K1d runner all read it."""
-    t = torch.arange(sweep0, sweep0 + n_sweeps, dtype=torch.float64,
-                     device=device)
-    return torch.exp((-2.0 / 3.0) * torch.log(t + 1.0)).to(torch.float32)
+def _gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
+    """float32 [n_sweeps] pk gains gamma_t = exp(-2/3 log(t + 1)) of
+    sweeps sweep0 ..., in float32 as the JAX kernel and the CUDA kernel
+    (``am_gain``) compute them.  The pooled twin and the K1d runner both
+    take a chunk's gains from here, so they agree on every device."""
+    t = torch.arange(sweep0, sweep0 + n_sweeps, device=device)
+    return torch.exp((-2.0 / 3.0) * torch.log(t.to(torch.float32) + 1.0))
 
 
 def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                     tables: SweepTables, *, seed: int, sweep0: int,
                     n_sweeps: int, adapt: bool, perm: bool = False,
-                    tdist=None, pooled: bool = False, gains=None):
+                    tdist=None, pooled: bool = False):
     """Plain PyTorch twin of the sweep kernel: ``n_sweeps`` sweeps (global
     sweeps sweep0 ...) of every chain.  ``theta`` is [D, S] and ``pk``
     [K, S]; ``perm`` permutes the RJ latent and ``tdist`` (a
     ``randoms.StudentT``) selects Student-t perturbations.  ``pooled``
-    (K1c's twin) adapts pk from the population's visit histogram with the
-    :func:`pk_gains` ``gains``; every row of pk, pkllim and nreinit then
-    stays equal.  Returns (k, theta, logp, pk, pkllim, nreinit, ksum
-    [K, S], tsum [K*D, S], tqsum [K*D, S], cnt [6, S])."""
+    (K1c's twin) adapts pk from the population's visit histogram; every
+    row of pk, pkllim and nreinit then stays equal.  Returns (k, theta,
+    logp, pk, pkllim, nreinit, ksum [K, S], tsum [K*D, S], tqsum
+    [K*D, S], cnt [6, S])."""
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -166,6 +165,7 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     B4 = tables.B.reshape(K, L, D, D)
     inv_k = torch.tensor(1.0 / K, dtype=f32, device=dev)
     inv_s = torch.tensor(1.0 / S, dtype=f32, device=dev)
+    gains = _gains(sweep0, n_sweeps, dev) if pooled else None
 
     kk = k.long()
     th = [theta[d].clone() for d in range(D)]
@@ -350,7 +350,7 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
                 n_sweeps: int, adapt: bool, perm: bool = False,
-                tdist=None, pooled: bool = False, gains=None):
+                tdist=None, pooled: bool = False):
     """``n_sweeps`` stage-3 sweeps of every chain: the CUDA kernel for
     tensors on the card, its plain twin for tensors on the CPU.  Same
     arguments and results as :func:`sweep_chunk_ref`.  ``pooled`` launches
@@ -363,7 +363,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         return sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                                tables, seed=seed, sweep0=sweep0,
                                n_sweeps=n_sweeps, adapt=adapt, perm=perm,
-                               tdist=tdist, pooled=pooled, gains=gains)
+                               tdist=tdist, pooled=pooled)
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -399,15 +399,11 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
              nreinit.data_ptr(), *[o.data_ptr() for o in outs],
              torch.cuda.current_stream(dev).cuda_stream)
     if pooled:
-        if (gains is None or gains.device != dev or gains.dtype != f32
-                or tuple(gains.shape) != (n_sweeps,)):
-            raise ValueError(f"sweep_chunk: gains must be a float32 "
-                             f"({n_sweeps},) tensor on {dev}")
         ghist = torch.zeros(3 * K, dtype=i32, device=dev)
         symbol = _build.sweep_symbol(perm, tdist is not None, "pooled")
         status = getattr(_build.library(), symbol)(
             K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps,
-            _build.tconsts(tdist), gains.data_ptr(), ghist.data_ptr(),
+            _build.tconsts(tdist), ghist.data_ptr(),
             float(torch.tensor(1.0 / S, dtype=f32)), *state)
         _build.check(status, symbol)
         sweep_chunk.pooled_launches += 1
@@ -451,9 +447,9 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
     from the sweep's integer histogram, all on the chains' device with no
     host sync.  Returns (chains', chunk) as the chunk runner does; the
     float sums are summed sweep by sweep, so they may differ from K1c's in
-    the last bits.  ``pooled_sweeps.launches`` counts the kernel
-    launches.  ``sweep_fn=sweep_chunk_ref`` is the runner's plain twin on
-    any device."""
+    the last bits.  Its launches count in ``sweep_chunk.launches``.
+    ``sweep_fn=sweep_chunk_ref`` is the runner's plain twin on any
+    device."""
     sweep_fn = sweep_fn or sweep_chunk
     K, D = modelset.nmodels, modelset.dmax
     S = chains.n_chains
@@ -461,7 +457,7 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
     f32, i64 = torch.float32, torch.int64
     inv_s = torch.tensor(1.0 / S, dtype=f32, device=dev)
     inv_k = torch.tensor(1.0 / K, dtype=f32, device=dev)
-    gains = pk_gains(chains.sweep, n_sweeps, dev)
+    gains = _gains(chains.sweep, n_sweeps, dev)
     pk_vec = chains.pk[0].clone()
     pkl, nri = chains.pkllim[0].clone(), chains.nreinit[0].clone()
     pk_in = pk_vec[:, None].expand(K, S).contiguous()
@@ -475,8 +471,6 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                         chains.nreinit, tables, seed=seed,
                         sweep0=chains.sweep + tr, n_sweeps=1, adapt=False,
                         perm=perm, tdist=tdist)
-        if dev.type == "cuda" and sweep_fn is sweep_chunk:
-            pooled_sweeps.launches += 1
         k, th, lp = outs[0], outs[1], outs[2]
         hist = outs[6].sum(dim=1, dtype=i64)
         ks_a += hist
@@ -492,9 +486,6 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                         nreinit=nri.expand(S).contiguous(),
                         sweep=chains.sweep + n_sweeps)
     return chains_out, _chunk(ks_a, ts_a, tq_a, cnt_a, K, D)
-
-
-pooled_sweeps.launches = 0
 
 
 def _chunk(ks, ts, tq, cnt, K: int, D: int) -> dict:
@@ -535,22 +526,19 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     def runner(chains: Chains, prop: Proposal, n_sweeps: int):
         tables = tables_for(prop)
         dev = chains.k.device
-        gains = None
-        if pooled:
-            L = tables.loglam.shape[1]
-            if _FORCE_POOLED_SCAN or (
-                    dev.type == "cuda" and chains.n_chains > pooled_capacity(
-                        modelset, L, dev, cfg.perm, tdist)):
-                return pooled_sweeps(modelset, chains, tables, n_sweeps,
-                                     seed=int(cfg.seed), perm=cfg.perm,
-                                     tdist=tdist)
-            gains = pk_gains(chains.sweep, n_sweeps, dev)
+        if pooled and (_FORCE_POOLED_SCAN or (
+                dev.type == "cuda" and chains.n_chains > pooled_capacity(
+                    modelset, tables.loglam.shape[1], dev, cfg.perm,
+                    tdist))):
+            return pooled_sweeps(modelset, chains, tables, n_sweeps,
+                                 seed=int(cfg.seed), perm=cfg.perm,
+                                 tdist=tdist)
         outs = sweep_chunk(
             modelset, chains.k, chains.theta.T.contiguous(), chains.logp,
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
             tables, seed=int(cfg.seed), sweep0=chains.sweep,
             n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist,
-            pooled=pooled, gains=gains)
+            pooled=pooled)
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,

@@ -214,18 +214,16 @@ def reset_counts():
     from automix_tpu_torch.kernels import fused, fused_stage1
     fused.sweep_chunk.launches = 0
     fused.sweep_chunk.pooled_launches = 0
-    fused.pooled_sweeps.launches = 0
     fused_stage1.segment.launches = 0
     fused_stage1.sweep.launches = 0
 
 
 def read_counts():
     """Launches since the last reset: K1 (every per-chain kernel launch,
-    K1d's included), K1c, K1d (the per-sweep runner's launches), K2, K3."""
+    the K1d runner's one-sweep launches included), K1c, K2, K3."""
     from automix_tpu_torch.kernels import fused, fused_stage1
     return {"K1": fused.sweep_chunk.launches,
             "K1c": fused.sweep_chunk.pooled_launches,
-            "K1d": fused.pooled_sweeps.launches,
             "K2": fused_stage1.segment.launches,
             "K3": fused_stage1.sweep.launches}
 
@@ -420,6 +418,26 @@ def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
                 bound_by=b_by)
 
 
+def launch_lengths(ms, prop, chains):
+    """Milliseconds per sweep of K1 on every chain of a state with pk
+    frozen, 100 sweeps run as launches of 1, 10 and 100 sweeps, each
+    launch fed the previous one's chains."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    ch = chains
+    rest = (ch.pk.T.contiguous(), ch.pkllim, ch.nreinit)
+    out = {}
+    for n in (1, 10, TIME_SWEEPS):
+        def run():
+            k, th, lp = ch.k, ch.theta.T.contiguous(), ch.logp
+            for j in range(TIME_SWEEPS // n):
+                k, th, lp = fused.sweep_chunk(
+                    ms, k, th, lp, *rest, tabs, seed=5,
+                    sweep0=ch.sweep + j * n, n_sweeps=n, adapt=False)[:3]
+        out[n] = cuda_ms(run, 2) / TIME_SWEEPS
+    return out
+
+
 def check_pooled(ms, prop, chains, dev):
     """K1c against the pooled twin (run on the card) from a pooled run's
     state: every chain, 50 sweeps.  k equal on >= 99% of chains, theta and
@@ -435,7 +453,7 @@ def check_pooled(ms, prop, chains, dev):
 
     def kw(n):
         return dict(seed=13, sweep0=ch.sweep, n_sweeps=n, adapt=True,
-                    pooled=True, gains=fused.pk_gains(ch.sweep, n, dev))
+                    pooled=True)
 
     got = fused.sweep_chunk(ms, *args, tabs, **kw(K1_SWEEPS))
     want = fused.sweep_chunk_ref(ms, *args, tabs, **kw(K1_SWEEPS))
@@ -757,6 +775,10 @@ def main():
         am.set_proposal(rb_prop)
         am.burn_samples(200)
         check_sweep(rb, am.proposal, am.chains, dev, label="K1 rb9")
+        per_sweep = launch_lengths(rb, am.proposal, am.chains)
+        log(f"K1 rb9 ms per sweep of {N_CHAINS} chains, pk frozen, by "
+            f"launch length (1 / 10 / {TIME_SWEEPS} sweeps): "
+            f"{' / '.join(f'{v:.4f}' for v in per_sweep.values())}")
         k1b = check_sweep(rb, am.proposal, am.chains, dev, perm=True,
                           label="K1 perm rb9")
         del am
@@ -783,12 +805,14 @@ def main():
             f"chain-sweeps/s; launches {counts}")
         check_probs(f"rb9 pooled {n_chains} chains", stats.model_probs,
                     oracle, what="C oracle mean")
-        other = "K1d" if route == "K1c" else "K1c"
-        if counts[route] == 0 or counts[other] != 0:
+        # K1c: one pooled launch per chunk and no per-chain launch; K1d:
+        # one per-chain launch per sweep and no pooled launch
+        if not (counts["K1c"] > 0 and counts["K1"] == 0 if route == "K1c"
+                else counts["K1"] == CLI_SWEEPS and counts["K1c"] == 0):
             fail(f"the pooled run at {n_chains} chains did not take {route}")
         if not bool((am.chains.pk == am.chains.pk[0]).all()):
             fail("the pooled pk rows differ")
-        pooled[route] = (am, counts[route])
+        pooled[route] = (am, counts["K1c" if route == "K1c" else "K1"])
         log(f"phase rb9 pooled {route}: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -812,7 +836,8 @@ def main():
     log(f"rb9 pooled {RB9_POOLED_K1C} chains, {RB9_FORCED[1]} sweeps: K1c "
         f"(launches {ca}) vs K1d forced (launches {cb}): k, theta, pk and "
         f"ksummary bitwise equal {equal}")
-    if not equal or ca["K1c"] == 0 or cb["K1d"] == 0:
+    if not equal or ca["K1c"] == 0 or ca["K1"] != 0 or cb["K1c"] != 0 \
+            or cb["K1"] != RB9_FORCED[1]:
         fail("the forced K1d run is not bitwise equal to K1c")
     k1c = check_pooled(rb, rb_prop, pooled["K1c"][0].chains, dev)
     k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev)

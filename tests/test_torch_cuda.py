@@ -338,7 +338,7 @@ def test_pooled_kernel_matches_twin(cuda, perm):
     args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
             ch.pkllim, ch.nreinit, tabs)
     kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=30, adapt=True, perm=perm,
-              pooled=True, gains=fused.pk_gains(ch.sweep, 30, cuda))
+              pooled=True)
     before = fused.sweep_chunk.pooled_launches
     got = fused.sweep_chunk(ms, *args, **kw)
     assert fused.sweep_chunk.pooled_launches == before + 1
@@ -358,13 +358,15 @@ def test_pooled_kernel_matches_twin(cuda, perm):
 
 def test_pooled_runner_matches_twin(cuda):
     """The K1d runner (one K1 launch per sweep) against the same loop over
-    the twin on the card, 4096 rb9 chains x 20 sweeps: 20 launches; k
-    equal on >= 99% of chains; where all agree, pk, pkllim, nreinit and
-    the visit counts are bitwise equal."""
+    the twin on the card, 4096 rb9 chains x 20 sweeps: 20 launches of the
+    per-chain kernel and none of K1c; k equal on >= 99% of chains; where
+    all agree, pk, pkllim, nreinit and the visit counts are bitwise
+    equal."""
     ms, ch, tabs = _rb9_state(cuda, 4096, seed=1)
-    before = fused.pooled_sweeps.launches
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches)
     a, ca = fused.pooled_sweeps(ms, ch, tabs, 20, seed=4)
-    assert fused.pooled_sweeps.launches == before + 20
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.pooled_launches) == (before[0] + 20, before[1])
     b, cb = fused.pooled_sweeps(ms, ch, tabs, 20, seed=4,
                                 sweep_fn=fused.sweep_chunk_ref)
     same = a.k == b.k
@@ -421,6 +423,36 @@ def test_pooled_kernel_raises_above_its_bound(cuda):
         fused.sweep_chunk(ms, ch.k, ch.theta.T.contiguous(), ch.logp,
                           ch.pk.T.contiguous(), ch.pkllim, ch.nreinit, tabs,
                           seed=1, sweep0=5, n_sweeps=2, adapt=True,
-                          pooled=True, gains=fused.pk_gains(5, 2, cuda))
+                          pooled=True)
     assert (fused.sweep_chunk.launches,
             fused.sweep_chunk.pooled_launches) == before
+
+
+def test_kernel_gain_matches_the_runners_gain(cuda):
+    """The pk gain the kernel computes (am_gain, read by K1 and K1c) is
+    bit for bit the one the K1d runner and the pooled twin compute in
+    torch (fused._gains), at 300 sweep indices up to 2^24 - 1: after one
+    adapting sweep with the re-init off (pkllim -1), every chain's pk is
+    pk + gamma_t * (onehot(k) - pk)."""
+    ms = toy.toy2_set()
+    S, K = 1024, 5
+    tabs = fused.prep_tables(_toy2_proposal(), ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(cuda)
+                         for f in tabs.__dataclass_fields__})
+    rng = np.random.default_rng(1)
+    k = torch.as_tensor(rng.integers(0, K, S), dtype=torch.int32,
+                        device=cuda)
+    theta = torch.zeros((5, S), device=cuda)
+    logp = ms.logpost_cols(k.long(), list(theta))
+    pk = torch.as_tensor(rng.dirichlet(np.ones(K), S).T, dtype=torch.float32,
+                         device=cuda).contiguous()
+    pkl = torch.full((S,), -1.0, device=cuda)
+    nri = torch.ones(S, dtype=torch.int32, device=cuda)
+    ts = np.unique(np.concatenate([np.arange(60), np.geomspace(
+        60, 2 ** 24 - 1, 240).astype(np.int64)]))
+    for t in ts.tolist():
+        out = fused.sweep_chunk(ms, k, theta, logp, pk, pkl, nri, tabs,
+                                seed=3, sweep0=t, n_sweeps=1, adapt=True)
+        oh = torch.nn.functional.one_hot(out[0].long(), K).T.float()
+        gamma = fused._gains(t, 1, cuda)
+        assert torch.equal(out[3], pk + gamma * (oh - pk)), t

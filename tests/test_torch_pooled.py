@@ -91,10 +91,11 @@ def test_pooled_routes_match_jax_on_toy1(jax_scan, pkllim):
     """1024 toy1 chains x 20 sweeps.  Both port routes against the JAX
     route: words are bitwise equal and the histogram is an integer, so
     only libm ulps separate the runs: k equal on >= 99% of chains, theta
-    and logp within 1e-4 relative on those, the shared pk within 1e-5
-    (the port's gains are rounded from float64), pkllim and nreinit
-    equal, visit counts and counters within 1% (the tolerances of
-    test_torch_fused.py)."""
+    and logp within 1e-4 relative on those, the shared pk within 1e-7
+    (a few float32 ulps: torch's and XLA's float32 exp and log on the CPU
+    differ in the last bit for some sweep indices, so the gains can),
+    pkllim and nreinit equal, visit counts and counters within 1% (the
+    tolerances of test_torch_fused.py)."""
     rng = np.random.default_rng(SEED)
     p = _toy1_proposal(rng)
     c = _toy1_chains(rng, pkllim)
@@ -126,7 +127,7 @@ def test_pooled_routes_match_jax_on_toy1(jax_scan, pkllim):
                                    np.asarray(jch2.logp)[same], rtol=1e-4,
                                    atol=1e-4)
         np.testing.assert_allclose(ch.pk.numpy(), np.asarray(jch2.pk),
-                                   atol=1e-5)
+                                   rtol=0, atol=1e-7)
         np.testing.assert_array_equal(ch.pkllim.numpy(),
                                       np.asarray(jch2.pkllim))
         np.testing.assert_array_equal(ch.nreinit.numpy(),
@@ -172,7 +173,8 @@ def test_rb9_pooled_matches_jax_fixture():
     both port routes against the JAX package's frozen run
     (``tests/data/make_rb9_pooled_fixture.py``, both JAX routes equal):
     k equal on >= 99% of chains, theta and logp within 1e-4 relative on
-    those, the shared pk within 1e-5, visit counts within 1%."""
+    those, the shared pk, pkllim and nreinit equal, visit counts within
+    1%."""
     z = np.load(_FIXTURE)
     n_chains, _, nsweeps, sweep0, seed = (int(x) for x in z["meta"])
     p = {n[5:]: z[n] for n in z.files if n.startswith("prop_")}
@@ -195,7 +197,8 @@ def test_rb9_pooled_matches_jax_fixture():
                                    z["out_theta"][same], rtol=1e-4)
         np.testing.assert_allclose(ch.logp.numpy()[same],
                                    z["out_logp"][same], rtol=1e-4)
-        np.testing.assert_allclose(ch.pk.numpy(), z["out_pk"], atol=1e-5)
+        np.testing.assert_array_equal(ch.pk.numpy(), z["out_pk"])
+        np.testing.assert_array_equal(ch.pkllim.numpy(), z["out_pkllim"])
         np.testing.assert_array_equal(ch.nreinit.numpy(), z["out_nreinit"])
         ks = chunk["ksummary"].numpy()
         assert ks.sum() == n_chains * nsweeps
@@ -252,13 +255,12 @@ def test_pooled_wrapper_rules():
     with pytest.raises(ValueError, match="pooled"):
         fused.sweep_chunk(toy.toy1_set(), *args, seed=1, sweep0=5,
                           n_sweeps=2, adapt=False, pooled=True)
-    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches,
-              fused.pooled_sweeps.launches)
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches)
     for force in (False, True):
         _port_run(p, c, force, chunks=(3,))
     burn = fused.build_fused_chunk_runner(
         toy.toy1_set(), EngineConfig(pk_mode="pooled"), burning=True)
     ch2, _ = burn(ch, prop, 4)
     assert torch.equal(ch2.pk, ch.pk)
-    assert (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches,
-            fused.pooled_sweeps.launches) == before
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.pooled_launches) == before
