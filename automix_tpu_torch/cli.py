@@ -27,18 +27,18 @@ import time
 _NOT_PORTED = {
     "cpt": "D5 (change-point densities)",
     "cptrs": "D5 (change-point densities)",
-    "ddi": "D4 (the DDI density)",
 }
 
 
 def _problem_registry():
-    from automix_tpu_torch.models import builtin, rb9, toy, tutorial
+    from automix_tpu_torch.models import builtin, ddi, rb9, toy, tutorial
 
     return {
         "tutorial": tutorial.tutorial_set,
         "toy1": toy.toy1_set,
         "toy2": toy.toy2_set,
         "rb9": rb9.rb9_set,
+        "ddi": ddi.ddi_set,
         "normal": builtin.normal_sampler_set,
         "truncnormal": builtin.truncnormal_sampler_set,
         "beta": builtin.beta_sampler_set,

@@ -26,7 +26,8 @@
 #define AM_HALF_LOG_2PI 0.9189385332046727f
 #define AM_LOG_ACCEPT_CLAMP (-30.0f)
 
-// Density kinds (automix_tpu_torch/models/builtin.py and toy.py KIND_*).
+// Density kinds (automix_tpu_torch/models/builtin.py, toy.py, rb9.py and
+// ddi.py KIND_*).
 #define AM_KIND_NORMAL_PARAMS 1
 #define AM_KIND_BETA_PARAMS 2
 #define AM_KIND_GAMMA_PARAMS 3
@@ -36,6 +37,7 @@
 #define AM_KIND_MIXTURE 7
 #define AM_KIND_TOY2 8
 #define AM_KIND_RB9 9
+#define AM_KIND_DDI 10
 
 // AM_SHAPES(X): the (K, D) model-set shapes every kernel is instantiated
 // for, generated at build time from automix_tpu_torch/kernels/_build.py
@@ -318,15 +320,28 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
   return ok ? lp : -1e6f;
 }
 
+// The DDI family's statistics and log-posterior (models/ddi_cols.py), fed
+// by the generated am_ddi.h.
+#include "ddi.cuh"
+
 // Sanitized log-posterior of a model of density ``kind`` and dimension
 // ``dim`` <= D in a (K, D) model set: NaN -> NEG_INF, clamp to
-// [NEG_INF, -NEG_INF] (fmaxf also sends NaN to NEG_INF).  The rb9 density
-// is compiled into the rb9 family's own shape only: inlined into every
-// instantiation, it raised the tutorial's sweep kernel from 64 to 72
-// registers and slowed it by a quarter.
+// [NEG_INF, -NEG_INF] (fmaxf also sends NaN to NEG_INF).  The rb9 and DDI
+// densities are compiled into their families' own shapes only: inlined
+// into every instantiation, rb9's raised the tutorial's sweep kernel from
+// 64 to 72 registers and slowed it by a quarter.  The DDI case evaluates
+// the statistics from scratch (c[0] is the model's index; already
+// sanitized), ahead of the switch so that the other shapes' switch stays as
+// it was: as one more case of it, it made the tutorial's stage-1 segment
+// kernel 15% slower.  The stage-3 sweep carries the statistics instead
+// (fused_sweep.cu, kCache).
 template <int K, int D>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
                                             int dim, const float* th) {
+  if constexpr (K == AM_DDI_K && D == AM_DDI_D) {
+    if (kind == AM_KIND_DDI)
+      return (c[0] == 0.0f) ? am_ddi_logpost<0>(th) : am_ddi_logpost<1>(th);
+  }
   float lp;
   switch (kind) {
     case AM_KIND_NORMAL_PARAMS: lp = am_density_normal(c, th[0], th[1]); break;

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas kernel of automix_tpu/kernels/fused.py
 // (build_fused_chunk_runner._built -> kernel, pallas_call at line 859)
-// with stateless column densities and counter-hash randomness, in four
-// variants: Normal or Student-t perturbations (AM_TDIST: Bailey polar
+// with counter-hash randomness, for stateless column densities and, in a
+// cached form (kCache, K1e), for the DDI family's incremental density; in
+// four variants: Normal or Student-t perturbations (AM_TDIST: Bailey polar
 // draws and the t latent density) and with or without the latent
 // permutation (AM_PERM: the stable bubble network over per-slot uniform
 // keys).  Each variant is its own compilation unit and exports three
@@ -59,6 +60,31 @@
 // to a select in floating point.  The variant switches are compile-time
 // constants, so the main-path variant carries no Student-t or perm code.
 //
+// K1e, the cached form (the JAX kernel with a FusedColsDensity,
+// fused.py:460-466, 527-569, 729-765), is compiled at the DDI family's
+// shape (2, 16) only, where it is the only form.  A chain carries both
+// models' class statistics (AM_DDI_NCACHE = 165 floats, csrc/ddi.cuh) as
+// JAX does: fresh at the chunk's start (logp kept), updated by the accepted
+// moves, and recomputed with logp from the state after the RJ move of
+// every sweep t with t % 16 == 15.  A candidate's statistics are never
+// stored: its lp takes each column as the class loop needs it (from
+// scratch, or the carried column plus the coordinate move's features), and
+// an accepted move recomputes the columns it blends, c + (cn - c).  A
+// rejected move leaves the cache as it is, which equals JAX's blend with
+// acc = 0 whenever the candidate statistics are finite.  Both models'
+// statistics follow every accepted alpha move, whatever the chain's model,
+// so a jump's blend starts from the same carried values as in JAX.  The
+// componentwise loop runs over coordinates at run time (it is unrolled in
+// the stateless form), selecting theta's entries by compare so that theta
+// stays in registers.  The cache lives in shared memory as [column][thread]
+// (a warp's 32 accesses to one column hit 32 banks) or, with cache_mode 2
+// (K1 only, kept to measure the choice), in each thread's local memory:
+// 221 registers and no spills either way, and on the H100 the local form
+// took 84 ms per 100 sweeps of 16384 DDI chains against 74 (PERF.md).  The
+// proposal tables are read from device memory through L1 instead of being
+// copied to shared memory, which leaves shared memory to the cache at any
+// L: 84.5 KB a block, 2 blocks per SM at 221 registers.
+//
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
 #include <cooperative_groups.h>
@@ -88,15 +114,29 @@ constexpr int kLMax = 32;        // mixture components per model (runtime L)
 constexpr int kThreads = 128;
 constexpr bool kPerm = AM_PERM != 0;
 constexpr bool kTdist = AM_TDIST != 0;
+// Cache modes: none (stateless densities), shared memory, local memory.
+constexpr int kNoCache = 0, kSharedCache = 1, kLocalCache = 2;
+// Sweeps between full refreshes of the cache (the JAX _REFRESH).
+constexpr int kRefresh = 16;
 
-// Dynamic shared memory of one block: the tables.
+// The shape whose model set carries a cache: only its cached form exists.
 template <int K, int D>
-size_t sweep_smem(int L) {
+constexpr bool cached_shape() {
+  return K == AM_DDI_K && D == AM_DDI_D;
+}
+
+// Dynamic shared memory of one block: the tables, or with a cache in
+// shared memory the cache (the tables are then read from device memory).
+template <int K, int D>
+size_t sweep_smem(int L, int cache_mode) {
+  if (cache_mode == kSharedCache)
+    return sizeof(float) * (size_t)AM_DDI_NCACHE * kThreads;
+  if (cache_mode == kLocalCache) return 0;
   const int KL = K * L;
   return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
 }
 
-template <int K, int D, bool kPooled>
+template <int K, int D, bool kPooled, int kCacheMode>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
     int* __restrict__ ghist, float inv_S,
@@ -110,9 +150,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     float* __restrict__ pkl_out, int* __restrict__ nri_out,
     int* __restrict__ ks_out, float* __restrict__ ts_out,
     float* __restrict__ tq_out, int* __restrict__ cnt_out) {
-  // ---- tables -> shared memory ------------------------------------------
+  // ---- tables -> shared memory (stateless form) -------------------------
   // tab = [sig K*D | loglam K*L | abase K*L | logdet K*L | mu K*L*D |
   //        binv K*L*D*D | B K*L*D*D]
+  constexpr bool kCache = kCacheMode != kNoCache;
   extern __shared__ float smem[];
   __shared__ float consts_s[K * AM_N_CONSTS];
   __shared__ int kinds_s[K];
@@ -120,7 +161,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   __shared__ int hist_s[K];
   const int KL = K * L;
   const int n_tab = K * D + 3 * KL + KL * D + 2 * KL * D * D;
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
+  if constexpr (!kCache)
+    for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
   for (int i = threadIdx.x; i < K * AM_N_CONSTS; i += blockDim.x)
     consts_s[i] = consts_g[i];
   for (int m = threadIdx.x; m < K; m += blockDim.x) {
@@ -129,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     hist_s[m] = 0;
   }
   __syncthreads();
-  const float* sig = smem;
+  const float* sig = kCache ? tab : smem;
   const float* loglam = sig + K * D;
   const float* abase = loglam + KL;
   const float* logdet = abase + KL;
@@ -165,6 +207,20 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     }
   }
   int cnt[6] = {0, 0, 0, 0, 0, 0};
+
+  // K1e: the chain's cache of both models' statistics, fresh at the chunk's
+  // start state (a chunk boundary refreshes the cache, not logp)
+  float cache_l[kCacheMode == kLocalCache ? AM_DDI_NCACHE : 1];
+  const auto cache = [&]() {
+    if constexpr (kCacheMode == kSharedCache)
+      return AmDdiCache<kThreads>{smem + threadIdx.x};
+    else
+      return AmDdiCache<1>{cache_l};
+  }();
+  if constexpr (kCache) {
+    am_ddi_cache_full<0>(th, cache, false);
+    am_ddi_cache_full<1>(th, cache, false);
+  }
 
   // Random word slots of one sweep (kernels/fused.py s_* offsets):
   // D accept words, the RJ accept, L + K + L Gumbel words, D permutation
@@ -208,15 +264,54 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
       for (int d = 0; d < D; ++d)
         prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(sa, d) : th[d];
-      float lpn =
-          am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
+      float lpn;
+      if constexpr (kCache)
+        lpn = (kk == 0) ? am_ddi_logpost<0>(prop) : am_ddi_logpost<1>(prop);
+      else
+        lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk,
+                               prop);
       float acc = (am_u01(am_word(sa, cbase)) < am_accept(lpn - lp)) ? 1.0f
                                                                       : 0.0f;
+      if constexpr (kCache) {
+        if (acc != 0.0f) {
+          am_ddi_cache_full<0>(prop, cache, true);
+          am_ddi_cache_full<1>(prop, cache, true);
+        }
+      }
 #pragma unroll
       for (int d = 0; d < D; ++d) th[d] = th[d] + acc * (prop[d] - th[d]);
       lp = lp + acc * (lpn - lp);
       cnt[0] += (int)acc;
       cnt[1] += 1;
+    } else if constexpr (kCache) {
+      // K1e: coordinates at run time; theta's entries by compare
+#pragma unroll 1
+      for (int j = 0; j < dk; ++j) {
+        float oldj = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          if (d == j) oldj = th[d];
+        const float pj = oldj + sig[kk * D + j] * z_rwm(sa, j);
+        float prop[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) prop[d] = (d == j) ? pj : th[d];
+        const float lpn = (kk == 0)
+                              ? am_ddi_lp_coord<0>(j, prop, oldj, cache)
+                              : am_ddi_lp_coord<1>(j, prop, oldj, cache);
+        const float acc =
+            (am_u01(am_word(sa, cbase + j)) < am_accept(lpn - lp)) ? 1.0f
+                                                                   : 0.0f;
+        if (acc != 0.0f) {
+          am_ddi_cache_coord<0>(j, prop, oldj, cache);
+          am_ddi_cache_coord<1>(j, prop, oldj, cache);
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          if (d == j) th[d] = th[d] + acc * (pj - th[d]);
+        lp = lp + acc * (lpn - lp);
+        cnt[2] += (int)acc;
+        cnt[3] += 1;
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < D; ++j) {
@@ -406,8 +501,12 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     const float log_pallocn = logits[ln] - (mxn + logf(sen));
 
     // MH accept
-    const float lpn =
-        am_logpost<K, D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
+    float lpn;
+    if constexpr (kCache)
+      lpn = (kn == 0) ? am_ddi_logpost<0>(thn) : am_ddi_logpost<1>(thn);
+    else
+      lpn = am_logpost<K, D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn,
+                             thn);
     logratio = logratio + (lpn - lp);
     logratio = logratio + (log_pallocn - log_palloc);
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
@@ -416,10 +515,27 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         (am_u01(am_word(sa, cbase + s_uacc)) < am_accept(logratio)) ? 1.0f
                                                                      : 0.0f;
     const int acci = (int)accf;
+    if constexpr (kCache) {
+      if (acci) {
+        am_ddi_cache_full<0>(thn, cache, true);
+        am_ddi_cache_full<1>(thn, cache, true);
+      }
+    }
     kk = kk + acci * (kn - kk);
 #pragma unroll
     for (int d = 0; d < D; ++d) th[d] = th[d] + accf * (thn[d] - th[d]);
     lp = lp + accf * (lpn - lp);
+    if constexpr (kCache) {
+      // periodic refresh of the cache and logp from the state (keyed on
+      // the global sweep, so a resume at a chunk boundary replays it)
+      if (t % kRefresh == kRefresh - 1) {
+        am_ddi_cache_full<0>(th, cache, false);
+        am_ddi_cache_full<1>(th, cache, false);
+        const auto col0 = [&](int c) { return cache[AmDdi<0>::kOff + c]; };
+        const auto col1 = [&](int c) { return cache[AmDdi<1>::kOff + c]; };
+        lp = (kk == 0) ? am_ddi_lp<0>(th, col0) : am_ddi_lp<1>(th, col1);
+      }
+    }
 
     // ---- (c) pk diminishing adaptation with the re-init safeguard --------
     if (adapt && K > 1) {
@@ -521,19 +637,19 @@ struct SweepArgs {
   int* cnt_out;
 };
 
-template <int K, int D, bool kPooled>
+template <int K, int D, bool kPooled, int kMode>
 cudaError_t set_smem(int L) {
-  return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled>,
+  return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled, kMode>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sweep_smem<K, D>(L));
+                              (int)sweep_smem<K, D>(L, kMode));
 }
 
 // Chains K1c can hold resident at once on the current device at this L:
 // blocks per SM (occupancy at the kernel's registers and shared memory)
 // times SMs times kThreads; 0 where the device has no cooperative launch.
-template <int K, int D>
+template <int K, int D, int kMode>
 int pooled_capacity(int L, int* chains) {
-  cudaError_t e = set_smem<K, D, true>(L);
+  cudaError_t e = set_smem<K, D, true, kMode>(L);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -542,23 +658,23 @@ int pooled_capacity(int L, int* chains) {
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_sweep_kernel<K, D, true>, kThreads,
-      sweep_smem<K, D>(L));
+      &per_sm, fused_sweep_kernel<K, D, true, kMode>, kThreads,
+      sweep_smem<K, D>(L, kMode));
   if (e != cudaSuccess) return (int)e;
   *chains = coop ? per_sm * sms * kThreads : 0;
   return 0;
 }
 
-template <int K, int D, bool kPooled>
+template <int K, int D, bool kPooled, int kMode>
 int launch_sweep(SweepArgs a, cudaStream_t st) {
-  cudaError_t e = set_smem<K, D, kPooled>(a.L);
+  cudaError_t e = set_smem<K, D, kPooled, kMode>(a.L);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kThreads - 1) / kThreads);
-  const size_t smem = sweep_smem<K, D>(a.L);
+  const size_t smem = sweep_smem<K, D>(a.L, kMode);
   if constexpr (kPooled) {
     // refuse a population the card cannot hold resident
     int cap = 0;
-    const int rc = pooled_capacity<K, D>(a.L, &cap);
+    const int rc = pooled_capacity<K, D, kMode>(a.L, &cap);
     if (rc != 0) return rc;
     if (a.S > cap) return -2;
     void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
@@ -568,11 +684,11 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
                     &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
                     &a.ts_out, &a.tq_out, &a.cnt_out};
     e = cudaLaunchCooperativeKernel(
-        (const void*)fused_sweep_kernel<K, D, true>, grid, dim3(kThreads),
-        args, smem, st);
+        (const void*)fused_sweep_kernel<K, D, true, kMode>, grid,
+        dim3(kThreads), args, smem, st);
     if (e != cudaSuccess) return (int)e;
   } else {
-    fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
+    fused_sweep_kernel<K, D, false, kMode><<<grid, kThreads, smem, st>>>(
         a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.ghist,
         a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
         a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
@@ -580,6 +696,36 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
         a.cnt_out);
   }
   return (int)cudaGetLastError();
+}
+
+// The form of (K, D) for ``cache_mode``: the cached shape has only its
+// cached forms (K1c with the cache in shared memory only), every other
+// shape only the stateless one; -1 otherwise.
+template <int K, int D, bool kPooled>
+int launch_form(int cache_mode, SweepArgs a, cudaStream_t st) {
+  if constexpr (cached_shape<K, D>()) {
+    if (cache_mode == kSharedCache)
+      return launch_sweep<K, D, kPooled, kSharedCache>(a, st);
+    if constexpr (!kPooled)
+      if (cache_mode == kLocalCache)
+        return launch_sweep<K, D, false, kLocalCache>(a, st);
+    return -1;
+  } else {
+    if (cache_mode != kNoCache) return -1;
+    return launch_sweep<K, D, kPooled, kNoCache>(a, st);
+  }
+}
+
+template <int K, int D>
+int capacity_form(int cache_mode, int L, int* chains) {
+  if constexpr (cached_shape<K, D>()) {
+    if (cache_mode == kSharedCache)
+      return pooled_capacity<K, D, kSharedCache>(L, chains);
+    return -1;
+  } else {
+    if (cache_mode != kNoCache) return -1;
+    return pooled_capacity<K, D, kNoCache>(L, chains);
+  }
 }
 
 AmT t_consts(const float* tconsts) {
@@ -590,9 +736,9 @@ AmT t_consts(const float* tconsts) {
 }
 
 template <bool kPooled>
-int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
+int dispatch(int K, int D, int cache_mode, SweepArgs a, cudaStream_t st) {
 #define AM_CASE(k, d) \
-  if (K == k && D == d) return launch_sweep<k, d, kPooled>(a, st);
+  if (K == k && D == d) return launch_form<k, d, kPooled>(cache_mode, a, st);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;
@@ -602,17 +748,19 @@ int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
 
 #ifdef __CUDACC__
 // Launch on ``stream``; returns cudaGetLastError() after the launch, or -1
-// for a (K, D) pair without an instantiation or an L above kLMax.
-// ``tconsts`` is a host array of the five Student-t constants (AmT); the
-// Normal variants ignore it.
+// for a (K, D) pair without an instantiation in ``cache_mode`` (0 for a
+// stateless density; at the cached shape 1 keeps the cache in shared
+// memory, 2 in local memory) or an L above kLMax.  ``tconsts`` is a host
+// array of the five Student-t constants (AmT); the Normal variants ignore
+// it.
 extern "C" int AM_K1_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int adapt, const float* tconsts, const void* tab, const void* kinds,
-    const void* consts, const void* dims, const void* k_in,
-    const void* th_in, const void* lp_in, const void* pk_in,
-    const void* pkl_in, const void* nri_in, void* k_out, void* th_out,
-    void* lp_out, void* pk_out, void* pkl_out, void* nri_out, void* ks_out,
-    void* ts_out, void* tq_out, void* cnt_out, void* stream) {
+    int adapt, int cache_mode, const float* tconsts, const void* tab,
+    const void* kinds, const void* consts, const void* dims,
+    const void* k_in, const void* th_in, const void* lp_in,
+    const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
+    void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
+    void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
   if (L < 1 || L > kLMax || S < 1) return -1;
   if (kTdist && !tconsts) return -1;
   SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, t_consts(tconsts),
@@ -625,7 +773,7 @@ extern "C" int AM_K1_SYMBOL(
                  (float*)lp_out, (float*)pk_out, (float*)pkl_out,
                  (int*)nri_out, (int*)ks_out, (float*)ts_out,
                  (float*)tq_out, (int*)cnt_out};
-  return dispatch<false>(K, D, a, (cudaStream_t)stream);
+  return dispatch<false>(K, D, cache_mode, a, (cudaStream_t)stream);
 }
 
 // K1c: the same sweeps with pooled pk adaptation (adapt must be 1).
@@ -634,7 +782,7 @@ extern "C" int AM_K1_SYMBOL(
 // (AM_K1C_CAP_SYMBOL).
 extern "C" int AM_K1C_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    const float* tconsts, void* ghist, float inv_S,
+    int cache_mode, const float* tconsts, void* ghist, float inv_S,
     const void* tab, const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
@@ -652,14 +800,16 @@ extern "C" int AM_K1C_SYMBOL(
                  (float*)lp_out, (float*)pk_out, (float*)pkl_out,
                  (int*)nri_out, (int*)ks_out, (float*)ts_out,
                  (float*)tq_out, (int*)cnt_out};
-  return dispatch<true>(K, D, a, (cudaStream_t)stream);
+  return dispatch<true>(K, D, cache_mode, a, (cudaStream_t)stream);
 }
 
-// Chains K1c can hold resident at (K, D, L) on the current device.
-extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int* chains) {
+// Chains K1c can hold resident at (K, D, L) in ``cache_mode`` on the
+// current device.
+extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int cache_mode,
+                                 int* chains) {
   if (L < 1 || L > kLMax) return -1;
 #define AM_CASE(k, d) \
-  if (K == k && D == d) return pooled_capacity<k, d>(L, chains);
+  if (K == k && D == d) return capacity_form<k, d>(cache_mode, L, chains);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;

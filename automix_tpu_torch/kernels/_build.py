@@ -8,7 +8,8 @@ kernel one unit per perm / Student-t variant) is compiled by its own
 the kernels are instantiated for are :data:`SHAPES`, written for the
 compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
 ``csrc/common.cuh`` includes); the rb9 family's data are written into a
-generated ``am_rb9.h`` from ``models/rb9.py``.  The library is
+generated ``am_rb9.h`` from ``models/rb9.py``, and the DDI family's
+tables into ``am_ddi.h`` from ``models/ddi_cols.py``.  The library is
 cached under ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source builds anew; the
 compilers' output (``ptxas -v`` register and spill counts) is kept beside
@@ -27,13 +28,18 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "ddi.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-# The (K, D) model-set shapes every kernel is instantiated for.
-SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5))
+# The (K, D) model-set shapes every kernel is instantiated for.  At the DDI
+# family's (2, 16) the stage-3 sweep kernel has its cached form (K1e) only.
+SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5), (2, 16))
+
+# Cache modes of the stage-3 sweep launchers (csrc/fused_sweep.cu): a
+# stateless density, or the DDI cache in shared or in local memory.
+NO_CACHE, SHARED_CACHE, LOCAL_CACHE = 0, 1, 2
 
 
 def shapes_header() -> str:
@@ -45,10 +51,11 @@ def shapes_header() -> str:
 
 
 def generated_headers() -> dict:
-    """The generated headers by file name: ``am_shapes.h`` and
-    ``am_rb9.h``."""
-    from automix_tpu_torch.models import rb9
-    return {"am_shapes.h": shapes_header(), "am_rb9.h": rb9.header()}
+    """The generated headers by file name: ``am_shapes.h``, ``am_rb9.h``
+    and ``am_ddi.h``."""
+    from automix_tpu_torch.models import ddi, rb9
+    return {"am_shapes.h": shapes_header(), "am_rb9.h": rb9.header(),
+            "am_ddi.h": ddi.header()}
 
 
 def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
@@ -79,13 +86,13 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
+    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _I, _P]
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
+    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
        + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
+    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)},
     "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
@@ -198,7 +205,8 @@ def check(status: int, name: str):
     """Raise if a launcher reported a refused configuration or a CUDA
     error."""
     if status == -1:
-        raise ValueError(f"{name}: shape not instantiated in the kernel")
+        raise ValueError(f"{name}: shape or cache mode not instantiated in "
+                         "the kernel")
     if status == -2:
         raise ValueError(f"{name}: more chains than the card holds resident "
                          "for a cooperative launch")

@@ -1,10 +1,18 @@
 """Stage 3: reversible-jump sweeps, a whole chunk per kernel launch.
 
-Counterpart of ``automix_tpu/kernels/fused.py`` with stateless column
-densities and ``hash`` randomness, with or without perm and Student-t:
-``_prep_tables``, the chunk runners of ``_compiled``, ``_compiled_pooled``
-and ``runner``, and the sweep kernel itself, which is
-``csrc/fused_sweep.cu`` on the card and :func:`sweep_chunk_ref` on the CPU.
+Counterpart of ``automix_tpu/kernels/fused.py`` with ``hash`` randomness,
+with or without perm and Student-t: ``_prep_tables``, the chunk runners of
+``_compiled``, ``_compiled_pooled`` and ``runner``, and the sweep kernel
+itself, which is ``csrc/fused_sweep.cu`` on the card and
+:func:`sweep_chunk_ref` on the CPU.
+
+A model set's density is a stateless column density or an incremental
+one with a per-chain cache (``model.make_density``; the DDI family's,
+K1e).  The cache follows the JAX kernel: fresh at a chunk's start (logp
+kept), blended with the accepted moves (columns a coordinate move did not
+touch are skipped), and recomputed with logp after the RJ move of every
+sweep t with t % 16 == 15.  A chunk boundary therefore refreshes the
+cache but not logp, so runs chunked differently differ in the last bits.
 
 Pooled pk (``pk_mode="pooled"``: one shared pk adapted from the
 population's visit histogram, automix.c:1258-1281) takes one of two
@@ -14,9 +22,10 @@ for a population the card holds resident at once
 (:func:`pooled_capacity`).  A larger population takes K1d
 (:func:`pooled_sweeps`): one launch of the per-chain kernel per sweep with
 pk frozen, and the shared update between launches in plain torch on the
-device, as the JAX ``_compiled_pooled``.  The two routes give bitwise the
-same chains.  Burn-in and ``adapt=False`` runs keep the per-chunk kernel,
-pk being frozen.
+device, as the JAX ``_compiled_pooled``.  For stateless densities the two
+routes give bitwise the same chains; with a cache they do not, since K1d's
+one-sweep launches rebuild it every sweep.  Burn-in and ``adapt=False``
+runs keep the per-chunk kernel, pk being frozen.
 
 Chain i draws its words at hash counters i * NW + slot, which is the JAX
 kernel's chain_id for the flat chain index.  The slots follow the JAX
@@ -40,11 +49,15 @@ import torch
 
 from automix_tpu_torch.config import EngineConfig, LOG_ACCEPT_CLAMP, NEG_INF
 from automix_tpu_torch.kernels import _build
+from automix_tpu_torch.model import make_density
 from automix_tpu_torch.ops import linalg, randoms
 from automix_tpu_torch.state import Chains, Proposal
 
 _LOG_2PI = 1.8378770664093453
 _MAX_L = 32          # csrc/fused_sweep.cu kLMax
+# Sweeps between full refreshes of an incremental density's cache and
+# logp (the JAX _REFRESH): keyed on the global sweep, t % 16 == 15.
+_REFRESH = 16
 
 
 @dataclasses.dataclass
@@ -130,6 +143,21 @@ def word_slots(K: int, D: int, L: int, perm: bool, tdist: bool):
     return s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW
 
 
+def _blend(cache, cache_n, acc):
+    """The accept-blend c + acc * (cn - c) of every cache column the move
+    touched; a column that came back as the same object is kept."""
+    idx = [i for i, (c, cn) in enumerate(zip(cache, cache_n)) if cn is not c]
+    if not idx:
+        return cache
+    c = torch.stack([cache[i] for i in idx])
+    cn = torch.stack([cache_n[i] for i in idx])
+    blended = (c + acc[None, :] * (cn - c)).unbind(0)
+    out = list(cache)
+    for r, i in enumerate(idx):
+        out[i] = blended[r]
+    return tuple(out)
+
+
 def _gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
     """float32 [n_sweeps] pk gains gamma_t = exp(-2/3 log(t + 1)) of
     sweeps sweep0 ..., in float32 as the JAX kernel and the CUDA kernel
@@ -156,6 +184,7 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     L = tables.loglam.shape[1]
     dev = k.device
     f32 = torch.float32
+    density = make_density(modelset)
     s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW = word_slots(
         K, D, L, perm, tdist is not None)
     chain = torch.arange(S, device=dev)
@@ -177,6 +206,9 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     ts = torch.zeros((K * D, S), dtype=f32, device=dev)
     tq = torch.zeros((K * D, S), dtype=f32, device=dev)
     cnt = torch.zeros((6, S), dtype=torch.int32, device=dev)
+    # an incremental density's cache, fresh at the chunk's start state
+    # (logp is kept: a chunk boundary refreshes the cache only)
+    cache = density.full(kk, th)[1] if density.n_cache else ()
 
     for tr in range(n_sweeps):
         t = sweep0 + tr
@@ -198,20 +230,22 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
         if t % 10 == 0:
             prop = [torch.where(active[d], th[d] + sig_k[:, d] * z_rwm[d],
                                 th[d]) for d in range(D)]
-            lpn = modelset.logpost_cols(kk, prop)
+            lpn, cache_n = density.full(kk, prop)
             acc = (u[0] < _accept(lpn - lp)).to(f32)
             th = [th[d] + acc * (prop[d] - th[d]) for d in range(D)]
             lp = lp + acc * (lpn - lp)
+            cache = _blend(cache, cache_n, acc)
             cnt[0] += acc.to(torch.int32)
             cnt[1] += 1
         else:
             for j in range(D):
                 prop = list(th)
                 prop[j] = th[j] + sig_k[:, j] * z_rwm[j]
-                lpn = modelset.logpost_cols(kk, prop)
+                lpn, cache_n = density.coord(j, kk, prop, th[j], cache)
                 acc = ((u[j] < _accept(lpn - lp)) & active[j]).to(f32)
                 th[j] = th[j] + acc * (prop[j] - th[j])
                 lp = lp + acc * (lpn - lp)
+                cache = _blend(cache, cache_n, acc)
                 cnt[2] += acc.to(torch.int32)
                 cnt[3] += active[j].to(torch.int32)
 
@@ -285,7 +319,7 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                        - _lse(list(logits_n.unbind(1))))
 
         # accept
-        lpn = modelset.logpost_cols(kn, thn)
+        lpn, cache_rj = density.full(kn, thn)
         ll_kl = tables.loglam[kk, l_idx]
         ll_kln = tables.loglam[kn, ln]
         ld_kl = tables.logdet[kk, l_idx]
@@ -297,6 +331,11 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
         kk = kk + acci * (kn - kk)
         th = [th[d] + accf * (thn[d] - th[d]) for d in range(D)]
         lp = lp + accf * (lpn - lp)
+        cache = _blend(cache, cache_rj, accf)
+        if density.n_cache and t % _REFRESH == _REFRESH - 1:
+            # periodic refresh of the cache and logp from the state, which
+            # bounds the float32 drift of the incremental updates
+            lp, cache = density.full(kk, th)
 
         # (c) pk diminishing adaptation with the re-init safeguard
         if adapt and K > 1:
@@ -331,6 +370,20 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
             nri, ks, ts, tq, cnt)
 
 
+def cache_mode(modelset) -> int:
+    """The sweep kernel's cache mode for a model set: ``_build.NO_CACHE``
+    for a stateless density, :data:`_CACHE_MODE` for the DDI family's
+    incremental density (K1e); raises for an incremental density the
+    kernels do not implement."""
+    density = make_density(modelset)
+    if not density.n_cache:
+        return _build.NO_CACHE
+    if getattr(density, "cuda_cache", None) != "ddi":
+        raise ValueError("sweep_chunk: the CUDA kernels implement no "
+                         f"incremental density of kind {density!r}")
+    return _CACHE_MODE
+
+
 def pooled_capacity(modelset, L: int, device, perm: bool = False,
                     tdist=None) -> int:
     """Chains the pooled kernel (K1c) can hold resident on the card at
@@ -343,7 +396,7 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
     symbol = _build.sweep_symbol(perm, tdist is not None, "pooled_cap")
     with torch.cuda.device(device):
         _build.check(getattr(_build.library(), symbol)(
-            K, D, L, ctypes.byref(chains)), symbol)
+            K, D, L, cache_mode(modelset), ctypes.byref(chains)), symbol)
     return chains.value
 
 
@@ -356,7 +409,10 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     arguments and results as :func:`sweep_chunk_ref`.  ``pooled`` launches
     K1c (counted in ``sweep_chunk.pooled_launches``), whose launcher
     refuses a population above :func:`pooled_capacity` (then this
-    raises); the per-chain kernel counts in ``sweep_chunk.launches``."""
+    raises); the per-chain kernel counts in ``sweep_chunk.launches``.  A
+    model set with an incremental density (DDI) launches the cached form
+    K1e; a kernel that cannot build or launch raises, and nothing falls
+    back to the twin."""
     if pooled and not (adapt and modelset.nmodels > 1):
         raise ValueError("sweep_chunk: pooled pk needs adapt and K > 1")
     if k.device.type == "cpu":
@@ -386,6 +442,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     if tab.device != dev or tab.dtype != f32:
         raise ValueError(f"sweep_chunk: tables must be float32 on {dev}")
     kinds, consts, dims = modelset.density_table(dev)
+    mode = cache_mode(modelset)
     outs = (torch.empty_like(k), torch.empty_like(theta),
             torch.empty_like(logp), torch.empty_like(pk),
             torch.empty_like(pkllim), torch.empty_like(nreinit),
@@ -402,7 +459,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         ghist = torch.zeros(3 * K, dtype=i32, device=dev)
         symbol = _build.sweep_symbol(perm, tdist is not None, "pooled")
         status = getattr(_build.library(), symbol)(
-            K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps,
+            K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, mode,
             _build.tconsts(tdist), ghist.data_ptr(),
             float(torch.tensor(1.0 / S, dtype=f32)), *state)
         _build.check(status, symbol)
@@ -410,7 +467,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         return outs
     symbol = _build.sweep_symbol(perm, tdist is not None)
     status = getattr(_build.library(), symbol)(
-        K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
+        K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt), mode,
         _build.tconsts(tdist), *state)
     _build.check(status, symbol)
     sweep_chunk.launches += 1
@@ -549,6 +606,12 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
 
     return runner
 
+
+# Where K1e keeps a chain's cache: ``_build.SHARED_CACHE`` ([column][thread]
+# in shared memory) or ``_build.LOCAL_CACHE`` (each thread's local memory;
+# the per-chain kernel only).  A measurement hook: both forms compute the
+# same chains, and shared memory was the faster on the H100 (PERF.md).
+_CACHE_MODE = _build.SHARED_CACHE
 
 # Test hook: send adapting pooled runs to the per-sweep runner (K1d) even
 # where the card holds the population resident, so that its bitwise

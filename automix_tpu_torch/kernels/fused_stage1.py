@@ -26,6 +26,12 @@ trajectories.  Perturbations are Box-Muller normals, or with
 ``student_t_dof > 0`` Bailey polar t variates from the same two words.
 State layouts: theta [D, K*C]; sig, nacc, ntry [K, D] (every chain of a
 model shares its row).
+
+The JAX package runs DDI's stage 1 on its XLA engine (``rwm.py``; its
+fused stage 1 sees no column form there, ``fused_stage1.py:103-105``).
+The port has only these kernels, and evaluates DDI's statistics from
+scratch in them (``AM_KIND_DDI``): held to its twins bitwise on the card
+and to JAX statistically.
 """
 
 from __future__ import annotations

@@ -7,6 +7,11 @@ of every chain) and, for the CUDA kernels, a :class:`CudaDensity`
 descriptor: the id of a density the kernels implement plus its float
 constants.  A model set whose models lack descriptors runs on the CPU
 only.
+
+A model set may also carry an incremental density (``fused_density``,
+the JAX ``FusedColsDensity``): per-chain cached statistics that the sweep
+updates coordinate by coordinate.  :func:`make_density` gives the sweep
+its density object, the stateless adapter for every other family.
 """
 
 from __future__ import annotations
@@ -65,13 +70,17 @@ class ModelSet:
 
     ``batched_logpost_cols(k, rows)``, where given, evaluates the whole
     family in one column form (``ModelSet(batched_logpost_cols=...)`` of
-    the JAX package, which passes one-hot masks where this takes ``k``)."""
+    the JAX package, which passes one-hot masks where this takes ``k``).
+    ``fused_density``, where given, is the family's incremental density
+    (see :func:`make_density`)."""
 
     def __init__(self, models: Sequence[Model],
-                 batched_logpost_cols: Optional[Callable] = None):
+                 batched_logpost_cols: Optional[Callable] = None,
+                 fused_density=None):
         if not models:
             raise ValueError("need at least one model")
         self.batched_logpost_cols = batched_logpost_cols
+        self.fused_density = fused_density
         self.models = tuple(models)
         self.nmodels = len(self.models)
         self.dims = np.array([m.dim for m in self.models], dtype=np.int32)
@@ -123,3 +132,35 @@ class ModelSet:
             else:
                 out[i, :m.dim] = torch.rand(m.dim, generator=generator)
         return out
+
+
+class StatelessDensity:
+    """The sweep's density for a family without a cache: every evaluation
+    is a fresh ``ModelSet.logpost_cols`` (the JAX ``_StatelessDensity``),
+    so the sweep computes exactly what it did before densities had a
+    protocol."""
+
+    n_cache = 0
+
+    def __init__(self, modelset: ModelSet):
+        self._ms = modelset
+
+    def full(self, k, rows):
+        return self._ms.logpost_cols(k, rows), ()
+
+    def coord(self, j, k, rows, old_j, cache):
+        return self._ms.logpost_cols(k, rows), ()
+
+
+def make_density(modelset: ModelSet):
+    """The sweep's density object (the JAX ``make_density``): the model
+    set's ``fused_density`` or the stateless adapter.  An incremental
+    density has ``n_cache`` (per-chain float32 cache columns),
+    ``full(k, rows) -> (lp, cache)`` (fresh evaluation and fresh cache of
+    the chains, ``k`` their model indices) and ``coord(j, k, rows, old_j,
+    cache) -> (lp, cache')`` (evaluation after ONLY coordinate j changed
+    from ``old_j`` to ``rows[j]``; cache columns it did not touch come
+    back as the same objects, so the sweep skips their accept-blends)."""
+    if modelset.fused_density is not None:
+        return modelset.fused_density
+    return StatelessDensity(modelset)

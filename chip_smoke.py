@@ -24,7 +24,17 @@ PyTorch twin on the card, then drives the port's paths at full size:
   proposal at 16384 chains (the in-kernel pooled kernel K1c) and 131072
   chains (the per-sweep runner K1d), p(M) each against the reference C
   code's ``tests/data/heavy_oracle.json`` rb9 mean, and a short K1d run
-  forced on the 16384 chains, bitwise equal to K1c.
+  forced on the 16384 chains, bitwise equal to K1c;
+* DDI (2 models of dims 16 and 10, the sweep kernel's cached form K1e):
+  ``AMSampler`` at ``bench_suite.py``'s configuration (16384 chains, 512
+  stage-1 chains per model, 1500 stage-1 sweeps, 500-sweep chunks, seed
+  0, 500 burn-in and 10000 timed sweeps), the carried logp against a
+  fresh evaluation at the end, the CLI in mode 1 from that run's
+  ``_mix.data`` at its defaults, and pooled pk at 16384 chains on the
+  route ``pooled_capacity`` picks, p(M) each against the C oracle's ddi
+  mean; K1e, K1e + perm (40 sweeps, crossing two cache refreshes), K1e at
+  L = 32, K1c with the cache and the stage-1 kernel with the DDI density
+  each equal to its twin run on the card.
 
 Every kernel's launch counter is set to 0 just before a path and read
 just after it.  Any failed check exits non-zero without printing a
@@ -77,6 +87,21 @@ RB9_BURN = 2000
 RB9_FORCED = (100, 300)   # burn-in, production sweeps of the forced run
 K1D_CHECK_SWEEPS = 20
 
+# DDI: bench_suite.py's configuration (:90-94, :369) held to the C oracle.
+DDI_CHAINS = 16_384
+DDI_C_STAGE1 = 512        # fits K2's one block
+DDI_STAGE1_SWEEPS = 1500
+DDI_CHUNK = 500
+DDI_BURN, DDI_TIMED = 500, 10_000
+# The carried logp against a fresh evaluation at the end of a run: the JAX
+# package's hardware check asserts < 0.5 there (bench/validate_tpu.py:126).
+# The 3.4e-3 it records on |logp| ~ 3.6e3 (automix_tpu/models/ddi_cols.py:
+# 29-32) was read one sweep after a refresh (that run ends at sweep 6000,
+# the refresh ran at 5999); drift_window logs the same point.
+DDI_DRIFT = 0.5
+DDI_DRIFT_JAX_ONE_SWEEP = 3.4e-3
+DDI_CHECK_SWEEPS = 40     # crosses two cache refreshes (t % 16 == 15)
+
 # H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
 # cores and HBM3.  Every bound below is against these.
 PEAK_OPS = 67e12
@@ -94,11 +119,29 @@ OPS["normal"] = OPS["log1p"] + OPS["sqrt"] + OPS["trig"] + 3
 OPS["bailey"] = OPS["log"] + OPS["exp"] + OPS["sqrt"] + OPS["trig"] + 4
 
 
+def ddi_stats_ops(part, nnz):
+    """Operations of one model's statistics from scratch (``nnz`` nonzero
+    coefficients): the features, a multiply and an add per coefficient,
+    each column's start."""
+    n_quad = part.n_fix * (part.n_fix + 1) // 2
+    return part.n_fix + n_quad + 2 * nnz + 2 * part.n_cols
+
+
+def ddi_lp_ops(part):
+    """Operations of one model's lp from its statistics (csrc/ddi.cuh
+    am_ddi_lp): the prior, and per class M, the adjugate, its determinant,
+    the weighted trace, a division and a log."""
+    per_class = (2 * part.ntri + (23 if part.d_re == 3 else 6)
+                 + 3 * part.ntri + OPS["div"] + OPS["log"] + 8)
+    prior = 4 * part.n_fix + 2 * OPS["log"] + OPS["div"] + 40
+    return prior + part.n_cls * per_class
+
+
 def density_ops(ms, probs):
     """Operations of one log-posterior evaluation, averaged over the
     models with weights ``probs``, counted from the density's code."""
     import numpy as np
-    from automix_tpu_torch.models import rb9
+    from automix_tpu_torch.models import ddi, rb9
     per = []
     for m in ms.models:
         kind, c, d = m.cuda.kind, m.cuda.consts, m.dim
@@ -127,17 +170,22 @@ def density_ops(ms, probs):
                             + nv * (OPS["gammaln"] + 3) + 12)
                 else:
                     ops += 5
+        elif kind == ddi.KIND_DDI:
+            part = ddi.ddi_density().parts[int(c[0])]
+            nnz = ddi.ddi_density().nonzeros()[int(c[0])][0]
+            ops = ddi_stats_ops(part, nnz) + ddi_lp_ops(part)
         else:
             raise ValueError(f"no operation count for density kind {kind}")
         per.append(ops + 2)    # the sanitizing clamp
     return float(np.dot(probs, per))
 
 
-def sweep_ops(ms, L, probs, perm=False, tdist=False):
+def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None):
     """Operations of one stage-3 chain-sweep (K1): random words, the
     within-model move, both allocations (L triangular matvecs each), the
     destination draws, the latent fill, the accept, the pk update and the
-    chunk sums, at the mean model dimension under ``probs``."""
+    chunk sums, at the mean model dimension under ``probs``; ``density``
+    replaces the operations of one density evaluation."""
     import numpy as np
     K, D = ms.nmodels, ms.dmax
     dk = float(np.dot(probs, ms.dims))
@@ -154,7 +202,47 @@ def sweep_ops(ms, L, probs, perm=False, tdist=False):
            + dk * (dk + 1) + OPS["exp"] + 20
            + K * (OPS["log"] + 6) + OPS["exp"] + OPS["log"]
            + 3 * D + 2
-           + (moves + 1) * density_ops(ms, probs))
+           + (moves + 1) * (density_ops(ms, probs) if density is None
+                            else density))
+    return ops
+
+
+def cache_sweep_ops(ms, L, probs, cnt, perm=False):
+    """Operations of one K1e chain-sweep on the DDI family: K1's work
+    without its density (``sweep_ops`` at a zero-cost density), then the
+    cached density's as this run's data need it.  ``cnt`` holds the run's
+    six counters summed over chains ([block accepts, block tries,
+    componentwise accepts, componentwise tries, RJ accepts, chain-
+    sweeps]): every componentwise try updates the own model's touched
+    columns and evaluates its lp, every accept blends both models'
+    columns, a block or RJ move evaluates the statistics from scratch
+    (again for both models when accepted), and every 16th sweep
+    refreshes them."""
+    import numpy as np
+    from automix_tpu_torch.models import ddi
+    dens = ddi.ddi_density()
+    parts, nnz = dens.parts, dens.nonzeros()
+    n = float(cnt[5])
+    full = [ddi_stats_ops(p, z[0]) for p, z in zip(parts, nnz)]
+    lp = [ddi_lp_ops(p) for p in parts]
+    # one coordinate update of model m, averaged over its alpha
+    # coordinates (the increments, then the touched coefficients)
+    coord = [2 * z[1] / p.n_fix + 2 * p.n_fix + 3
+             for p, z in zip(parts, nnz)]
+    dk = float(np.dot(probs, ms.dims))
+    own_full = float(np.dot(probs, [f + q for f, q in zip(full, lp)]))
+    own_coord = float(np.dot(probs, [c * p.n_fix / d + q
+                                     for c, q, p, d in zip(coord, lp, parts,
+                                                           ms.dims)]))
+    both_full = sum(full)
+    both_coord = sum(c * p.n_fix / dk for c, p in zip(coord, parts))
+    ops = (sweep_ops(ms, L, probs, perm, density=0.0)
+           + float(cnt[1]) / n * own_full
+           + float(cnt[3]) / n * own_coord
+           + own_full                                     # RJ evaluation
+           + (float(cnt[0]) + float(cnt[4])) / n * both_full
+           + float(cnt[2]) / n * both_coord
+           + (both_full + own_full) / 16.0)
     return ops
 
 
@@ -244,10 +332,10 @@ def stage1_start(ms, C, dev):
     return theta, sig, zi
 
 
-def check_segment(ms, C, dev, tdist=None, label="K2"):
+def check_segment(ms, C, dev, tdist=None, label="K2", exact=False):
     """K2 against segment_ref: K models x C chains, one 100-sweep segment
     (componentwise sweeps 1-50, block-move coins after the burn-in at
-    50), seed 777."""
+    50), seed 777.  ``exact``: theta, sig and the counts must be equal."""
     import torch
     from automix_tpu_torch.kernels import fused_stage1
     theta, sig, zi = stage1_start(ms, C, dev)
@@ -270,6 +358,9 @@ def check_segment(ms, C, dev, tdist=None, label="K2"):
     # ulp-level libm differences may flip a marginal accept on a few lanes
     if float(close) < 0.99:
         fail(f"{label} theta agrees on only {float(close):.4f} of lanes")
+    if exact and not (torch.equal(got[0], want[0]) and sig_rel == 0.0
+                      and counts_equal):
+        fail(f"{label} is not bitwise equal to segment_ref")
     ms_k = cuda_ms(lambda: fused_stage1.segment(ms, theta, sig, zi, zi,
                                                 **kw), 20)
     ms_p = cuda_ms(lambda: fused_stage1.segment_ref(ms, theta, sig, zi, zi,
@@ -534,6 +625,307 @@ def check_pooled_runner(ms, prop, chains, dev):
         f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def chunk_args(chains):
+    """A chain state in the sweep kernels' layouts: k, theta [D, S], logp,
+    pk [K, S], pkllim, nreinit."""
+    ch = chains
+    return (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit)
+
+
+def exact_check(ms, tabs, args, label, **kw):
+    """A sweep kernel against its twin run on the card from the same state:
+    every output bitwise equal.  Returns (the kernel's outputs, the largest
+    theta / logp difference)."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    got = fused.sweep_chunk(ms, *args, tabs, **kw)
+    want = fused.sweep_chunk_ref(ms, *args, tabs, **kw)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((got[i] - want[i]).abs().max()) for i in (1, 2))
+    jumps = float((got[0] != args[0]).float().mean())
+    log(f"{label} vs its twin ({args[0].numel()} chains x {kw['n_sweeps']} "
+        f"sweeps from sweep {kw['sweep0']}, L={tabs.loglam.shape[1]}): "
+        f"every output equal {equal}, theta/logp max|err| {err:.3e}, "
+        f"chains that jumped {jumps:.4f}")
+    if not equal:
+        fail(f"{label} differs from its twin")
+    return got, err
+
+
+def check_cache_sweep(ms, prop, chains, perm=False, label="K1e"):
+    """K1e against sweep_chunk_ref on the card: every chain of a DDI run's
+    state, 40 sweeps placed so that two cache refreshes are crossed and the
+    last sweep is the 15th after a refresh (t % 16 == 14); every output
+    bitwise equal.  Logs the carried logp's largest distance from a fresh
+    evaluation there, the longest drift window.  Timed on the same state x
+    100 sweeps."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    args = chunk_args(chains)
+    last = chains.sweep + DDI_CHECK_SWEEPS - 1
+    sweep0 = chains.sweep + (14 - last) % 16
+    kw = dict(seed=11, sweep0=sweep0, n_sweeps=DDI_CHECK_SWEEPS, adapt=True,
+              perm=perm)
+    got, err = exact_check(ms, tabs, args, label, **kw)
+    fresh = ms.logpost_cols(got[0].long(), list(got[1]))
+    drift = float((got[2] - fresh).abs().max())
+    log(f"{label}: carried logp 15 sweeps after a refresh vs a fresh "
+        f"evaluation: max|diff| {drift:.3e} (|logp| up to "
+        f"{float(fresh.abs().max()):.1f})")
+    kt = dict(kw, n_sweeps=TIME_SWEEPS)
+    ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 3)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    S = chains.n_chains
+    cnt = got[9].sum(1).double().cpu().numpy()
+    b_ms, b_by = bound(
+        S * TIME_SWEEPS * cache_sweep_ops(ms, L, k_probs(ms, chains.k), cnt,
+                                          perm),
+        S * state_bytes(K, D) + tables_bytes(K, D, L))
+    log(f"{label} sweep chunk ({S} chains x {TIME_SWEEPS} sweeps): kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def cache_mode_times(ms, prop, chains):
+    """K1e's ms per 100 sweeps of every chain of a DDI state with the cache
+    in shared memory and in local memory, alternating (shared, local,
+    local, shared); the two forms' outputs must be equal."""
+    import torch
+    from automix_tpu_torch.kernels import _build, fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    args = chunk_args(chains)
+    kw = dict(seed=5, sweep0=chains.sweep, n_sweeps=TIME_SWEEPS, adapt=True)
+    times, outs = {}, {}
+    try:
+        for mode in (_build.SHARED_CACHE, _build.LOCAL_CACHE,
+                     _build.LOCAL_CACHE, _build.SHARED_CACHE):
+            fused._CACHE_MODE = mode
+            outs[mode] = fused.sweep_chunk(ms, *args, tabs, **kw)
+            times.setdefault(mode, []).append(cuda_ms(
+                lambda: fused.sweep_chunk(ms, *args, tabs, **kw), 3))
+    finally:
+        fused._CACHE_MODE = _build.SHARED_CACHE
+    same = all(torch.equal(a, b) for a, b in
+               zip(outs[_build.SHARED_CACHE], outs[_build.LOCAL_CACHE]))
+    log(f"K1e cache in shared / local memory ({chains.n_chains} chains x "
+        f"{TIME_SWEEPS} sweeps, ms): "
+        f"{' / '.join(f'{t:.4f}' for t in times[_build.SHARED_CACHE])} "
+        f"against {' / '.join(f'{t:.4f}' for t in times[_build.LOCAL_CACHE])}"
+        f"; outputs equal {same}")
+    if not same:
+        fail("K1e's two cache forms compute different chains")
+
+
+def drift_window(ms, prop, chains):
+    """The carried logp against a fresh evaluation through one refresh
+    window of K1e: from a run's state with logp made fresh, starting at a
+    sweep s0 = 0 mod 16 (as just after a refresh), one chunk of n sweeps
+    for n = 1 ... 16 (each from the same start, so each is the first n
+    sweeps of one chunk).  Logs the largest distance after each n (after
+    one sweep where JAX recorded its 3.4e-3) and the share of chains
+    beyond 3.4e-3 in each model; after n = 16 the refresh has run and the
+    distance must be exactly 0."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    k, th, _, pk, pkl, nri = chunk_args(chains)
+    lp = ms.logpost_cols(k.long(), list(th))
+    s0 = chains.sweep + (-chains.sweep) % 16
+    drift, share = [], [[], []]
+    for n in range(1, 17):
+        out = fused.sweep_chunk(ms, k, th, lp, pk, pkl, nri, tabs, seed=9,
+                                sweep0=s0, n_sweeps=n, adapt=True)
+        d = (out[2] - ms.logpost_cols(out[0].long(), list(out[1]))).abs()
+        drift.append(float(d.max()))
+        for m in range(2):
+            share[m].append(float(
+                (d[out[0] == m] > DDI_DRIFT_JAX_ONE_SWEEP).sum()) / d.numel())
+    torch.cuda.synchronize()
+    log(f"K1e carried logp vs fresh from sweep {s0} ({chains.n_chains} "
+        f"chains), max|diff| after 1..16 sweeps: "
+        + " ".join(f"{x:.3e}" for x in drift))
+    for m in range(2):
+        log(f"K1e share of all chains in model {m + 1} beyond 3.4e-3 after "
+            f"1..16 sweeps: " + " ".join(f"{x:.5f}" for x in share[m]))
+    if drift[-1] != 0.0:
+        fail(f"K1e's refresh left the carried logp {drift[-1]:.3e} away")
+
+
+def widen(prop, L):
+    """A proposal of L components from a fitted one, its components
+    repeated in turn and the weights renormalized."""
+    from automix_tpu_torch.state import Proposal
+    idx = [i % prop.lmax for i in range(L)]
+    lam = prop.lam[:, idx]
+    return Proposal(lam=lam / lam.sum(1, keepdim=True), mu=prop.mu[:, idx],
+                    B=prop.B[:, idx], logdetB=prop.logdetB[:, idx],
+                    nmix=prop.nmix, sig=prop.sig)
+
+
+def check_cache_lmax(ms, prop, chains):
+    """K1e at L = kLMax = 32 (the fitted proposal widened) against its twin
+    on 4096 chains of a DDI state x 20 sweeps."""
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.state import Chains
+    sub = Chains(**{f: getattr(chains, f)[:4096].contiguous() for f in
+                    ("k", "theta", "logp", "pk", "pkllim", "nreinit")},
+                 sweep=chains.sweep)
+    tabs = fused.prep_tables(widen(prop, fused._MAX_L), ms.dims)
+    exact_check(ms, tabs, chunk_args(sub), f"K1e at L={fused._MAX_L}",
+                seed=7, sweep0=sub.sweep, n_sweeps=20, adapt=True)
+
+
+def check_cache_pooled(ms, prop, chains):
+    """K1c with the DDI cache against the pooled twin on the card, every
+    chain of a pooled run's state x 40 sweeps: every output bitwise equal.
+    Timed on the same state x 100 sweeps."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    args = chunk_args(chains)
+    kw = dict(seed=13, sweep0=chains.sweep, n_sweeps=DDI_CHECK_SWEEPS,
+              adapt=True, pooled=True)
+    got, err = exact_check(ms, tabs, args, "K1c with the cache", **kw)
+    kt = dict(kw, n_sweeps=TIME_SWEEPS)
+    ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 3)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    S = chains.n_chains
+    cnt = got[9].sum(1).double().cpu().numpy()
+    b_ms, b_by = bound(
+        S * TIME_SWEEPS * (cache_sweep_ops(ms, L, k_probs(ms, chains.k), cnt)
+                           + 2 * K),
+        S * state_bytes(K, D) + tables_bytes(K, D, L))
+    log(f"K1c with the cache ({S} chains x {TIME_SWEEPS} sweeps): kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def ddi_paths(dev):
+    """The DDI paths: AMSampler at the bench configuration, the kernel
+    checks on its state, the CLI in mode 1 and pooled pk.  Returns the
+    kernels' entries of the JSON record."""
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.io import reports
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.models import ddi
+    oracle = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+        "heavy_oracle.json")))["ddi"]["mean"]
+    dd = ddi.ddi_set()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- AMSampler at the bench configuration ---------------------------
+        stem = os.path.join(tmp, "ddi")
+        t0 = time.perf_counter()
+        reset_counts()
+        am = AMSampler(dd, EngineConfig(
+            n_chains=DDI_CHAINS, n_chains_stage1=DDI_C_STAGE1,
+            stage1_sweeps=DDI_STAGE1_SWEEPS, sweep_chunk=DDI_CHUNK, seed=0,
+            trace_chain0=False, n_trace_chains=1), device="cuda")
+        am.estimate_conditional_probs()
+        reports.report_cond_prob_estimation(stem, am)
+        am.burn_samples(DDI_BURN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = am.rjmcmc_samples(DDI_TIMED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = read_counts()
+        cp = am.cpstats
+        prop = am.proposal
+        log(f"ddi: stage 1 {cp.timesecs_stage1:.3f} s ({DDI_C_STAGE1} "
+            f"chains per model, {DDI_STAGE1_SWEEPS * 11 // 10} sweeps), "
+            f"stage 2 {cp.timesecs_stage2:.3f} s (EM iterations "
+            f"{cp.em_iters.tolist()}, L={prop.lmax}), burn-in "
+            f"{stats.timesecs_burn:.3f} s")
+        log(f"ddi: {DDI_TIMED} timed sweeps x {DDI_CHAINS} chains in "
+            f"{secs:.3f} s = {DDI_CHAINS * DDI_TIMED / secs:.6e} "
+            f"chain-sweeps/s; launches {counts}")
+        check_probs("ddi AMSampler", stats.model_probs, oracle,
+                    what="C oracle mean")
+        if counts["K1"] == 0 or counts["K2"] + counts["K3"] == 0:
+            fail("the DDI path did not launch K1e and a stage-1 kernel")
+        fresh = dd.logpost_cols(am.chains.k.long(), list(am.chains.theta.T))
+        d = (am.chains.logp - fresh).abs()
+        drift = float(d.max())
+        by_model = [float(d[am.chains.k == m].max()) if bool(
+            (am.chains.k == m).any()) else 0.0 for m in range(2)]
+        last = am.chains.sweep - 1
+        log(f"ddi: carried logp vs a fresh evaluation after sweep {last} "
+            f"({(last + 1) % 16} sweeps after a refresh): max|diff| "
+            f"{drift:.3e} (model 1 / 2: {by_model[0]:.3e} / "
+            f"{by_model[1]:.3e}; bound {DDI_DRIFT}; |logp| up to "
+            f"{float(fresh.abs().max()):.1f})")
+        if not drift <= DDI_DRIFT:
+            fail(f"ddi: the carried logp drifted by {drift:.3e}")
+        drift_window(dd, prop, am.chains)
+        out["main"] = counts
+        log(f"phase ddi AMSampler: {time.perf_counter() - t0:.2f} s")
+
+        # ---- kernel checks at (2, 16) --------------------------------------
+        t0 = time.perf_counter()
+        out["K1e"] = check_cache_sweep(dd, prop, am.chains)
+        out["K1e perm"] = check_cache_sweep(dd, prop, am.chains, perm=True,
+                                            label="K1e perm")
+        cache_mode_times(dd, prop, am.chains)
+        check_cache_lmax(dd, prop, am.chains)
+        out["K2"] = check_segment(dd, DDI_C_STAGE1, dev, label="K2 ddi",
+                                  exact=True)
+        del am
+        log(f"phase ddi kernel checks: {time.perf_counter() - t0:.2f} s")
+
+        # ---- the CLI in mode 1 at its defaults ------------------------------
+        cli_out, cli_counts, secs = run_cli(
+            ["ddi", "-m", "1", "--chains", str(DDI_CHAINS), "-N",
+             str(DDI_TIMED), "-s", "1", "-f", stem])
+        log(f"launches on the ddi CLI path: {cli_counts}")
+        check_probs("ddi CLI mode 1", probs_of(cli_out), oracle,
+                    what="C oracle mean")
+        if cli_counts["K1"] == 0:
+            fail("the ddi CLI run did not launch K1e")
+        out["cli"] = cli_counts
+        log(f"phase ddi CLI mode 1: {secs:.2f} s")
+
+    # ---- pooled pk on the route pooled_capacity picks ----------------------
+    t0 = time.perf_counter()
+    cap = fused.pooled_capacity(dd, prop.lmax, dev)
+    route = "K1c" if DDI_CHAINS <= cap else "K1d"
+    am = AMSampler(dd, EngineConfig(n_chains=DDI_CHAINS, pk_mode="pooled",
+                                    seed=11, sweep_chunk=DDI_CHUNK,
+                                    trace_chain0=False), device="cuda")
+    am.set_proposal(prop)
+    am.burn_samples(DDI_BURN)
+    reset_counts()
+    t1 = time.perf_counter()
+    stats = am.rjmcmc_samples(DDI_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    log(f"ddi pooled, {DDI_CHAINS} chains (K1c holds {cap} at L="
+        f"{prop.lmax}: route {route}): {DDI_TIMED} sweeps in {secs:.3f} s = "
+        f"{DDI_CHAINS * DDI_TIMED / secs:.6e} chain-sweeps/s; launches "
+        f"{counts}")
+    check_probs("ddi pooled", stats.model_probs, oracle,
+                what="C oracle mean")
+    if not (counts["K1c"] > 0 and counts["K1"] == 0 if route == "K1c"
+            else counts["K1"] == DDI_TIMED and counts["K1c"] == 0):
+        fail(f"the ddi pooled run did not take {route}")
+    if not bool((am.chains.pk == am.chains.pk[0]).all()):
+        fail("the ddi pooled pk rows differ")
+    out["pooled"] = counts
+    if route == "K1c":
+        out["K1c"] = check_cache_pooled(dd, prop, am.chains)
+    del am
+    log(f"phase ddi pooled: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def run_cli(argv, reset=True):
@@ -843,6 +1235,9 @@ def main():
     k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev)
     log(f"phase rb9 pooled checks: {time.perf_counter() - t0:.2f} s")
 
+    # ---- 13. DDI: AMSampler, kernel checks, the CLI, pooled pk -------------
+    ddi_out = ddi_paths(dev)
+
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     def entry(name, source, replaces, launches, check):
@@ -865,7 +1260,16 @@ def main():
         entry("fused_stage1_sweep", "fused_stage1_sweep.cu",
               "automix_tpu/kernels/fused_stage1.py:416", toy2_counts["K3"],
               k3),
-    ]}))
+        entry("fused_sweep_cache_ddi", k1_src, k1_at,
+              ddi_out["main"]["K1"], ddi_out["K1e"]),
+        entry("fused_sweep_cache_perm_ddi", k1_src, k1_at,
+              ddi_out["cli"]["K1"], ddi_out["K1e perm"]),
+        entry("fused_stage1_segment_ddi", "fused_stage1.cu",
+              "automix_tpu/kernels/fused_stage1.py:696",
+              ddi_out["main"]["K2"], ddi_out["K2"]),
+    ] + ([entry("fused_sweep_cache_pooled_ddi", k1_src, k1_at,
+                ddi_out["pooled"]["K1c"], ddi_out["K1c"])]
+         if "K1c" in ddi_out else [])}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

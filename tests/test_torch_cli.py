@@ -44,8 +44,8 @@ def test_cli_end_to_end_and_mode1_restart(tmp_path, capsys):
 def test_cli_problem_errors():
     with pytest.raises(SystemExit, match="unknown problem"):
         cli.main(["nonexistent_problem", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported .* D4"):
-        cli.main(["ddi", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not ported .* D5"):
+        cli.main(["cpt", "--device", "cpu"])
 
 
 def test_cli_device_cuda_raises_without_cuda(monkeypatch, tmp_path):

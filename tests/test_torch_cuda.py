@@ -16,7 +16,7 @@ import torch
 
 from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import _build, fused, fused_stage1
-from automix_tpu_torch.models import builtin, rb9, toy
+from automix_tpu_torch.models import builtin, ddi, rb9, toy
 from automix_tpu_torch.models.tutorial import TUTORIAL_MODEL_PROBS, \
     tutorial_set
 from automix_tpu_torch.ops import randoms
@@ -156,13 +156,13 @@ def test_toy2_on_the_card(cuda):
 
 
 # One model set for each instantiated (K, D): the builtin sets (1, 1),
-# (1, 2) and (2, 2), toy1 (2, 2), the tutorial (3, 2), toy2 (5, 5) and
-# rb9 (10, 5).
+# (1, 2) and (2, 2), toy1 (2, 2), the tutorial (3, 2), toy2 (5, 5), rb9
+# (10, 5) and DDI (2, 16), whose sweep kernel is the cached form K1e.
 _SHAPE_SETS = {"normal": builtin.normal_sampler_set,
                "normal_params": builtin.normal_params_set,
                "gamma_beta": builtin.gamma_beta_set,
                "toy1": toy.toy1_set, "tutorial": tutorial_set,
-               "toy2": toy.toy2_set, "rb9": rb9.rb9_set}
+               "toy2": toy.toy2_set, "rb9": rb9.rb9_set, "ddi": ddi.ddi_set}
 
 
 def test_shape_sets_cover_every_instantiation():
@@ -456,3 +456,119 @@ def test_kernel_gain_matches_the_runners_gain(cuda):
         oh = torch.nn.functional.one_hot(out[0].long(), K).T.float()
         gamma = fused._gains(t, 1, cuda)
         assert torch.equal(out[3], pk + gamma * (oh - pk)), t
+
+
+def _ddi_state(dev, S, L=2, seed=0, sweep=5):
+    """DDI chains at the start points under an L-component proposal around
+    them (alpha and precision scales 0.1, variance 5), made from a numpy
+    seed; pk uniform."""
+    ms = ddi.ddi_set()
+    K, D = ms.nmodels, ms.dmax
+    rng = np.random.default_rng(seed)
+    init = ms.init_points(torch.Generator().manual_seed(0)).numpy()
+    dm = np.arange(D)[None] < ms.dims[:, None]                  # [K, D]
+    scale = np.where(np.arange(D) == 15, 5.0, 0.1)[None].repeat(K, 0)
+    scale[1, 9] = 5.0
+    scale = scale * dm
+    mu = (init[:, None] + 0.3 * scale[:, None]
+          * rng.standard_normal((K, L, D))) * dm[:, None]
+    B = np.where(dm[:, None, :, None] & dm[:, None, None, :],
+                 np.eye(D) * (scale[:, None, None, :]
+                              * rng.uniform(0.8, 1.2, (K, L, 1, D))),
+                 np.eye(D))
+    logdet = (np.log(np.diagonal(B, axis1=-2, axis2=-1)) * dm[:, None]).sum(-1)
+    t = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    prop = Proposal(lam=t(rng.dirichlet(np.ones(L), K)), mu=t(mu), B=t(B),
+                    logdetB=t(logdet),
+                    nmix=torch.full((K,), L, dtype=torch.int32),
+                    sig=t(0.3 * scale))
+    tabs = fused.prep_tables(prop, ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(dev)
+                         for f in tabs.__dataclass_fields__})
+    k = torch.as_tensor(rng.integers(0, K, S), dtype=torch.int32)
+    theta = torch.tensor(init)[k.long()]
+    logp = ms.logpost_cols(k.long(), list(theta.T))
+    from automix_tpu_torch.state import Chains
+    chains = Chains(k=k.to(dev), theta=theta.to(dev), logp=logp.to(dev),
+                    pk=torch.full((S, K), 1.0 / K, device=dev),
+                    pkllim=torch.full((S,), 0.1, device=dev),
+                    nreinit=torch.ones(S, dtype=torch.int32, device=dev),
+                    sweep=sweep)
+    return ms, chains, tabs
+
+
+def _assert_cache_kernel_exact(ms, ch, tabs, n_sweeps, **kw):
+    """The cached sweep kernel (K1e) against its twin on the card from the
+    same state: one launch, and every output bitwise equal."""
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit, tabs)
+    kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=n_sweeps, adapt=True, **kw)
+    key = "pooled_launches" if kw.get("pooled") else "launches"
+    before = getattr(fused.sweep_chunk, key)
+    got = fused.sweep_chunk(ms, *args, **kw)
+    assert getattr(fused.sweep_chunk, key) == before + 1
+    want = fused.sweep_chunk_ref(ms, *args, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert (got[0] != ch.k).any()                      # jumps happened
+    assert int(got[9][2].sum()) > 0                    # coordinate accepts
+    return got
+
+
+@pytest.mark.parametrize("mode", ["shared", "local"])
+@pytest.mark.parametrize("perm", [False, True], ids=["noperm", "perm"])
+def test_ddi_cache_kernel_matches_twin_exactly(cuda, perm, mode):
+    """K1e and K1e + perm at DDI's (2, 16), the cache in shared or local
+    memory: 4096 chains x 40 sweeps from sweep 5 (block moves at 10, 20,
+    30, 40; cache refreshes after 15, 31) equal to the twin run on the
+    card, every output bit for bit."""
+    ms, ch, tabs = _ddi_state(cuda, 4096)
+    saved = fused._CACHE_MODE
+    fused._CACHE_MODE = (_build.SHARED_CACHE if mode == "shared"
+                         else _build.LOCAL_CACHE)
+    try:
+        _assert_cache_kernel_exact(ms, ch, tabs, 40, perm=perm)
+    finally:
+        fused._CACHE_MODE = saved
+
+
+def test_ddi_cache_kernel_at_the_largest_l(cuda):
+    """K1e launches at L = kLMax = 32 and equals its twin (1024 chains x
+    20 sweeps)."""
+    ms, ch, tabs = _ddi_state(cuda, 1024, L=fused._MAX_L, seed=1)
+    _assert_cache_kernel_exact(ms, ch, tabs, 20)
+
+
+def test_ddi_pooled_cache_kernel_matches_twin(cuda):
+    """K1c with the DDI cache against the pooled twin on the card, 4096
+    chains x 40 sweeps: every output bit for bit (one shared pk)."""
+    ms, ch, tabs = _ddi_state(cuda, 4096, seed=2)
+    got = _assert_cache_kernel_exact(ms, ch, tabs, 40, pooled=True)
+    assert bool((got[3] == got[3][:, :1]).all())
+
+
+def test_ddi_stateless_forms_refused_at_the_cached_shape(cuda):
+    """At (2, 16) only the cached form exists: a launch asking for the
+    stateless form raises and launches nothing."""
+    ms, ch, tabs = _ddi_state(cuda, 256)
+    lib = _build.library()
+    outs = [torch.empty_like(x) for x in (ch.k, ch.logp)]
+    status = getattr(lib, _build.sweep_symbol(False, False))(
+        2, 16, 256, 2, 1, 5, 1, 1, _build.NO_CACHE, None,
+        *([outs[0].data_ptr()] * 20), torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(ValueError, match="not instantiated"):
+        _build.check(status, "K1")
+
+
+def test_tutorial_sweep_kernel_registers(cuda):
+    """DDI's density stays out of the other shapes: the tutorial's K1 at
+    (3, 2) keeps 56-64 registers in every variant (ptxas -v of the build,
+    kept in the log beside the library)."""
+    import re
+    log = _build.build().with_suffix(".log").read_text()
+    regs = [int(m.group(1)) for m in re.finditer(
+        r"Compiling entry function '\S*fused_sweep_kernelILi3ELi2ELb[01]"
+        r"ELi0E[^\n]*\n(?:[^\n]*\n)*?ptxas info\s*: Used (\d+) "
+        r"registers", log)]
+    assert len(regs) == 8, regs             # 4 variants x K1 and K1c
+    assert all(56 <= r <= 64 for r in regs), regs

@@ -60,7 +60,9 @@ def test_import_leaves_jax_out():
             "automix_tpu_torch.diagnostics, automix_tpu_torch.io.reports, "
             "automix_tpu_torch.io.checkpoint, automix_tpu_torch.models.toy, "
             "automix_tpu_torch.models.builtin, "
-            "automix_tpu_torch.models.rb9; "
+            "automix_tpu_torch.models.rb9, automix_tpu_torch.models.ddi, "
+            "automix_tpu_torch.models.ddi_cols, "
+            "automix_tpu_torch.models.ddi_stats; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
