@@ -237,7 +237,7 @@ __device__ __forceinline__ float am_ddi_logpost(const float* th) {
 }
 
 // A chain's cache of both models' statistics: column i at p[i * kStride]
-// (shared memory, [column][thread]) or p[i] (a thread's local array).
+// (shared memory as [column][thread], kStride the block's threads).
 template <int kStride>
 struct AmDdiCache {
   float* p;

@@ -77,13 +77,11 @@
 // componentwise loop runs over coordinates at run time (it is unrolled in
 // the stateless form), selecting theta's entries by compare so that theta
 // stays in registers.  The cache lives in shared memory as [column][thread]
-// (a warp's 32 accesses to one column hit 32 banks) or, with cache_mode 2
-// (K1 only, kept to measure the choice), in each thread's local memory:
-// 221 registers and no spills either way, and on the H100 the local form
-// took 84 ms per 100 sweeps of 16384 DDI chains against 74 (PERF.md).  The
-// proposal tables are read from device memory through L1 instead of being
-// copied to shared memory, which leaves shared memory to the cache at any
-// L: 84.5 KB a block, 2 blocks per SM at 221 registers.
+// (a warp's 32 accesses to one column hit 32 banks), which was faster than
+// each thread's local memory at the same registers (PERF.md section 6).
+// The proposal tables are read from device memory through L1 instead of
+// being copied to shared memory, which leaves shared memory to the cache
+// at any L: 84.5 KB a block, 2 blocks per SM at 221 registers.
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -114,29 +112,26 @@ constexpr int kLMax = 32;        // mixture components per model (runtime L)
 constexpr int kThreads = 128;
 constexpr bool kPerm = AM_PERM != 0;
 constexpr bool kTdist = AM_TDIST != 0;
-// Cache modes: none (stateless densities), shared memory, local memory.
-constexpr int kNoCache = 0, kSharedCache = 1, kLocalCache = 2;
 // Sweeps between full refreshes of the cache (the JAX _REFRESH).
 constexpr int kRefresh = 16;
 
 // The shape whose model set carries a cache: only its cached form exists.
 template <int K, int D>
-constexpr bool cached_shape() {
+__host__ __device__ constexpr bool cached_shape() {
   return K == AM_DDI_K && D == AM_DDI_D;
 }
 
-// Dynamic shared memory of one block: the tables, or with a cache in
-// shared memory the cache (the tables are then read from device memory).
+// Dynamic shared memory of one block: the tables, or in the cached form
+// the cache (the tables are then read from device memory).
 template <int K, int D>
-size_t sweep_smem(int L, int cache_mode) {
-  if (cache_mode == kSharedCache)
+size_t sweep_smem(int L) {
+  if constexpr (cached_shape<K, D>())
     return sizeof(float) * (size_t)AM_DDI_NCACHE * kThreads;
-  if (cache_mode == kLocalCache) return 0;
   const int KL = K * L;
   return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
 }
 
-template <int K, int D, bool kPooled, int kCacheMode>
+template <int K, int D, bool kPooled>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
     int* __restrict__ ghist, float inv_S,
@@ -153,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   // ---- tables -> shared memory (stateless form) -------------------------
   // tab = [sig K*D | loglam K*L | abase K*L | logdet K*L | mu K*L*D |
   //        binv K*L*D*D | B K*L*D*D]
-  constexpr bool kCache = kCacheMode != kNoCache;
+  constexpr bool kCache = cached_shape<K, D>();
   extern __shared__ float smem[];
   __shared__ float consts_s[K * AM_N_CONSTS];
   __shared__ int kinds_s[K];
@@ -210,13 +205,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 
   // K1e: the chain's cache of both models' statistics, fresh at the chunk's
   // start state (a chunk boundary refreshes the cache, not logp)
-  float cache_l[kCacheMode == kLocalCache ? AM_DDI_NCACHE : 1];
-  const auto cache = [&]() {
-    if constexpr (kCacheMode == kSharedCache)
-      return AmDdiCache<kThreads>{smem + threadIdx.x};
-    else
-      return AmDdiCache<1>{cache_l};
-  }();
+  [[maybe_unused]] const AmDdiCache<kThreads> cache{smem + threadIdx.x};
   if constexpr (kCache) {
     am_ddi_cache_full<0>(th, cache, false);
     am_ddi_cache_full<1>(th, cache, false);
@@ -637,19 +626,19 @@ struct SweepArgs {
   int* cnt_out;
 };
 
-template <int K, int D, bool kPooled, int kMode>
+template <int K, int D, bool kPooled>
 cudaError_t set_smem(int L) {
-  return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled, kMode>,
+  return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sweep_smem<K, D>(L, kMode));
+                              (int)sweep_smem<K, D>(L));
 }
 
 // Chains K1c can hold resident at once on the current device at this L:
 // blocks per SM (occupancy at the kernel's registers and shared memory)
 // times SMs times kThreads; 0 where the device has no cooperative launch.
-template <int K, int D, int kMode>
+template <int K, int D>
 int pooled_capacity(int L, int* chains) {
-  cudaError_t e = set_smem<K, D, true, kMode>(L);
+  cudaError_t e = set_smem<K, D, true>(L);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -658,23 +647,22 @@ int pooled_capacity(int L, int* chains) {
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_sweep_kernel<K, D, true, kMode>, kThreads,
-      sweep_smem<K, D>(L, kMode));
+      &per_sm, fused_sweep_kernel<K, D, true>, kThreads, sweep_smem<K, D>(L));
   if (e != cudaSuccess) return (int)e;
   *chains = coop ? per_sm * sms * kThreads : 0;
   return 0;
 }
 
-template <int K, int D, bool kPooled, int kMode>
+template <int K, int D, bool kPooled>
 int launch_sweep(SweepArgs a, cudaStream_t st) {
-  cudaError_t e = set_smem<K, D, kPooled, kMode>(a.L);
+  cudaError_t e = set_smem<K, D, kPooled>(a.L);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kThreads - 1) / kThreads);
-  const size_t smem = sweep_smem<K, D>(a.L, kMode);
+  const size_t smem = sweep_smem<K, D>(a.L);
   if constexpr (kPooled) {
     // refuse a population the card cannot hold resident
     int cap = 0;
-    const int rc = pooled_capacity<K, D, kMode>(a.L, &cap);
+    const int rc = pooled_capacity<K, D>(a.L, &cap);
     if (rc != 0) return rc;
     if (a.S > cap) return -2;
     void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
@@ -684,11 +672,11 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
                     &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
                     &a.ts_out, &a.tq_out, &a.cnt_out};
     e = cudaLaunchCooperativeKernel(
-        (const void*)fused_sweep_kernel<K, D, true, kMode>, grid,
+        (const void*)fused_sweep_kernel<K, D, true>, grid,
         dim3(kThreads), args, smem, st);
     if (e != cudaSuccess) return (int)e;
   } else {
-    fused_sweep_kernel<K, D, false, kMode><<<grid, kThreads, smem, st>>>(
+    fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
         a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.ghist,
         a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
         a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
@@ -696,36 +684,6 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
         a.cnt_out);
   }
   return (int)cudaGetLastError();
-}
-
-// The form of (K, D) for ``cache_mode``: the cached shape has only its
-// cached forms (K1c with the cache in shared memory only), every other
-// shape only the stateless one; -1 otherwise.
-template <int K, int D, bool kPooled>
-int launch_form(int cache_mode, SweepArgs a, cudaStream_t st) {
-  if constexpr (cached_shape<K, D>()) {
-    if (cache_mode == kSharedCache)
-      return launch_sweep<K, D, kPooled, kSharedCache>(a, st);
-    if constexpr (!kPooled)
-      if (cache_mode == kLocalCache)
-        return launch_sweep<K, D, false, kLocalCache>(a, st);
-    return -1;
-  } else {
-    if (cache_mode != kNoCache) return -1;
-    return launch_sweep<K, D, kPooled, kNoCache>(a, st);
-  }
-}
-
-template <int K, int D>
-int capacity_form(int cache_mode, int L, int* chains) {
-  if constexpr (cached_shape<K, D>()) {
-    if (cache_mode == kSharedCache)
-      return pooled_capacity<K, D, kSharedCache>(L, chains);
-    return -1;
-  } else {
-    if (cache_mode != kNoCache) return -1;
-    return pooled_capacity<K, D, kNoCache>(L, chains);
-  }
 }
 
 AmT t_consts(const float* tconsts) {
@@ -736,9 +694,9 @@ AmT t_consts(const float* tconsts) {
 }
 
 template <bool kPooled>
-int dispatch(int K, int D, int cache_mode, SweepArgs a, cudaStream_t st) {
+int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
 #define AM_CASE(k, d) \
-  if (K == k && D == d) return launch_form<k, d, kPooled>(cache_mode, a, st);
+  if (K == k && D == d) return launch_sweep<k, d, kPooled>(a, st);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;
@@ -748,14 +706,14 @@ int dispatch(int K, int D, int cache_mode, SweepArgs a, cudaStream_t st) {
 
 #ifdef __CUDACC__
 // Launch on ``stream``; returns cudaGetLastError() after the launch, or -1
-// for a (K, D) pair without an instantiation in ``cache_mode`` (0 for a
-// stateless density; at the cached shape 1 keeps the cache in shared
-// memory, 2 in local memory) or an L above kLMax.  ``tconsts`` is a host
-// array of the five Student-t constants (AmT); the Normal variants ignore
-// it.
+// for a (K, D) pair without an instantiation or an L above kLMax.  The form
+// follows from (K, D): at the cached shape (AM_DDI_K, AM_DDI_D) the kernel
+// evaluates the DDI density with its cache, elsewhere the stateless
+// densities of common.cuh.  ``tconsts`` is a host array of the five
+// Student-t constants (AmT); the Normal variants ignore it.
 extern "C" int AM_K1_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int adapt, int cache_mode, const float* tconsts, const void* tab,
+    int adapt, const float* tconsts, const void* tab,
     const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
@@ -773,7 +731,7 @@ extern "C" int AM_K1_SYMBOL(
                  (float*)lp_out, (float*)pk_out, (float*)pkl_out,
                  (int*)nri_out, (int*)ks_out, (float*)ts_out,
                  (float*)tq_out, (int*)cnt_out};
-  return dispatch<false>(K, D, cache_mode, a, (cudaStream_t)stream);
+  return dispatch<false>(K, D, a, (cudaStream_t)stream);
 }
 
 // K1c: the same sweeps with pooled pk adaptation (adapt must be 1).
@@ -782,7 +740,7 @@ extern "C" int AM_K1_SYMBOL(
 // (AM_K1C_CAP_SYMBOL).
 extern "C" int AM_K1C_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int cache_mode, const float* tconsts, void* ghist, float inv_S,
+    const float* tconsts, void* ghist, float inv_S,
     const void* tab, const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
@@ -800,16 +758,14 @@ extern "C" int AM_K1C_SYMBOL(
                  (float*)lp_out, (float*)pk_out, (float*)pkl_out,
                  (int*)nri_out, (int*)ks_out, (float*)ts_out,
                  (float*)tq_out, (int*)cnt_out};
-  return dispatch<true>(K, D, cache_mode, a, (cudaStream_t)stream);
+  return dispatch<true>(K, D, a, (cudaStream_t)stream);
 }
 
-// Chains K1c can hold resident at (K, D, L) in ``cache_mode`` on the
-// current device.
-extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int cache_mode,
-                                 int* chains) {
+// Chains K1c can hold resident at (K, D, L) on the current device.
+extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int* chains) {
   if (L < 1 || L > kLMax) return -1;
 #define AM_CASE(k, d) \
-  if (K == k && D == d) return capacity_form<k, d>(cache_mode, L, chains);
+  if (K == k && D == d) return pooled_capacity<k, d>(L, chains);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;

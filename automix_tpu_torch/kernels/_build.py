@@ -33,13 +33,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-# The (K, D) model-set shapes every kernel is instantiated for.  At the DDI
-# family's (2, 16) the stage-3 sweep kernel has its cached form (K1e) only.
+# The (K, D) model-set shapes every kernel is instantiated for.
 SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5), (2, 16))
-
-# Cache modes of the stage-3 sweep launchers (csrc/fused_sweep.cu): a
-# stateless density, or the DDI cache in shared or in local memory.
-NO_CACHE, SHARED_CACHE, LOCAL_CACHE = 0, 1, 2
+# The DDI family's shape (am_ddi.h's AM_DDI_K, AM_DDI_D): there the stage-3
+# sweep kernel has its cached form (K1e) only, every other shape its
+# stateless form only.
+CACHED_SHAPE = (2, 16)
 
 
 def shapes_header() -> str:
@@ -86,13 +85,13 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _I, _P]
+    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
+    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
        + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _I, _P]
+    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)},
     "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
@@ -205,8 +204,8 @@ def check(status: int, name: str):
     """Raise if a launcher reported a refused configuration or a CUDA
     error."""
     if status == -1:
-        raise ValueError(f"{name}: shape or cache mode not instantiated in "
-                         "the kernel")
+        raise ValueError(f"{name}: shape or L not instantiated in the "
+                         "kernel")
     if status == -2:
         raise ValueError(f"{name}: more chains than the card holds resident "
                          "for a cooperative launch")

@@ -370,18 +370,21 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
             nri, ks, ts, tq, cnt)
 
 
-def cache_mode(modelset) -> int:
-    """The sweep kernel's cache mode for a model set: ``_build.NO_CACHE``
-    for a stateless density, :data:`_CACHE_MODE` for the DDI family's
-    incremental density (K1e); raises for an incremental density the
-    kernels do not implement."""
+def check_form(modelset):
+    """Raise unless the sweep kernel's form at the model set's (K, D)
+    evaluates its density: at :data:`_build.CACHED_SHAPE` the kernel has
+    only its cached form, the DDI family's incremental density (K1e), and
+    at every other shape only the stateless form."""
     density = make_density(modelset)
-    if not density.n_cache:
-        return _build.NO_CACHE
-    if getattr(density, "cuda_cache", None) != "ddi":
+    if density.n_cache and getattr(density, "cuda_cache", None) != "ddi":
         raise ValueError("sweep_chunk: the CUDA kernels implement no "
                          f"incremental density of kind {density!r}")
-    return _CACHE_MODE
+    K, D = modelset.nmodels, modelset.dmax
+    cached = (K, D) == _build.CACHED_SHAPE
+    if bool(density.n_cache) != cached:
+        raise ValueError(
+            f"sweep_chunk: the sweep kernel at K={K}, D={D} has only its "
+            f"{'cached (DDI)' if cached else 'stateless'} form")
 
 
 def pooled_capacity(modelset, L: int, device, perm: bool = False,
@@ -392,11 +395,12 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
     pooled runs."""
     K, D = modelset.nmodels, modelset.dmax
     _build.check_shape(K, D, "pooled_capacity")
+    check_form(modelset)
     chains = ctypes.c_int()
     symbol = _build.sweep_symbol(perm, tdist is not None, "pooled_cap")
     with torch.cuda.device(device):
         _build.check(getattr(_build.library(), symbol)(
-            K, D, L, cache_mode(modelset), ctypes.byref(chains)), symbol)
+            K, D, L, ctypes.byref(chains)), symbol)
     return chains.value
 
 
@@ -442,7 +446,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     if tab.device != dev or tab.dtype != f32:
         raise ValueError(f"sweep_chunk: tables must be float32 on {dev}")
     kinds, consts, dims = modelset.density_table(dev)
-    mode = cache_mode(modelset)
+    check_form(modelset)
     outs = (torch.empty_like(k), torch.empty_like(theta),
             torch.empty_like(logp), torch.empty_like(pk),
             torch.empty_like(pkllim), torch.empty_like(nreinit),
@@ -459,7 +463,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         ghist = torch.zeros(3 * K, dtype=i32, device=dev)
         symbol = _build.sweep_symbol(perm, tdist is not None, "pooled")
         status = getattr(_build.library(), symbol)(
-            K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, mode,
+            K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps,
             _build.tconsts(tdist), ghist.data_ptr(),
             float(torch.tensor(1.0 / S, dtype=f32)), *state)
         _build.check(status, symbol)
@@ -467,7 +471,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         return outs
     symbol = _build.sweep_symbol(perm, tdist is not None)
     status = getattr(_build.library(), symbol)(
-        K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt), mode,
+        K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
         _build.tconsts(tdist), *state)
     _build.check(status, symbol)
     sweep_chunk.launches += 1
@@ -606,12 +610,6 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
 
     return runner
 
-
-# Where K1e keeps a chain's cache: ``_build.SHARED_CACHE`` ([column][thread]
-# in shared memory) or ``_build.LOCAL_CACHE`` (each thread's local memory;
-# the per-chain kernel only).  A measurement hook: both forms compute the
-# same chains, and shared memory was the faster on the H100 (PERF.md).
-_CACHE_MODE = _build.SHARED_CACHE
 
 # Test hook: send adapting pooled runs to the per-sweep runner (K1d) even
 # where the card holds the population resident, so that its bitwise

@@ -16,6 +16,7 @@ import torch
 
 from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import _build, fused, fused_stage1
+from automix_tpu_torch.model import ModelSet
 from automix_tpu_torch.models import builtin, ddi, rb9, toy
 from automix_tpu_torch.models.tutorial import TUTORIAL_MODEL_PROBS, \
     tutorial_set
@@ -515,21 +516,13 @@ def _assert_cache_kernel_exact(ms, ch, tabs, n_sweeps, **kw):
     return got
 
 
-@pytest.mark.parametrize("mode", ["shared", "local"])
 @pytest.mark.parametrize("perm", [False, True], ids=["noperm", "perm"])
-def test_ddi_cache_kernel_matches_twin_exactly(cuda, perm, mode):
-    """K1e and K1e + perm at DDI's (2, 16), the cache in shared or local
-    memory: 4096 chains x 40 sweeps from sweep 5 (block moves at 10, 20,
-    30, 40; cache refreshes after 15, 31) equal to the twin run on the
-    card, every output bit for bit."""
+def test_ddi_cache_kernel_matches_twin_exactly(cuda, perm):
+    """K1e and K1e + perm at DDI's (2, 16): 4096 chains x 40 sweeps from
+    sweep 5 (block moves at 10, 20, 30, 40; cache refreshes after 15, 31)
+    equal to the twin run on the card, every output bit for bit."""
     ms, ch, tabs = _ddi_state(cuda, 4096)
-    saved = fused._CACHE_MODE
-    fused._CACHE_MODE = (_build.SHARED_CACHE if mode == "shared"
-                         else _build.LOCAL_CACHE)
-    try:
-        _assert_cache_kernel_exact(ms, ch, tabs, 40, perm=perm)
-    finally:
-        fused._CACHE_MODE = saved
+    _assert_cache_kernel_exact(ms, ch, tabs, 40, perm=perm)
 
 
 def test_ddi_cache_kernel_at_the_largest_l(cuda):
@@ -548,16 +541,22 @@ def test_ddi_pooled_cache_kernel_matches_twin(cuda):
 
 
 def test_ddi_stateless_forms_refused_at_the_cached_shape(cuda):
-    """At (2, 16) only the cached form exists: a launch asking for the
-    stateless form raises and launches nothing."""
+    """At (2, 16) only the cached form exists: a stateless model set of
+    that shape (DDI's models without their incremental density) is refused
+    by the per-chain and the pooled wrapper and launches nothing."""
     ms, ch, tabs = _ddi_state(cuda, 256)
-    lib = _build.library()
-    outs = [torch.empty_like(x) for x in (ch.k, ch.logp)]
-    status = getattr(lib, _build.sweep_symbol(False, False))(
-        2, 16, 256, 2, 1, 5, 1, 1, _build.NO_CACHE, None,
-        *([outs[0].data_ptr()] * 20), torch.cuda.current_stream().cuda_stream)
-    with pytest.raises(ValueError, match="not instantiated"):
-        _build.check(status, "K1")
+    stateless = ModelSet(ms.models)
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit, tabs)
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches)
+    for pooled in (False, True):
+        with pytest.raises(ValueError, match="only its cached"):
+            fused.sweep_chunk(stateless, *args, seed=3, sweep0=5,
+                              n_sweeps=2, adapt=True, pooled=pooled)
+    with pytest.raises(ValueError, match="only its cached"):
+        fused.pooled_capacity(stateless, 2, cuda)
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.pooled_launches) == before
 
 
 def test_tutorial_sweep_kernel_registers(cuda):
@@ -568,7 +567,7 @@ def test_tutorial_sweep_kernel_registers(cuda):
     log = _build.build().with_suffix(".log").read_text()
     regs = [int(m.group(1)) for m in re.finditer(
         r"Compiling entry function '\S*fused_sweep_kernelILi3ELi2ELb[01]"
-        r"ELi0E[^\n]*\n(?:[^\n]*\n)*?ptxas info\s*: Used (\d+) "
+        r"EE[^\n]*\n(?:[^\n]*\n)*?ptxas info\s*: Used (\d+) "
         r"registers", log)]
     assert len(regs) == 8, regs             # 4 variants x K1 and K1c
     assert all(56 <= r <= 64 for r in regs), regs

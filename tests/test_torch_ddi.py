@@ -165,6 +165,66 @@ def test_density_coord_identity_skip():
         assert all(a is b for a, b in zip(c2[n0:], cache[n0:])), j
 
 
+def test_jump_blend_is_the_drift():
+    """The cause of DDI's carried-logp drift between refreshes, replayed at
+    density level with JAX's DDIFusedDensity and the port's.  48 chains of
+    the 10-dim model, their coordinates 6-8 where its posterior puts them
+    (its precisions, 16-52 in coordinate 8, which the 16-dim model reads as
+    alpha), carry the 16-dim model's statistics at ~4.5e9.  They jump into
+    the 16-dim model and make one sweep of coordinate moves there, every
+    move accepted.  With the jump's blend c + (cn - c) (automix_tpu/
+    kernels/fused.py:748) the carried lp ends >= 1e-2 from a fresh
+    evaluation; with the jump storing cn, within 1e-3 (|lp| ~ 4.9e3, whose
+    float32 ulp is 4.9e-4).  Both densities carry the same statistics bit
+    for bit."""
+    rng = np.random.default_rng(8)
+    S = 48
+    t1 = (INIT1 + 0.1 * rng.standard_normal((S, 16))).astype(np.float32)
+    t1[:, 6] = rng.uniform(0.05, 0.09, S)
+    t1[:, 7] = rng.uniform(-0.2, 0.6, S)
+    t1[:, 8] = rng.uniform(16.0, 52.0, S)
+    t1[:, 10:] = 0.0
+    t0 = (INIT0 + 0.1 * rng.standard_normal((S, 16))).astype(np.float32)
+    steps = (0.01 * rng.standard_normal((S, 16))).astype(np.float32)
+    steps[:, 15] *= 5.0
+    k1, k0 = np.ones(S, np.int32), np.zeros(S, np.int32)
+
+    def replay(density, mask, rows_of, store):
+        _, c = density.full(mask(k1), rows_of(t1))
+        rows, step = rows_of(t0), rows_of(steps)
+        lp, cn = density.full(mask(k0), rows)
+        cache = tuple(cn) if store else tuple(
+            a + 1.0 * (b - a) for a, b in zip(c, cn))
+        for j in range(16):
+            prop = list(rows)
+            prop[j] = rows[j] + step[j]
+            lp, moved = density.coord(j, mask(k0), prop, rows[j], cache)
+            cache = tuple(a if b is a else a + 1.0 * (b - a)
+                          for a, b in zip(cache, moved))
+            rows = prop
+        fresh = density.full(mask(k0), rows)[0]
+        drift = float(np.abs(np.asarray(lp) - np.asarray(fresh)).max())
+        return drift, [np.asarray(x) for x in cache], float(
+            np.abs(np.stack([np.asarray(x) for x in c])).max())
+
+    jax_side = (_jax_density(),
+                lambda k: [jnp.asarray((k == m).astype(np.float32))
+                           for m in range(2)],
+                lambda t: [jnp.asarray(t[:, d]) for d in range(16)])
+    port_side = (ddi.ddi_density(), lambda k: torch.tensor(k).long(),
+                 lambda t: [torch.tensor(t[:, d]) for d in range(16)])
+    for store in (False, True):
+        (jdrift, jcache, big), (drift, cache, _) = (
+            replay(*side, store) for side in (jax_side, port_side))
+        for a, b in zip(cache, jcache):
+            np.testing.assert_array_equal(a, b)
+        assert big > 1e9, big
+        if store:
+            assert max(drift, jdrift) <= 1e-3, (drift, jdrift)
+        else:
+            assert min(drift, jdrift) >= 1e-2, (drift, jdrift)
+
+
 def _proposal(L=2, seed=0):
     """A DDI proposal around the start points (alpha and precision scales
     0.1, variance 5), made from a numpy seed."""
@@ -231,15 +291,19 @@ def test_sampler_runs_on_the_cpu():
 
 
 def test_ddi_never_falls_back(monkeypatch):
-    """Without CUDA the default device raises; on the card the cached
-    density takes K1e's mode, and a cached density the kernels do not
-    implement is refused before any launch."""
+    """Without CUDA the default device raises; on the card the DDI set
+    takes K1e, the only form at (2, 16), while a cached density the kernels
+    do not implement, and DDI's models without their cache, are refused
+    before any launch."""
     ms = ddi.ddi_set()
-    assert fused.cache_mode(ms) == _build.SHARED_CACHE
+    assert (ms.nmodels, ms.dmax) == _build.CACHED_SHAPE
+    fused.check_form(ms)
     other = ModelSet(ms.models, fused_density=type(
         "Cached", (), {"n_cache": 1})())
     with pytest.raises(ValueError, match="no incremental density"):
-        fused.cache_mode(other)
+        fused.check_form(other)
+    with pytest.raises(ValueError, match="only its cached"):
+        fused.check_form(ModelSet(ms.models))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AMSampler(ms, EngineConfig())
