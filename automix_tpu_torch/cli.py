@@ -22,21 +22,17 @@ import os
 import sys
 import time
 
-# Problems of the JAX registry whose densities are not ported yet, with
-# the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "cpt": "D5 (change-point densities)",
-    "cptrs": "D5 (change-point densities)",
-}
-
 
 def _problem_registry():
-    from automix_tpu_torch.models import builtin, ddi, rb9, toy, tutorial
+    from automix_tpu_torch.models import (builtin, changepoint, ddi, rb9,
+                                          toy, tutorial)
 
     return {
         "tutorial": tutorial.tutorial_set,
         "toy1": toy.toy1_set,
         "toy2": toy.toy2_set,
+        "cpt": changepoint.cpt_set,
+        "cptrs": changepoint.cptrs_set,
         "rb9": rb9.rb9_set,
         "ddi": ddi.ddi_set,
         "normal": builtin.normal_sampler_set,
@@ -55,10 +51,6 @@ def _resolve_problem(name: str):
     reg = _problem_registry()
     if name in reg:
         return reg[name]
-    if name in _NOT_PORTED:
-        raise SystemExit(
-            f"problem {name!r} is not ported to automix_tpu_torch yet "
-            f"(ROADMAP queue 2, {_NOT_PORTED[name]})")
     if ":" in name:
         mod, fn = name.split(":", 1)
         return getattr(importlib.import_module(mod), fn)

@@ -1,9 +1,9 @@
 """Engine configuration of the PyTorch port.
 
 Counterpart of ``automix_tpu/config.py``.  The constants are the same
-numbers, and every knob the port honours has the JAX default.  The knobs
-that select a path the port has not ported yet (HMC, the log stage-1
-rule) are rejected with ``NotImplementedError``.
+numbers, and every knob the port honours has the JAX default.  The knob
+that selects a path the port has not ported yet (HMC) is rejected with
+``NotImplementedError``.
 
 The port has a single engine: the semantics of the JAX package's fused
 kernels in their counter-hash (``fused_rng="hash"``) mode.  There is no
@@ -42,8 +42,14 @@ EM_DEGENERATE_PENALTY = -500.0
 # yet, with the value that keeps the ported path.
 _UNPORTED = {
     "within_move": "rwm",
-    "stage1_adapt": "aap",
 }
+
+# Stage-1 scale-adaptation rules (automix_tpu/config.py stage1_adapt): the
+# reference's additive AAP update sig = max(sig + 10 gamma (acc - 0.25), 0),
+# or the multiplicative sig * exp(gain gamma (acc - 0.25)), which adapts
+# scales far below the additive gain (the change-point rates at 1e-3 from
+# sig = 10).
+STAGE1_RULES = ("aap", "log")
 
 # Stage-3 pk adaptation scopes (automix_tpu/config.py pk_mode): every chain
 # adapts its own pk, or one shared pk adapts from the population's visit
@@ -69,6 +75,8 @@ class EngineConfig:
     n_chains_stage1: int          # stage-1 chains per model
     stage1_target_samples: int    # stage-2 fit samples per model; 0 = 1000*dmax
     stage1_sweeps: int            # stage-1 sweeps before the +10% burn-in
+    stage1_adapt: str             # stage-1 rule: "aap" or "log"
+    stage1_log_gain: float        # gain of the "log" rule
     sweep_chunk: int              # sweeps per stage-3 kernel launch
     n_trace_chains: int           # chains whose model index is traced
     chunk_flush_every: int        # chunks kept on the device between flushes
@@ -82,6 +90,7 @@ class EngineConfig:
                  max_mix_comps: int = 30, max_em_iters: int = 5000,
                  n_chains: int = 4096, n_chains_stage1: int = 2048,
                  stage1_target_samples: int = 0, stage1_sweeps: int = 10000,
+                 stage1_adapt: str = "aap", stage1_log_gain: float = 3.0,
                  sweep_chunk: int = 1000, n_trace_chains: int = 8,
                  chunk_flush_every: int = 8, trace_chain0: bool = True,
                  trace_every: int = 1, dtype: torch.dtype = torch.float32,
@@ -97,6 +106,8 @@ class EngineConfig:
             raise ValueError(f"unknown pk_mode {pk_mode!r}")
         if mix_fit not in (FIGUEIREDO_MIX_FIT, AUTORJ_MIX_FIT):
             raise ValueError(f"unknown mix_fit {mix_fit!r}")
+        if stage1_adapt not in STAGE1_RULES:
+            raise ValueError(f"unknown stage1_adapt {stage1_adapt!r}")
         if dtype != torch.float32:
             raise NotImplementedError("the port runs float32 only")
         if n_chains < 1:
@@ -112,7 +123,10 @@ class EngineConfig:
                       max_mix_comps=max_mix_comps, max_em_iters=max_em_iters,
                       n_chains=n_chains, n_chains_stage1=n_chains_stage1,
                       stage1_target_samples=stage1_target_samples,
-                      stage1_sweeps=stage1_sweeps, sweep_chunk=sweep_chunk,
+                      stage1_sweeps=stage1_sweeps,
+                      stage1_adapt=stage1_adapt,
+                      stage1_log_gain=float(stage1_log_gain),
+                      sweep_chunk=sweep_chunk,
                       n_trace_chains=n_trace_chains,
                       chunk_flush_every=chunk_flush_every,
                       trace_chain0=trace_chain0, trace_every=trace_every,

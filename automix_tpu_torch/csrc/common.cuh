@@ -7,7 +7,8 @@
 // _triple32/_lowbias32/_u01/_gumbel/lat_lpdf/t_draw, automix_tpu/ops/
 // plmath.py pal_gammaln, automix_tpu/models/builtin.py, toy.py and rb9.py
 // column forms) and in this package's torch versions (ops/randoms.py,
-// ops/plmath.py, models/builtin.py, models/toy.py, models/rb9.py).
+// ops/plmath.py, models/builtin.py, models/toy.py, models/rb9.py,
+// models/changepoint.py).
 //
 // Floating point: the kernels are built without --use_fast_math (logf,
 // expf, log1pf, cosf, sinf are the accurate library versions) and with
@@ -26,8 +27,8 @@
 #define AM_HALF_LOG_2PI 0.9189385332046727f
 #define AM_LOG_ACCEPT_CLAMP (-30.0f)
 
-// Density kinds (automix_tpu_torch/models/builtin.py, toy.py, rb9.py and
-// ddi.py KIND_*).
+// Density kinds (automix_tpu_torch/models/builtin.py, toy.py, rb9.py,
+// ddi.py and changepoint.py KIND_*).
 #define AM_KIND_NORMAL_PARAMS 1
 #define AM_KIND_BETA_PARAMS 2
 #define AM_KIND_GAMMA_PARAMS 3
@@ -38,6 +39,8 @@
 #define AM_KIND_TOY2 8
 #define AM_KIND_RB9 9
 #define AM_KIND_DDI 10
+#define AM_KIND_CPT 11
+#define AM_KIND_CPTRS 12
 
 // AM_SHAPES(X): the (K, D) model-set shapes every kernel is instantiated
 // for, generated at build time from automix_tpu_torch/kernels/_build.py
@@ -324,16 +327,20 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
 // by the generated am_ddi.h.
 #include "ddi.cuh"
 
+// The change-point family's log-posterior (models/changepoint.py), fed by
+// the generated am_cpt.h.
+#include "changepoint.cuh"
+
 // Sanitized log-posterior of a model of density ``kind`` and dimension
 // ``dim`` <= D in a (K, D) model set: NaN -> NEG_INF, clamp to
-// [NEG_INF, -NEG_INF] (fmaxf also sends NaN to NEG_INF).  The rb9 and DDI
-// densities are compiled into their families' own shapes only: inlined
-// into every instantiation, rb9's raised the tutorial's sweep kernel from
-// 64 to 72 registers and slowed it by a quarter.  The DDI case evaluates
-// the statistics from scratch (c[0] is the model's index; already
-// sanitized), ahead of the switch so that the other shapes' switch stays as
-// it was: as one more case of it, it made the tutorial's stage-1 segment
-// kernel 15% slower.  The stage-3 sweep carries the statistics instead
+// [NEG_INF, -NEG_INF] (fmaxf also sends NaN to NEG_INF).  The rb9, DDI
+// and change-point densities are compiled into their families' own shapes
+// only: inlined into every instantiation, rb9's raised the tutorial's sweep
+// kernel from 64 to 72 registers and slowed it by a quarter.  The DDI case
+// evaluates the statistics from scratch (c[0] is the model's index;
+// already sanitized), ahead of the switch so that the other shapes' switch
+// stays as it was: as one more case of it, it made the tutorial's stage-1
+// segment kernel 15% slower.  The stage-3 sweep carries the statistics instead
 // (fused_sweep.cu, kCache).
 template <int K, int D>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
@@ -357,6 +364,13 @@ __device__ __forceinline__ float am_logpost(int kind, const float* c,
     case AM_KIND_RB9:
       if constexpr (K == AM_RB9_K && D == AM_RB9_D)
         lp = am_density_rb9<D>(c, dim, th);
+      else
+        lp = AM_NEG_INF;
+      break;
+    case AM_KIND_CPT:
+    case AM_KIND_CPTRS:
+      if constexpr (K == AM_CPT_K && D == AM_CPT_D)
+        lp = am_density_cpt<D>(kind - AM_KIND_CPT, c, th);
       else
         lp = AM_NEG_INF;
       break;

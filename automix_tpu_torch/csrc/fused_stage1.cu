@@ -8,14 +8,21 @@
 // stage-1 chains (lane i belongs to model i / C).  Each sweep draws 3*D
 // hash words per chain, makes either the batch-wide block move (a coin
 // shared by all chains, after burn-in) or D componentwise moves, then
-// applies one pooled AAP update per (model, coordinate):
+// applies one pooled update per (model, coordinate) from the sweep-start
+// sig, the AAP rule
 //     sig = max(sig + 10 * gamma_t * (acc / C - 0.25), 0)
-// from the sweep-start sig.  The TPU kernel's trailing surplus sweeps
-// (t_rel >= n_active) are exact no-ops, so this kernel simply stops after
-// n_active sweeps.  Perturbations are Box-Muller normals, or Bailey polar
-// t(dof) variates from the same two words when ``tconsts`` is given.  The
-// choice is a template parameter (kT), as K1's variants are compile-time
-// units, so the Normal instantiation carries no Student-t code.
+// or, when ``log_rule`` is set (the JAX stage1_adapt="log", the
+// in-kernel update of fused_stage1.py:669-673),
+//     sig = sig * exp(log_gain * gamma_t * (acc / C - 0.25)).
+// The rule is a run-time argument, not a template parameter: one uniform
+// branch per (model, coordinate) per sweep, taken by a few threads after
+// the sweep's barrier, against a second instantiation of every shape.
+// The TPU kernel's trailing surplus sweeps (t_rel >= n_active) are exact
+// no-ops, so this kernel simply stops after n_active sweeps.
+// Perturbations are Box-Muller normals, or Bailey polar t(dof) variates
+// from the same two words when ``tconsts`` is given.  The choice is a
+// template parameter (kT), as K1's variants are compile-time units, so
+// the Normal instantiation carries no Student-t code.
 //
 // Layout: ONE block holds the whole population, because the pooled update
 // needs every chain's accept indicator every sweep.  Each of up to 1024
@@ -48,7 +55,7 @@ constexpr int kMaxThreads = 1024;
 template <int K, int D, bool kT>
 __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
     int N, int C, int sweep0, uint32_t seed, int nburn, int n_active,
-    AmT tc, const int* __restrict__ kinds_g,
+    AmT tc, int log_rule, float log_gain, const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g, const float* __restrict__ th_in,
     const float* __restrict__ sig_in, const int* __restrict__ nacc_in,
     const int* __restrict__ ntry_in, float* __restrict__ th_out,
@@ -169,7 +176,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
         if (j < dims_s[m]) {
           const float gamma = am_gain(t);
           const float err = (float)cnt_s[q] * inv_c - 0.25f;
-          sig_s[q] = fmaxf(sig_s[q] + 10.0f * gamma * err, 0.0f);
+          sig_s[q] = log_rule ? sig_s[q] * expf(log_gain * gamma * err)
+                              : fmaxf(sig_s[q] + 10.0f * gamma * err, 0.0f);
           nacc_s[q] += cnt_s[q];
           ntry_s[q] += C;
         }
@@ -194,12 +202,12 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_kernel(
 
 template <int K, int D, bool kT>
 int launch_segment(int N, int C, int sweep0, unsigned int seed, int nburn,
-                   int n_active, AmT tc, const void* kinds,
-                   const void* consts, const void* dims, const void* th_in,
-                   const void* sig_in, const void* nacc_in,
-                   const void* ntry_in, void* th_out, void* sig_out,
-                   void* nacc_out, void* ntry_out, void* lp_out,
-                   cudaStream_t st) {
+                   int n_active, AmT tc, int log_rule, float log_gain,
+                   const void* kinds, const void* consts, const void* dims,
+                   const void* th_in, const void* sig_in,
+                   const void* nacc_in, const void* ntry_in, void* th_out,
+                   void* sig_out, void* nacc_out, void* ntry_out,
+                   void* lp_out, cudaStream_t st) {
   const size_t smem = sizeof(float) * (size_t)(D + 1) * (size_t)N;
   const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
   cudaError_t e = cudaFuncSetAttribute(
@@ -207,9 +215,10 @@ int launch_segment(int N, int C, int sweep0, unsigned int seed, int nburn,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   fused_stage1_kernel<K, D, kT><<<1, threads, smem, st>>>(
-      N, C, sweep0, seed, nburn, n_active, tc, (const int*)kinds,
-      (const float*)consts, (const int*)dims, (const float*)th_in,
-      (const float*)sig_in, (const int*)nacc_in, (const int*)ntry_in,
+      N, C, sweep0, seed, nburn, n_active, tc, log_rule, log_gain,
+      (const int*)kinds, (const float*)consts, (const int*)dims,
+      (const float*)th_in, (const float*)sig_in, (const int*)nacc_in,
+      (const int*)ntry_in,
       (float*)th_out, (float*)sig_out, (int*)nacc_out, (int*)ntry_out,
       (float*)lp_out);
   return (int)cudaGetLastError();
@@ -230,12 +239,14 @@ int static_smem(int* bytes) {
 // Launch one segment on ``stream``; returns cudaGetLastError() after the
 // launch, or -1 for a (K, D) pair without an instantiation.  ``tconsts``
 // is a host array of the five Student-t constants (AmT), or null for
-// Box-Muller normals.
+// Box-Muller normals; ``log_rule`` selects the log rule with gain
+// ``log_gain`` over the AAP rule.
 extern "C" int am_fused_stage1(
     int K, int D, int N, int C, int sweep0, unsigned int seed, int nburn,
-    int n_active, const float* tconsts, const void* kinds,
-    const void* consts, const void* dims, const void* th_in,
-    const void* sig_in, const void* nacc_in, const void* ntry_in,
+    int n_active, const float* tconsts, int log_rule, float log_gain,
+    const void* kinds, const void* consts, const void* dims,
+    const void* th_in, const void* sig_in, const void* nacc_in,
+    const void* ntry_in,
     void* th_out, void* sig_out, void* nacc_out, void* ntry_out,
     void* lp_out, void* stream) {
   if (N < 1 || C < 1 || N != K * C) return -1;
@@ -244,9 +255,10 @@ extern "C" int am_fused_stage1(
                      tconsts[4]};
   cudaStream_t st = (cudaStream_t)stream;
 #define AM_LAUNCH(k, d, t)                                                   \
-  launch_segment<k, d, t>(N, C, sweep0, seed, nburn, n_active, tc, kinds,    \
-                          consts, dims, th_in, sig_in, nacc_in, ntry_in,     \
-                          th_out, sig_out, nacc_out, ntry_out, lp_out, st)
+  launch_segment<k, d, t>(N, C, sweep0, seed, nburn, n_active, tc,          \
+                          log_rule, log_gain, kinds, consts, dims, th_in,    \
+                          sig_in, nacc_in, ntry_in, th_out, sig_out,         \
+                          nacc_out, ntry_out, lp_out, st)
 #define AM_CASE(k, d)                                                        \
   if (K == k && D == d)                                                      \
     return tconsts ? AM_LAUNCH(k, d, true) : AM_LAUNCH(k, d, false);

@@ -19,10 +19,12 @@
 // pkllim, nreinit) stays in registers for the whole chunk; device memory
 // sees one read and one write of the state per chunk.  The proposal tables
 // (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5,
-// L = 32) are copied to shared memory once per block.  The chunk sums
-// (K visit counts, 2*K*D theta sums) stay in registers too, and a sweep adds
-// to its own model's entries only (the twin's 0 * theta additions are
-// exact).  At rb9's K*D = 50 that takes K1 to 232-250 registers with no
+// L = 32) are copied to shared memory once per block; at the change-point
+// shape (6, 13) they take 312 + 8496 L bytes, so the wrappers refuse an L
+// above 27 before any launch (kernels/fused.py check_tables).  The chunk
+// sums (K visit counts, 2*K*D theta sums) stay in registers too, and a
+// sweep adds to its own model's entries only (the twin's 0 * theta
+// additions are exact).  At rb9's K*D = 50 that takes K1 to 232-250 registers with no
 // spills, 2 blocks per SM; keeping the sums in shared memory instead (56 KB a
 // block, 3 blocks per SM) made a 100-sweep launch on rb9 5 times slower.
 //

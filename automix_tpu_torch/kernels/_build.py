@@ -8,13 +8,15 @@ kernel one unit per perm / Student-t variant) is compiled by its own
 the kernels are instantiated for are :data:`SHAPES`, written for the
 compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
 ``csrc/common.cuh`` includes); the rb9 family's data are written into a
-generated ``am_rb9.h`` from ``models/rb9.py``, and the DDI family's
-tables into ``am_ddi.h`` from ``models/ddi_cols.py``.  The library is
+generated ``am_rb9.h`` from ``models/rb9.py``, the DDI family's
+tables into ``am_ddi.h`` from ``models/ddi_cols.py`` and the change-point
+events into ``am_cpt.h`` from ``models/changepoint.py``.  The library is
 cached under ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source builds anew; the
 compilers' output (``ptxas -v`` register and spill counts) is kept beside
-it in a ``.log`` file.  Flags: ``sm_90a``, ``-O3``, ``-fmad=false`` and no
-fast math (see ``csrc/common.cuh`` for why parity needs both).
+it in a ``.log`` file, with the seconds each unit took.  Flags:
+``sm_90a``, ``-O3``, ``-fmad=false`` and no fast math (see
+``csrc/common.cuh`` for why parity needs both).
 """
 
 from __future__ import annotations
@@ -25,16 +27,20 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_HEADERS = ("common.cuh", "ddi.cuh")
+_HEADERS = ("common.cuh", "ddi.cuh", "changepoint.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 # The (K, D) model-set shapes every kernel is instantiated for.
-SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5), (2, 16))
+SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5), (2, 16),
+          (6, 13))
+# Shared memory one block may opt in to on the H100 (sm_90): 227 KiB.
+MAX_SMEM = 227 * 1024
 # The DDI family's shape (am_ddi.h's AM_DDI_K, AM_DDI_D): there the stage-3
 # sweep kernel has its cached form (K1e) only, every other shape its
 # stateless form only.
@@ -50,11 +56,11 @@ def shapes_header() -> str:
 
 
 def generated_headers() -> dict:
-    """The generated headers by file name: ``am_shapes.h``, ``am_rb9.h``
-    and ``am_ddi.h``."""
-    from automix_tpu_torch.models import ddi, rb9
+    """The generated headers by file name: ``am_shapes.h``, ``am_rb9.h``,
+    ``am_ddi.h`` and ``am_cpt.h``."""
+    from automix_tpu_torch.models import changepoint, ddi, rb9
     return {"am_shapes.h": shapes_header(), "am_rb9.h": rb9.header(),
-            "am_ddi.h": ddi.header()}
+            "am_ddi.h": ddi.header(), "am_cpt.h": changepoint.header()}
 
 
 def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
@@ -93,7 +99,7 @@ _SIGNATURES = {
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)},
-    "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
+    "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
     "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P],
@@ -152,6 +158,7 @@ def build() -> Path:
     for name, text in generated_headers().items():
         (work / name).write_text(text)
     jobs = []
+    t0 = time.time()
     try:
         for i, (src, defines) in enumerate(_UNITS):
             obj = work / f"{i}_{Path(src).stem}.o"
@@ -161,9 +168,11 @@ def build() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         log = []
-        for cmd, _, proc in jobs:
+        for cmd, obj, proc in jobs:
             text = proc.communicate()[0]
-            log.append(f"$ {' '.join(cmd)}\n{text}")
+            secs = obj.stat().st_mtime - t0 if obj.exists() else 0.0
+            log.append(f"$ {' '.join(cmd)}\n{text}unit done after "
+                       f"{secs:.1f} s\n")
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{text}")

@@ -27,6 +27,10 @@ routes give bitwise the same chains; with a cache they do not, since K1d's
 one-sweep launches rebuild it every sweep.  Burn-in and ``adapt=False``
 runs keep the per-chunk kernel, pk being frozen.
 
+The stateless form copies the proposal tables into each block's shared
+memory, so their size bounds L: at the change-point shape (6, 13) the
+wrappers refuse L > 27 before any launch (:func:`check_tables`).
+
 Chain i draws its words at hash counters i * NW + slot, which is the JAX
 kernel's chain_id for the flat chain index.  The slots follow the JAX
 layout: D RWM accepts, the RJ accept, L + K + L Gumbel words, then
@@ -49,7 +53,7 @@ import torch
 
 from automix_tpu_torch.config import EngineConfig, LOG_ACCEPT_CLAMP, NEG_INF
 from automix_tpu_torch.kernels import _build
-from automix_tpu_torch.model import make_density
+from automix_tpu_torch.model import N_DENSITY_CONSTS, make_density
 from automix_tpu_torch.ops import linalg, randoms
 from automix_tpu_torch.state import Chains, Proposal
 
@@ -387,6 +391,35 @@ def check_form(modelset):
             f"{'cached (DDI)' if cached else 'stateless'} form")
 
 
+def table_smem(K: int, D: int, L: int) -> int:
+    """Bytes of shared memory one block of the stateless sweep kernel
+    needs at L: the proposal tables (``csrc/fused_sweep.cu`` sweep_smem)
+    and, an upper bound, its static arrays (consts [K *
+    N_DENSITY_CONSTS], kinds, dims and hist [K], 16 bytes of alignment
+    each).  The cached form reads its tables from device memory."""
+    KL = K * L
+    tables = 4 * (K * D + 3 * KL + KL * D + 2 * KL * D * D)
+    return tables + 4 * (K * N_DENSITY_CONSTS + 3 * K) + 16 * 4
+
+
+def check_tables(K: int, D: int, L: int):
+    """Raise, before any launch, unless the sweep kernel holds the
+    proposal tables of L components at (K, D): within kLMax and, in the
+    stateless form, within one block's shared memory (at the change-point
+    shape (6, 13), L <= 27)."""
+    if not 1 <= L <= _MAX_L:
+        raise ValueError(f"sweep_chunk: L={L} outside 1..{_MAX_L}")
+    cap = _build.MAX_SMEM
+    if (K, D) != _build.CACHED_SHAPE and table_smem(K, D, L) > cap:
+        fit = max(n for n in range(1, _MAX_L + 1)
+                  if table_smem(K, D, n) <= cap)
+        raise ValueError(
+            f"sweep_chunk: the proposal tables of L={L} components at "
+            f"K={K}, D={D} need {table_smem(K, D, L)} bytes of shared "
+            f"memory, more than one block's {cap}; the sweep kernel holds "
+            f"at most L={fit} here (EngineConfig.max_mix_comps)")
+
+
 def pooled_capacity(modelset, L: int, device, perm: bool = False,
                     tdist=None) -> int:
     """Chains the pooled kernel (K1c) can hold resident on the card at
@@ -396,6 +429,7 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
     K, D = modelset.nmodels, modelset.dmax
     _build.check_shape(K, D, "pooled_capacity")
     check_form(modelset)
+    check_tables(K, D, L)
     chains = ctypes.c_int()
     symbol = _build.sweep_symbol(perm, tdist is not None, "pooled_cap")
     with torch.cuda.device(device):
@@ -431,8 +465,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     if dev.type != "cuda":
         raise ValueError(f"sweep_chunk: unsupported device {dev}")
     _build.check_shape(K, D, "sweep_chunk")
-    if not 1 <= L <= _MAX_L:
-        raise ValueError(f"sweep_chunk: L={L} outside 1..{_MAX_L}")
+    check_tables(K, D, L)
     f32, i32 = torch.float32, torch.int32
     for name, x, dtype, shape in (
             ("k", k, i32, (S,)), ("theta", theta, f32, (D, S)),

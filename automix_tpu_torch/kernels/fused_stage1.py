@@ -19,6 +19,13 @@ update between launches.  The rule is the same on the CPU, where both
 kernels are their plain twins (:func:`segment_ref`, :func:`sweep_ref`);
 there the two runners give bitwise the same sig, samples and logp.
 
+The pooled update is the rule of ``cfg.stage1_adapt``: AAP,
+``sig = max(sig + 10 * gamma * err, 0)``, or the log rule,
+``sig = sig * exp(log_gain * gamma * err)``, with err = acc / C - 0.25 and
+JAX's grouping of the products.  The segment kernel applies it inside the
+kernel; the one-sweep runner between launches, as the JAX ``seg_fn`` does
+outside its kernel, so the one-sweep kernel has no rule.
+
 Randomness is the counter hash of (seed_eff, 1-based global sweep, chain,
 slot) with ``seed_eff = (seed * 1000003 + 777) & 0x7FFFFFFF``, so the
 port's words equal the JAX kernels' and any segmentation gives the same
@@ -39,14 +46,13 @@ from __future__ import annotations
 import torch
 
 from automix_tpu_torch.config import (EngineConfig, LOG_ACCEPT_CLAMP,
-                                      RWM_TARGET_ACCEPT)
+                                      RWM_TARGET_ACCEPT, STAGE1_RULES)
 from automix_tpu_torch.kernels import _build
 from automix_tpu_torch.model import N_DENSITY_CONSTS
 from automix_tpu_torch.ops import randoms
 
 _SEG_DEFAULT = 100
-# Shared memory one block may opt in to on the H100 (sm_90): 227 KiB.
-_MAX_SMEM = 227 * 1024
+_MAX_SMEM = _build.MAX_SMEM
 
 
 def static_smem_bound(K: int, D: int) -> int:
@@ -88,6 +94,15 @@ def schedule(cfg: EngineConfig, nsweeps: int, C: int, D: int):
 
 def _accept(delta):
     return torch.exp(torch.clamp(delta, LOG_ACCEPT_CLAMP, 0.0))
+
+
+def _adapted(sig, err, gamma, rule: str, log_gain: float):
+    """The pooled rule's new sig from the acceptance error ``err`` and
+    the gain ``gamma`` (a float32 tensor), grouped as in JAX
+    (automix_tpu/kernels/fused_stage1.py:239-243, 669-673)."""
+    if rule == "log":
+        return sig * torch.exp((log_gain * gamma) * err)
+    return torch.clamp(sig + (10.0 * gamma) * err, min=0.0)
 
 
 def _gain(t: int, device):
@@ -140,10 +155,12 @@ def _lane_layout(modelset, N: int, C: int, dev):
 
 
 def segment_ref(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
-                seed: int, nburn: int, n_active: int, tdist=None):
+                seed: int, nburn: int, n_active: int, tdist=None,
+                rule: str = "aap", log_gain: float = 3.0):
     """Plain PyTorch twin of the segment kernel: ``n_active`` sweeps
     (global sweeps sweep0+1 ... sweep0+n_active).  ``tdist`` is a
-    ``randoms.StudentT`` for t perturbations, None for normals.  Returns
+    ``randoms.StudentT`` for t perturbations, None for normals; ``rule``
+    ("aap" or "log") and ``log_gain`` are the pooled update's.  Returns
     (theta [D, N], sig [K, D], nacc [K, D], ntry [K, D], logp [N])."""
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
@@ -169,7 +186,7 @@ def segment_ref(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
             cnt[:, j].index_add_(0, model_of, accs[j].to(torch.int64))
         # one pooled update per sweep from the sweep-start sig
         err = cnt.to(torch.float32) * (1.0 / C) - RWM_TARGET_ACCEPT
-        new_sig = torch.clamp(sig + (10.0 * _gain(t, dev)) * err, min=0.0)
+        new_sig = _adapted(sig, err, _gain(t, dev), rule, log_gain)
         sig = torch.where(coord_active, new_sig, sig)
         nacc = nacc + torch.where(coord_active, cnt, 0).to(nacc.dtype)
         ntry = ntry + (coord_active * C).to(ntry.dtype)
@@ -184,14 +201,16 @@ def _check(name, x, dev, dtype, shape, fn):
 
 
 def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
-            seed: int, nburn: int, n_active: int, tdist=None):
+            seed: int, nburn: int, n_active: int, tdist=None,
+            rule: str = "aap", log_gain: float = 3.0):
     """One stage-1 segment: the CUDA kernel for tensors on the card, its
     plain twin for tensors on the CPU.  Same arguments and results as
     :func:`segment_ref`."""
     if theta.device.type == "cpu":
         return segment_ref(modelset, theta, sig, nacc, ntry, C=C,
                            sweep0=sweep0, seed=seed, nburn=nburn,
-                           n_active=n_active, tdist=tdist)
+                           n_active=n_active, tdist=tdist, rule=rule,
+                           log_gain=log_gain)
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
     dev = theta.device
@@ -200,6 +219,8 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
     _build.check_shape(K, D, "segment")
     if N != K * C or not fits_one_block(K, D, C):
         raise ValueError(f"segment: {N} chains do not fit one block")
+    if rule not in STAGE1_RULES:
+        raise ValueError(f"segment: unknown rule {rule!r}")
     for name, x, dtype, shape in (("theta", theta, torch.float32, (D, N)),
                                   ("sig", sig, torch.float32, (K, D)),
                                   ("nacc", nacc, torch.int32, (K, D)),
@@ -214,7 +235,8 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
     lib = _build.library()
     status = lib.am_fused_stage1(
         K, D, N, C, sweep0, seed, nburn, n_active, _build.tconsts(tdist),
-        kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
+        int(rule == "log"), float(log_gain), kinds.data_ptr(),
+        consts.data_ptr(), dims.data_ptr(),
         theta.data_ptr(), sig.data_ptr(), nacc.data_ptr(), ntry.data_ptr(),
         th_o.data_ptr(), sig_o.data_ptr(), nacc_o.data_ptr(),
         ntry_o.data_ptr(), lp_o.data_ptr(),
@@ -343,7 +365,8 @@ def run_fused_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
         n = min(seg, total - done)
         theta, sig, nacc, ntry, lp = segment(
             modelset, theta, sig, nacc, ntry, C=C, sweep0=done,
-            seed=seed_eff, nburn=nburn, n_active=n, tdist=tdist)
+            seed=seed_eff, nburn=nburn, n_active=n, tdist=tdist,
+            rule=cfg.stage1_adapt, log_gain=cfg.stage1_log_gain)
         done += n
         tele.append((sig, nacc, ntry))
         if s in snap_segs:
@@ -354,13 +377,16 @@ def run_fused_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
 
 
 def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
-                            C: int, init_theta, device):
+                            C: int, init_theta, device, sweep_fn=None):
     """Stage 1 for a population one block cannot hold: the one-device
     form of the JAX ``run_fused_stage1_sharded``.  Each sweep is one
-    launch of the one-sweep kernel, then the pooled AAP update of sig,
-    nacc and ntry from its exact integer accept counts, in the JAX
-    order, blends included.  Same schedule, arguments and results as
-    :func:`run_fused_stage1`, and bitwise the same values in the twins."""
+    launch of the one-sweep kernel, then the pooled update of sig (the
+    rule of ``cfg.stage1_adapt``), nacc and ntry from its exact integer
+    accept counts, in the JAX order, blends included.  Same schedule,
+    arguments and results as :func:`run_fused_stage1`, and bitwise the
+    same values in the twins.  ``sweep_fn=sweep_ref`` is the runner's
+    plain twin on any device."""
+    sweep_fn = sweep_fn or sweep
     ((total, nburn, seg, n_seg, snap_segs), coord_active, theta, sig, nacc,
      ntry, seed_eff, tdist) = _start(modelset, cfg, nsweeps, C, init_theta,
                                      device)
@@ -373,15 +399,15 @@ def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
         n = min(seg, total - done)
         for i in range(n):
             t = done + i + 1                             # 1-based global
-            theta, lp, cnt = sweep(modelset, theta, lp, sig, C=C, t=t,
-                                   seed=seed_eff, nburn=nburn,
-                                   seg_start=i == 0, tdist=tdist)
+            theta, lp, cnt = sweep_fn(modelset, theta, lp, sig, C=C, t=t,
+                                      seed=seed_eff, nburn=nburn,
+                                      seg_start=i == 0, tdist=tdist)
             # block-move sweeps do not adapt (the kernel's own coin)
             adapt = not (t > nburn and randoms.block_coin(seed_eff, t))
             err = (cnt.to(torch.float32) * (1.0 / C)
                    - RWM_TARGET_ACCEPT) * ca
-            sig_new = torch.clamp(sig + (10.0 * _gain(t, device)) * err,
-                                  min=0.0)
+            sig_new = _adapted(sig, err, _gain(t, device), cfg.stage1_adapt,
+                               cfg.stage1_log_gain)
             sig = sig + float(adapt) * (sig_new - sig)
             nacc = nacc + int(adapt) * cnt
             ntry = ntry + int(adapt) * ca_c

@@ -34,7 +34,19 @@ PyTorch twin on the card, then drives the port's paths at full size:
   route ``pooled_capacity`` picks, p(M) each against the C oracle's ddi
   mean; K1e, K1e + perm (40 sweeps, crossing two cache refreshes), K1e at
   L = 32, K1c with the cache and the stage-1 kernel with the DDI density
-  each equal to its twin run on the card.
+  each equal to its twin run on the card;
+* change-point (6 models of dims 3-13, D5): the segment kernel with the
+  log rule (K2-log) and the one-sweep route with the log update between
+  launches, each equal to its twin on the card; stage 1 of cpt at 512
+  chains per model (K2-log); ``AMSampler`` on cpt and on cptrs at the JAX
+  package's change-point configuration (pooled pk, the log stage-1 rule,
+  1024 stage-1 chains per model on the one-sweep route, 2500 stage-1
+  sweeps; cptrs fitted at lmax 10) with 16384 chains on K1c, 1500
+  burn-in and 10000 timed sweeps; K1, K1 + perm and K1c on cpt's
+  proposal and state, each equal to its twin; the CLI in mode 1 at its
+  defaults with ``-N 10000`` from each set's ``_mix.data``; p(M) against
+  the JAX package's own posterior (``tests/data/cpt_jax_reference.json``),
+  but for the CLI on cpt (see CPT_TOL).
 
 Every kernel's launch counter is set to 0 just before a path and read
 just after it.  Any failed check exits non-zero without printing a
@@ -113,6 +125,39 @@ DDI_DRIFT_OTHER = 0.02
 DDI_WINDOWS = 8
 DDI_CHECK_SWEEPS = 40     # crosses two cache refreshes (t % 16 == 15)
 
+# Change-point: the JAX package's configuration (tests/test_heavy_models.py
+# :71-76: pooled pk, the log stage-1 rule, 2500 stage-1 sweeps, 500-sweep
+# chunks, 1500 burn-in sweeps) held to the JAX package's own p(M), frozen
+# by tools/cpt_jax_reference.py (the C binaries segfault).  JAX's 1024
+# stage-1 chains per model are too many for K2's one block: stage 1 takes
+# the K3 route with the log update between launches.  Stage 3 at 16384
+# chains, as rb9's and DDI's pooled runs: K1c.  K2-log runs the stage 1 of
+# a population one block holds, 512 chains per model.
+CPT_CHAINS = 16_384
+CPT_C_STAGE1, CPT_C_K2 = 1024, 512
+# cptrs' stage 2 at JAX's lmax 30 took 268 s on the H100 (1060-2475 EM
+# iterations, 11-23 live components; PERF.md section 4), so cptrs fits
+# with lmax 10, as toy2 does; cpt keeps 30 (2.6 s: the EM's jitter leaves
+# it 2-4 components)
+CPTRS_MAX_MIX = 10
+CPT_STAGE1_SWEEPS = 2500
+CPT_CHUNK = 500
+CPT_BURN, CPT_TIMED = 1500, 10_000
+CPT_CLI_SWEEPS = 10_000     # the CLI's -N, cut from 100000
+CPT_ROUTE_SWEEPS = 20       # the K3 + log route against its twin
+# p(M) within 0.03 of the JAX mean on every model, or 3 times the spread
+# of the JAX runs where that is larger, and JAX's own assertions
+# (tests/test_heavy_models.py:99-100).  The JAX package's stage-2 fit on
+# cpt inflates the rate scales of its proposals hundreds of times (the
+# Cholesky jitter, 1e-6 of the mean covariance diagonal, is not
+# scale-free), so cpt's jumps barely mix and its p(M) depends on the
+# configuration and the run's length: cpt's AMSampler run, at JAX's
+# configuration, is held to JAX's cpt runs; the CLI on cpt, at another
+# configuration with no JAX runs, is checked for a proper p(M) over all
+# six models only, and the CLI is held to JAX on cptrs, whose fit is sound
+# (PERF.md section 6).
+CPT_TOL, CPT_SPREADS = 0.03, 3.0
+
 # H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
 # cores and HBM3.  Every bound below is against these.
 PEAK_OPS = 67e12
@@ -152,7 +197,7 @@ def density_ops(ms, probs):
     """Operations of one log-posterior evaluation, averaged over the
     models with weights ``probs``, counted from the density's code."""
     import numpy as np
-    from automix_tpu_torch.models import ddi, rb9
+    from automix_tpu_torch.models import changepoint, ddi, rb9
     per = []
     for m in ms.models:
         kind, c, d = m.cuda.kind, m.cuda.consts, m.dim
@@ -185,6 +230,14 @@ def density_ops(ms, probs):
             part = ddi.ddi_density().parts[int(c[0])]
             nnz = ddi.ddi_density().nonzeros()[int(c[0])][0]
             ops = ddi_stats_ops(part, nnz) + ddi_lp_ops(part)
+        elif kind in (changepoint.KIND_CPT, changepoint.KIND_CPTRS):
+            # csrc/changepoint.cuh: per segment its length, the support
+            # test, two logs, the prior and likelihood terms; the counts by
+            # comparing every event with each of the model's ns change
+            # points (a compare and an add), the algorithm the kernel runs
+            ns = int(c[0])
+            ops = (ns + 1) * (2 * OPS["log"] + 12) \
+                + 2 * changepoint.N_EVENTS * ns + 4
         else:
             raise ValueError(f"no operation count for density kind {kind}")
         per.append(ops + 2)    # the sanitizing clamp
@@ -292,6 +345,46 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def unit_seconds(lib_path):
+    """Seconds from the build's start to each compilation unit's object,
+    from the build's log: (source and its -D definitions, seconds)."""
+    import re
+    text = lib_path.with_suffix(".log").read_text()
+    out = []
+    for block in text.split("$ ")[1:]:
+        m = re.search(r"unit done after ([\d.]+) s", block)
+        if m:
+            cmd = block.split("\n", 1)[0].split()
+            defs = [a[2:] for a in cmd if a.startswith("-DAM_")
+                    and "SYMBOL" not in a]
+            src = next(a for a in cmd if a.endswith(".cu"))
+            out.append((" ".join([os.path.basename(src)] + defs),
+                        float(m.group(1))))
+    return out
+
+
+def ptxas_summary(lib_path, K, D):
+    """The ptxas -v record of every kernel instantiated at (K, D), from the
+    build's log beside the library: one (kernel and its bool template
+    argument, registers, stack frame, spill stores, spill loads) per
+    compiled form, in the order of the log (its units and variants)."""
+    import re
+    text = lib_path.with_suffix(".log").read_text()
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        m = re.search(rf"\d(fused_[a-z0-9_]*?_kernel)ILi{K}ELi{D}ELb([01])E",
+                      name)
+        if not m:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        out.append((f"{m.group(1)}<{m.group(2)}>", int(regs.group(1)),
+                    *map(int, frame.groups())))
+    return out
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -301,11 +394,14 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` runs, after
-    one warm-up run, timed with CUDA events."""
+    one warm-up run unless ``warm`` is False, timed with CUDA events.  The
+    plain twins are timed without one: each has just run at the same
+    widths for its check, and a run takes seconds."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -351,14 +447,17 @@ def stage1_start(ms, C, dev):
     return theta, sig, zi
 
 
-def check_segment(ms, C, dev, tdist=None, label="K2", exact=False):
+def check_segment(ms, C, dev, tdist=None, label="K2", exact=False,
+                  rule="aap"):
     """K2 against segment_ref: K models x C chains, one 100-sweep segment
     (componentwise sweeps 1-50, block-move coins after the burn-in at
-    50), seed 777.  ``exact``: theta, sig and the counts must be equal."""
+    50), seed 777, the pooled ``rule`` ("aap" or "log", gain 3).
+    ``exact``: theta, sig and the counts must be equal."""
     import torch
     from automix_tpu_torch.kernels import fused_stage1
     theta, sig, zi = stage1_start(ms, C, dev)
-    kw = dict(C=C, sweep0=0, seed=777, nburn=50, n_active=100, tdist=tdist)
+    kw = dict(C=C, sweep0=0, seed=777, nburn=50, n_active=100, tdist=tdist,
+              rule=rule, log_gain=3.0)
     got = fused_stage1.segment(ms, theta, sig, zi, zi, **kw)
     want = fused_stage1.segment_ref(ms, theta, sig, zi, zi, **kw)
     torch.cuda.synchronize()
@@ -383,7 +482,7 @@ def check_segment(ms, C, dev, tdist=None, label="K2", exact=False):
     ms_k = cuda_ms(lambda: fused_stage1.segment(ms, theta, sig, zi, zi,
                                                 **kw), 20)
     ms_p = cuda_ms(lambda: fused_stage1.segment_ref(ms, theta, sig, zi, zi,
-                                                    **kw), 2)
+                                                    **kw), 1, warm=False)
     N = ms.nmodels * C
     b_ms, b_by = bound(100 * N * stage1_ops(ms, uniform(ms)),
                        N * 4 * 2 * (ms.dmax + 1))
@@ -514,7 +613,8 @@ def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
             ch.pkllim, ch.nreinit)
     kw = dict(kw, n_sweeps=TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *full, tabs, **kw), 5)
-    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *full, tabs, **kw), 1)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *full, tabs, **kw), 1,
+                   warm=False)
     L = tabs.loglam.shape[1]
     K, D = ms.nmodels, ms.dmax
     b_ms, b_by = bound(
@@ -585,7 +685,8 @@ def check_pooled(ms, prop, chains, dev):
         fail("K1c shared pk differs on identical trajectories")
     kt = kw(TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 5)
-    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1,
+                   warm=False)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     b_ms, b_by = bound(
         ch.n_chains * TIME_SWEEPS * (sweep_ops(ms, L, k_probs(ms, ch.k))
@@ -633,7 +734,8 @@ def check_pooled_runner(ms, prop, chains, dev):
     ms_k = cuda_ms(lambda: fused.pooled_sweeps(
         ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17), 2) / K1D_CHECK_SWEEPS
     ms_p = cuda_ms(lambda: fused.pooled_sweeps(
-        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref), 1) / 2
+        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref), 1,
+        warm=False) / 2
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
     b_ms, b_by = bound(
@@ -697,7 +799,8 @@ def check_cache_sweep(ms, prop, chains, perm=False, label="K1e"):
         f"{float(fresh.abs().max()):.1f})")
     kt = dict(kw, n_sweeps=TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 3)
-    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1,
+                   warm=False)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
     cnt = got[9].sum(1).double().cpu().numpy()
@@ -807,7 +910,8 @@ def check_cache_pooled(ms, prop, chains):
     got, err = exact_check(ms, tabs, args, "K1c with the cache", **kw)
     kt = dict(kw, n_sweeps=TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 3)
-    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1,
+                   warm=False)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
     cnt = got[9].sum(1).double().cpu().numpy()
@@ -945,6 +1049,225 @@ def ddi_paths(dev):
     return out
 
 
+def check_stage1_route(ms, C, dev, label="K3 + log"):
+    """The one-sweep stage-1 route with the log rule
+    (``run_fused_stage1_sweeps``: a K3 launch per sweep, the log update
+    between launches in torch) against the same runner over the one-sweep
+    twin, both on the card: K models x C chains, CPT_ROUTE_SWEEPS stage-1
+    sweeps (+10% burn-in), seed 5; sig, samples, telemetry and logp must
+    be bitwise equal.  Timed per sweep."""
+    import torch
+    from automix_tpu_torch import EngineConfig
+    from automix_tpu_torch.kernels import fused_stage1
+    cfg = EngineConfig(seed=5, stage1_adapt="log")
+    init = ms.init_points(torch.Generator())
+
+    def run(sweep_fn=None):
+        return fused_stage1.run_fused_stage1_sweeps(
+            ms, cfg, CPT_ROUTE_SWEEPS, C, init, dev, sweep_fn=sweep_fn)
+
+    got, want = run(), run(fused_stage1.sweep_ref)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = float((got[1] - want[1]).abs().max())
+    n = CPT_ROUTE_SWEEPS + CPT_ROUTE_SWEEPS // 10
+    log(f"{label} route vs its twin ({ms.nmodels} x {C} chains x {n} "
+        f"sweeps): sig, samples, telemetry and logp equal {equal}, samples "
+        f"max|err| {err:.3e}, rate sig {got[0][:, 0].tolist()}")
+    if not equal:
+        fail(f"the {label} route differs from its twin")
+    ms_k = cuda_ms(run, 2) / n
+    ms_p = cuda_ms(lambda: run(fused_stage1.sweep_ref), 1, warm=False) / n
+    N, K, D = ms.nmodels * C, ms.nmodels, ms.dmax
+    b_ms, b_by = bound(N * stage1_ops(ms, uniform(ms)) + 8 * K * D,
+                       N * 4 * 2 * (D + 1))
+    log(f"{label} route ({N} chains, per sweep): {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_exact_sweep(ms, prop, chains, label, perm=False, pooled=False):
+    """K1 (``perm``: K1b; ``pooled``: K1c) against its twin run on the
+    card from a run's state: every chain x K1_SWEEPS sweeps, every output
+    bitwise equal.  Timed on the same state x TIME_SWEEPS sweeps."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    args = chunk_args(chains)
+    kw = dict(seed=11, sweep0=chains.sweep, n_sweeps=K1_SWEEPS, adapt=True,
+              perm=perm, pooled=pooled)
+    _, err = exact_check(ms, tabs, args, label, **kw)
+    kt = dict(kw, n_sweeps=TIME_SWEEPS)
+    ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 3)
+    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kt), 1,
+                   warm=False)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    S = chains.n_chains
+    b_ms, b_by = bound(
+        S * TIME_SWEEPS * (sweep_ops(ms, L, k_probs(ms, chains.k), perm)
+                           + (2 * K if pooled else 0)),
+        S * state_bytes(K, D) + tables_bytes(K, D, L))
+    log(f"{label} sweep chunk ({S} chains x {TIME_SWEEPS} sweeps): kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_cpt_probs(name, probs, ref, hold=True):
+    """p(M) against the JAX runs' mean (``ref``, one set of
+    cpt_jax_reference.json) within max(CPT_TOL, CPT_SPREADS x their
+    spread) on every model, and JAX's own assertions; with ``hold``
+    False, only a proper p(M) that visits all six models."""
+    import numpy as np
+    probs = np.asarray(probs, np.float64)
+    mean, spread = np.asarray(ref["mean"]), np.asarray(ref["spread"])
+    tol = np.maximum(CPT_TOL, CPT_SPREADS * spread)
+    err = np.abs(probs - mean)
+    log(f"{name}: p(M) = {np.round(probs, 4).tolist()} vs the JAX mean "
+        f"{np.round(mean, 4).tolist()} ({len(ref['runs'])} runs): max err "
+        f"{float(err.max()):.4f} (bounds {np.round(tol, 4).tolist()}"
+        f"{'' if hold else ', not held'}); p0 {probs[0]:.4f}, p1 + p2 + "
+        f"p3 {probs[1:4].sum():.4f}")
+    if len(probs) != len(mean) or not (probs > 0).all() \
+            or abs(probs.sum() - 1.0) > 1e-4:
+        fail(f"{name}: p(M) is not a distribution over the six models")
+    if not hold:
+        return
+    if (err > tol).any():
+        fail(f"{name}: p(M) misses the JAX posterior")
+    if not (probs[0] < 0.15 and probs[1:4].sum() > 0.5):
+        fail(f"{name}: p(M) fails JAX's own assertions")
+
+
+def changepoint_paths(dev):
+    """The change-point paths: K2-log and the K3 + log route against their
+    twins; stage 1 of cpt at 512 chains per model (K2-log); ``AMSampler``
+    on cpt and on cptrs at JAX's configuration (stage 1 on K3 + log) with
+    16384 chains and pooled pk (K1c), K1 / K1b / K1c on cpt's proposal and
+    state; the CLI in mode 1 on each set.  Returns the kernels' entries of
+    the JSON record."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.io import reports
+    from automix_tpu_torch.kernels import fused, rwm
+    from automix_tpu_torch.models import changepoint
+    ref = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+        "cpt_jax_reference.json")))
+    cpt = changepoint.cpt_set()
+    out = {}
+    # ---- the stage-1 kernels from the start points ------------------------
+    t0 = time.perf_counter()
+    out["K2-log"] = check_segment(cpt, CPT_C_K2, dev, label="K2-log cpt",
+                                  exact=True, rule="log")
+    out["K3-log"] = check_stage1_route(cpt, CPT_C_STAGE1, dev)
+    log(f"phase cpt stage-1 kernel checks: {time.perf_counter() - t0:.2f} s")
+
+    # ---- stage 1 of a population K2's one block holds: K2-log ------------
+    t0 = time.perf_counter()
+    reset_counts()
+    sig, _, tele = rwm.run_stage1(
+        cpt, EngineConfig(n_chains_stage1=CPT_C_K2,
+                          stage1_sweeps=CPT_STAGE1_SWEEPS, seed=5,
+                          stage1_adapt="log"),
+        torch.Generator().manual_seed(5), CPT_STAGE1_SWEEPS, dev)
+    torch.cuda.synchronize()
+    out["stage1"] = read_counts()
+    rate_sig = [float(sig[m, :m + 2].max()) for m in range(cpt.nmodels)]
+    log(f"cpt stage 1 at {CPT_C_K2} chains per model ({tele['nsweeps']} "
+        f"sweeps): {time.perf_counter() - t0:.3f} s, launches "
+        f"{out['stage1']}, largest rate sig per model "
+        f"{np.round(rate_sig, 6).tolist()}, last pooled acceptance "
+        f"{np.round(tele['accept_trace'][-1, :, 0].numpy(), 3).tolist()}")
+    if out["stage1"]["K2"] == 0 or max(rate_sig) > 0.02:
+        fail("cpt stage 1 did not run K2-log to the rates' scale")
+
+    probs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, seed in (("cpt", 5), ("cptrs", 6)):
+            # ---- AMSampler at JAX's change-point configuration ------------
+            ms = getattr(changepoint, f"{name}_set")()
+            t0 = time.perf_counter()
+            reset_counts()
+            am = AMSampler(ms, EngineConfig(
+                n_chains=CPT_CHAINS, n_chains_stage1=CPT_C_STAGE1,
+                max_mix_comps=30 if name == "cpt" else CPTRS_MAX_MIX,
+                stage1_sweeps=CPT_STAGE1_SWEEPS, sweep_chunk=CPT_CHUNK,
+                seed=seed, pk_mode="pooled", stage1_adapt="log",
+                trace_chain0=False), device="cuda")
+            am.estimate_conditional_probs()
+            reports.report_cond_prob_estimation(os.path.join(tmp, name), am)
+            prop = am.proposal
+            cap = fused.pooled_capacity(ms, prop.lmax, dev)
+            am.burn_samples(CPT_BURN)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            stats = am.rjmcmc_samples(CPT_TIMED)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            counts = read_counts()
+            cp = am.cpstats
+            # the fit's first-rate scale against stage 1's (both ~ the
+            # posterior's): the EM's Cholesky jitter, 1e-6 of the mean
+            # covariance diagonal, is not scale-free
+            sd0 = torch.where(prop.lam > 0, prop.B[:, :, 0, 0], 0.0)
+            inflate = (sd0.amax(1) / prop.sig[:, 0]).tolist()
+            log(f"{name}: stage 1 {cp.timesecs_stage1:.3f} s on K3 + log "
+                f"({CPT_C_STAGE1} chains per model, "
+                f"{CPT_STAGE1_SWEEPS * 11 // 10} sweeps), stage 2 "
+                f"{cp.timesecs_stage2:.3f} s (EM iterations "
+                f"{cp.em_iters.tolist()}, L per model "
+                f"{prop.nmix.tolist()}), burn-in {stats.timesecs_burn:.3f} "
+                f"s; the fit's largest first-rate sd over stage 1's sig per "
+                f"model {np.round(inflate, 2).tolist()}")
+            log(f"{name}: {CPT_TIMED} timed sweeps x {CPT_CHAINS} chains in "
+                f"{secs:.3f} s = {CPT_CHAINS * CPT_TIMED / secs:.6e} "
+                f"chain-sweeps/s (K1c holds {cap} at L={prop.lmax}); "
+                f"launches {counts}")
+            check_cpt_probs(f"{name} AMSampler", stats.model_probs, ref[name])
+            if not (counts["K1"] > 0 and counts["K1c"] > 0
+                    and counts["K3"] > 0):
+                fail(f"the {name} path did not launch K1, K1c and K3")
+            if not bool((am.chains.pk == am.chains.pk[0]).all()):
+                fail(f"the {name} pooled pk rows differ")
+            out[name] = counts
+            probs[name] = np.asarray(stats.model_probs)
+            log(f"phase {name} AMSampler: {time.perf_counter() - t0:.2f} s")
+
+            # ---- K1, K1b and K1c at (6, 13) on cpt's proposal and state ----
+            if name == "cpt":
+                t0 = time.perf_counter()
+                out["K1"] = check_exact_sweep(ms, prop, am.chains, "K1 cpt")
+                out["K1b"] = check_exact_sweep(ms, prop, am.chains,
+                                               "K1 perm cpt", perm=True)
+                out["K1c"] = check_exact_sweep(ms, prop, am.chains,
+                                               "K1c cpt", pooled=True)
+                log(f"phase cpt kernel checks: "
+                    f"{time.perf_counter() - t0:.2f} s")
+            del am
+        jax_gap = np.asarray(ref["cpt"]["mean"]) - np.asarray(
+            ref["cptrs"]["mean"])
+        log(f"cpt - cptrs (time rescaled by 1459): p(M) "
+            f"{np.round(probs['cpt'] - probs['cptrs'], 4).tolist()}, the "
+            f"JAX means' {np.round(jax_gap, 4).tolist()}")
+
+        # ---- the CLI in mode 1 at its defaults from each _mix.data --------
+        for name in ("cpt", "cptrs"):
+            cli_out, cli_counts, secs = run_cli(
+                [name, "-m", "1", "--chains", str(N_CHAINS), "-N",
+                 str(CPT_CLI_SWEEPS), "-s", "1", "-f",
+                 os.path.join(tmp, name)])
+            log(f"launches on the {name} CLI path: {cli_counts}")
+            check_cpt_probs(f"{name} CLI mode 1", probs_of(cli_out),
+                            ref[name], hold=name == "cptrs")
+            if cli_counts["K1"] == 0:
+                fail(f"the {name} CLI run did not launch K1 (perm)")
+            out[f"cli {name}"] = cli_counts
+            log(f"phase {name} CLI mode 1: {secs:.2f} s")
+    return out
+
+
 def run_cli(argv, reset=True):
     """``cli.main(argv)`` in process; returns (stdout text, launch counts
     since the last reset, seconds).  ``reset`` sets the counts to 0 just
@@ -1012,6 +1335,12 @@ def main():
     lib_path = _build.build()
     _build.library()
     log(f"phase build: {time.perf_counter() - t0:.2f} s ({lib_path.name})")
+    log("build units, seconds to each object: " + "; ".join(
+        f"{u} {t:.1f}" for u, t in unit_seconds(lib_path)))
+    log("ptxas at (6, 13), per form (registers, stack frame, spill stores, "
+        "spill loads): " + "; ".join(
+            f"{n} {r}, {f}, {st}, {ld}"
+            for n, r, f, st, ld in ptxas_summary(lib_path, 6, 13)))
 
     ms = tutorial_set()
     toy1, toy2 = toy.toy1_set(), toy.toy2_set()
@@ -1255,6 +1584,9 @@ def main():
     # ---- 13. DDI: AMSampler, kernel checks, the CLI, pooled pk -------------
     ddi_out = ddi_paths(dev)
 
+    # ---- 14. change-point: stage-1 kernels, AMSampler, K1 checks, the CLI --
+    cpt_out = changepoint_paths(dev)
+
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     def entry(name, source, replaces, launches, check):
@@ -1286,7 +1618,20 @@ def main():
               ddi_out["main"]["K2"], ddi_out["K2"]),
     ] + ([entry("fused_sweep_cache_pooled_ddi", k1_src, k1_at,
                 ddi_out["pooled"]["K1c"], ddi_out["K1c"])]
-         if "K1c" in ddi_out else [])}))
+         if "K1c" in ddi_out else []) + [
+        entry("fused_stage1_segment_log_cpt", "fused_stage1.cu",
+              "automix_tpu/kernels/fused_stage1.py:696",
+              cpt_out["stage1"]["K2"], cpt_out["K2-log"]),
+        entry("fused_stage1_sweep_log_cpt", "fused_stage1_sweep.cu",
+              "automix_tpu/kernels/fused_stage1.py:416",
+              cpt_out["cpt"]["K3"], cpt_out["K3-log"]),
+        entry("fused_sweep_cpt", k1_src, k1_at, cpt_out["cpt"]["K1"],
+              cpt_out["K1"]),
+        entry("fused_sweep_perm_cpt", k1_src, k1_at,
+              cpt_out["cli cpt"]["K1"], cpt_out["K1b"]),
+        entry("fused_sweep_pooled_cpt", k1_src, k1_at,
+              cpt_out["cpt"]["K1c"], cpt_out["K1c"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

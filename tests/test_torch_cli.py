@@ -42,10 +42,28 @@ def test_cli_end_to_end_and_mode1_restart(tmp_path, capsys):
 
 
 def test_cli_problem_errors():
+    """An unknown problem exits with the list of built-ins, which holds
+    every problem of the JAX registry: cpt and cptrs resolve to the
+    port's change-point sets."""
+    from automix_tpu_torch.models import changepoint
     with pytest.raises(SystemExit, match="unknown problem"):
         cli.main(["nonexistent_problem", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported .* D5"):
-        cli.main(["cpt", "--device", "cpu"])
+    assert cli._resolve_problem("cpt") is changepoint.cpt_set
+    assert cli._resolve_problem("cptrs") is changepoint.cptrs_set
+
+
+def test_cli_cptrs_on_the_cpu(tmp_path, capsys):
+    """cptrs through the CLI on the CPU: AutoRJ (mode 2), 64 stage-1
+    chains per model x 44 sweeps, 128 chains x 100 sweeps after 20
+    burn-in.  Six model probabilities summing to 1, and the _mix.data
+    written for all six models."""
+    stem = str(tmp_path / "cptrs")
+    assert cli.main(["cptrs", "-m", "2", "-N", "100", "-b", "20", "-n",
+                     "40", "-s", "3", "--chains", "128", "--chains-stage1",
+                     "64", "--device", "cpu", "-f", stem]) == 0
+    probs = _probs(capsys.readouterr().out)
+    assert len(probs) == 6 and abs(sum(probs) - 1.0) < 1e-4
+    assert os.path.exists(f"{stem}_mix.data")
 
 
 def test_cli_device_cuda_raises_without_cuda(monkeypatch, tmp_path):

@@ -17,7 +17,7 @@ import torch
 from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import _build, fused, fused_stage1
 from automix_tpu_torch.model import ModelSet
-from automix_tpu_torch.models import builtin, ddi, rb9, toy
+from automix_tpu_torch.models import builtin, changepoint, ddi, rb9, toy
 from automix_tpu_torch.models.tutorial import TUTORIAL_MODEL_PROBS, \
     tutorial_set
 from automix_tpu_torch.ops import randoms
@@ -158,12 +158,14 @@ def test_toy2_on_the_card(cuda):
 
 # One model set for each instantiated (K, D): the builtin sets (1, 1),
 # (1, 2) and (2, 2), toy1 (2, 2), the tutorial (3, 2), toy2 (5, 5), rb9
-# (10, 5) and DDI (2, 16), whose sweep kernel is the cached form K1e.
+# (10, 5), DDI (2, 16), whose sweep kernel is the cached form K1e, and
+# change-point (6, 13).
 _SHAPE_SETS = {"normal": builtin.normal_sampler_set,
                "normal_params": builtin.normal_params_set,
                "gamma_beta": builtin.gamma_beta_set,
                "toy1": toy.toy1_set, "tutorial": tutorial_set,
-               "toy2": toy.toy2_set, "rb9": rb9.rb9_set, "ddi": ddi.ddi_set}
+               "toy2": toy.toy2_set, "rb9": rb9.rb9_set, "ddi": ddi.ddi_set,
+               "cpt": changepoint.cpt_set}
 
 
 def test_shape_sets_cover_every_instantiation():
@@ -465,11 +467,30 @@ def _ddi_state(dev, S, L=2, seed=0, sweep=5):
     seed; pk uniform."""
     ms = ddi.ddi_set()
     K, D = ms.nmodels, ms.dmax
+    scale = np.where(np.arange(D) == 15, 5.0, 0.1)[None].repeat(K, 0)
+    scale[1, 9] = 5.0
+    return _scaled_state(ms, scale, dev, S, L, seed, sweep)
+
+
+def _cpt_state(dev, S, L=2, seed=0, sweep=5):
+    """cpt chains at the start points under an L-component proposal around
+    them at the posterior's scales (rates 1e-3, change points 2000), made
+    from a numpy seed; pk uniform."""
+    ms = changepoint.cpt_set()
+    K, D = ms.nmodels, ms.dmax
+    rate = np.arange(D)[None] < (np.arange(K) + 2)[:, None]
+    return _scaled_state(ms, np.where(rate, 1e-3, 2000.0), dev, S, L, seed,
+                         sweep)
+
+
+def _scaled_state(ms, scale, dev, S, L, seed, sweep):
+    """Chains of ``ms`` at its start points, their models drawn from a
+    numpy seed, under an L-component proposal around the start points with
+    per-coordinate scales ``scale`` [K, D]; pk uniform."""
+    K, D = ms.nmodels, ms.dmax
     rng = np.random.default_rng(seed)
     init = ms.init_points(torch.Generator().manual_seed(0)).numpy()
     dm = np.arange(D)[None] < ms.dims[:, None]                  # [K, D]
-    scale = np.where(np.arange(D) == 15, 5.0, 0.1)[None].repeat(K, 0)
-    scale[1, 9] = 5.0
     scale = scale * dm
     mu = (init[:, None] + 0.3 * scale[:, None]
           * rng.standard_normal((K, L, D))) * dm[:, None]
@@ -498,9 +519,10 @@ def _ddi_state(dev, S, L=2, seed=0, sweep=5):
     return ms, chains, tabs
 
 
-def _assert_cache_kernel_exact(ms, ch, tabs, n_sweeps, **kw):
-    """The cached sweep kernel (K1e) against its twin on the card from the
-    same state: one launch, and every output bitwise equal."""
+def _assert_sweep_exact(ms, ch, tabs, n_sweeps, **kw):
+    """A sweep kernel (K1e, or K1 / K1c at a stateless shape) against its
+    twin on the card from the same state: one launch, and every output
+    bitwise equal."""
     args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
             ch.pkllim, ch.nreinit, tabs)
     kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=n_sweeps, adapt=True, **kw)
@@ -522,21 +544,21 @@ def test_ddi_cache_kernel_matches_twin_exactly(cuda, perm):
     sweep 5 (block moves at 10, 20, 30, 40; cache refreshes after 15, 31)
     equal to the twin run on the card, every output bit for bit."""
     ms, ch, tabs = _ddi_state(cuda, 4096)
-    _assert_cache_kernel_exact(ms, ch, tabs, 40, perm=perm)
+    _assert_sweep_exact(ms, ch, tabs, 40, perm=perm)
 
 
 def test_ddi_cache_kernel_at_the_largest_l(cuda):
     """K1e launches at L = kLMax = 32 and equals its twin (1024 chains x
     20 sweeps)."""
     ms, ch, tabs = _ddi_state(cuda, 1024, L=fused._MAX_L, seed=1)
-    _assert_cache_kernel_exact(ms, ch, tabs, 20)
+    _assert_sweep_exact(ms, ch, tabs, 20)
 
 
 def test_ddi_pooled_cache_kernel_matches_twin(cuda):
     """K1c with the DDI cache against the pooled twin on the card, 4096
     chains x 40 sweeps: every output bit for bit (one shared pk)."""
     ms, ch, tabs = _ddi_state(cuda, 4096, seed=2)
-    got = _assert_cache_kernel_exact(ms, ch, tabs, 40, pooled=True)
+    got = _assert_sweep_exact(ms, ch, tabs, 40, pooled=True)
     assert bool((got[3] == got[3][:, :1]).all())
 
 
@@ -571,3 +593,97 @@ def test_tutorial_sweep_kernel_registers(cuda):
         r"registers", log)]
     assert len(regs) == 8, regs             # 4 variants x K1 and K1c
     assert all(56 <= r <= 64 for r in regs), regs
+
+
+def test_changepoint_segment_log_rule_matches_twin_exactly(cuda):
+    """K2 with the log rule (K2-log) at (6, 13): 6 x 512 cpt chains, one
+    100-sweep segment (block moves after sweep 50), equal to its twin run
+    on the card in every output, the kernel's expf and the twin's
+    torch.exp included; the rates' sig comes down from 10."""
+    ms = changepoint.cpt_set()
+    theta, sig = _stage1_state(ms, 512, cuda, 10.0)
+    zi = torch.zeros(sig.shape, dtype=torch.int32, device=cuda)
+    kw = dict(C=512, sweep0=0, seed=777, nburn=50, n_active=100,
+              rule="log", log_gain=3.0)
+    before = fused_stage1.segment.launches
+    got = fused_stage1.segment(ms, theta, sig, zi, zi, **kw)
+    assert fused_stage1.segment.launches == before + 1
+    want = fused_stage1.segment_ref(ms, theta, sig, zi, zi, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert bool((got[1][:, :2] < 0.1).all())
+
+
+def test_changepoint_sweep_runner_log_rule_matches_twin(cuda):
+    """The K3 route with the log rule at (6, 13): 6 x 1024 cpt chains
+    (more than K2's one block holds), 30 stage-1 sweeps (+3 burn-in) of
+    ``run_fused_stage1_sweeps``, one K3 launch per sweep and the log
+    update between launches, against the same runner over the one-sweep
+    twin on the card: sig, samples, telemetry and logp bitwise equal."""
+    ms = changepoint.cpt_set()
+    assert not fused_stage1.fits_one_block(6, 13, 1024)
+    cfg = EngineConfig(seed=5, stage1_adapt="log")
+    init = ms.init_points(torch.Generator())
+    before = fused_stage1.sweep.launches
+    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 30, 1024, init, cuda)
+    assert fused_stage1.sweep.launches == before + 33
+    b = fused_stage1.run_fused_stage1_sweeps(
+        ms, cfg, 30, 1024, init, cuda, sweep_fn=fused_stage1.sweep_ref)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("variant", ["K1", "K1b", "K1c"])
+def test_changepoint_sweep_kernels_match_twin_exactly(cuda, variant):
+    """K1, K1b (perm) and K1c (pooled) at (6, 13): 4096 cpt chains x 40
+    sweeps from sweep 5 under a proposal at the posterior's scales, equal
+    to the twin run on the card in every output; chains jumped and
+    coordinate moves were accepted."""
+    ms, ch, tabs = _cpt_state(cuda, 4096)
+    got = _assert_sweep_exact(ms, ch, tabs, 40, perm=variant == "K1b",
+                              pooled=variant == "K1c")
+    if variant == "K1c":
+        assert bool((got[3] == got[3][:, :1]).all())     # one shared pk
+
+
+def test_changepoint_tables_bound_raises_before_launch(cuda):
+    """At (6, 13) the proposal tables of L = 28 components (238,816 bytes
+    with the static arrays) exceed one block's 227 KiB: the per-chain and
+    the pooled wrapper and pooled_capacity raise before any launch.  At
+    L = 27, the largest that fits, K1 launches and equals its twin."""
+    ms, ch, tabs = _cpt_state(cuda, 1024, L=28)
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit, tabs)
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.pooled_launches)
+    for pooled in (False, True):
+        with pytest.raises(ValueError, match="shared memory"):
+            fused.sweep_chunk(ms, *args, seed=3, sweep0=5, n_sweeps=2,
+                              adapt=True, pooled=pooled)
+    with pytest.raises(ValueError, match="at most L=27"):
+        fused.pooled_capacity(ms, 28, cuda)
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.pooled_launches) == before
+    ms, ch, tabs = _cpt_state(cuda, 1024, L=27, seed=1)
+    _assert_sweep_exact(ms, ch, tabs, 10)
+
+
+def test_changepoint_pooled_capacity(cuda):
+    """pooled_capacity at (6, 13) counts the kernel's registers and shared
+    memory: whole blocks of 128 on every SM, at least one block per SM at
+    L = 27 (its largest tables), never more at a larger L, and room at
+    L = 2 for the 16384 chains chip_smoke.py runs on K1c.  One chain above
+    it, K1c raises without a launch."""
+    ms = changepoint.cpt_set()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    caps = [fused.pooled_capacity(ms, L, cuda) for L in (2, 8, 27)]
+    assert all(c % (128 * sms) == 0 for c in caps), caps
+    assert caps[0] >= caps[1] >= caps[2] >= 128 * sms, caps
+    assert caps[0] >= 16384, caps
+    ms, ch, tabs = _cpt_state(cuda, caps[2] + 1, L=27)
+    before = fused.sweep_chunk.pooled_launches
+    with pytest.raises(ValueError, match="resident"):
+        fused.sweep_chunk(ms, ch.k, ch.theta.T.contiguous(), ch.logp,
+                          ch.pk.T.contiguous(), ch.pkllim, ch.nreinit, tabs,
+                          seed=1, sweep0=5, n_sweeps=2, adapt=True,
+                          pooled=True)
+    assert fused.sweep_chunk.pooled_launches == before

@@ -136,7 +136,7 @@ def test_cuda_tables_match_the_kernel_sources():
 
     from automix_tpu_torch.kernels import _build
     from automix_tpu_torch.model import N_DENSITY_CONSTS
-    from automix_tpu_torch.models import builtin, rb9, toy
+    from automix_tpu_torch.models import builtin, changepoint, rb9, toy
     src = (Path(_build.__file__).parents[1] / "csrc" / "common.cuh"
            ).read_text()
     import re
@@ -148,11 +148,12 @@ def test_cuda_tables_match_the_kernel_sources():
     assert re.search(r"#define AM_N_CONSTS (\d+)", src).group(1) == \
         str(N_DENSITY_CONSTS)
     kinds = dict(re.findall(r"#define AM_KIND_(\w+) (\d+)", src))
-    for mod in (builtin, toy, rb9):
+    for mod in (builtin, toy, rb9, changepoint):
         for name in dir(mod):
             if name.startswith("KIND_"):
                 assert kinds[name[5:]] == str(getattr(mod, name)), name
-    for ms in [_set_pair(name)[1] for name in _SETS] + [rb9.rb9_set()]:
+    for ms in [_set_pair(name)[1] for name in _SETS] + [
+            rb9.rb9_set(), changepoint.cpt_set(), changepoint.cptrs_set()]:
         assert (ms.nmodels, ms.dmax) in _build.SHAPES
         kinds_t, consts, dims = ms.density_table("cpu")
         assert consts.shape == (ms.nmodels, N_DENSITY_CONSTS)

@@ -62,7 +62,8 @@ def test_import_leaves_jax_out():
             "automix_tpu_torch.models.builtin, "
             "automix_tpu_torch.models.rb9, automix_tpu_torch.models.ddi, "
             "automix_tpu_torch.models.ddi_cols, "
-            "automix_tpu_torch.models.ddi_stats; "
+            "automix_tpu_torch.models.ddi_stats, "
+            "automix_tpu_torch.models.changepoint; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
@@ -85,11 +86,12 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 def test_config_defaults_match_jax():
     """Every field the port's EngineConfig honours has the JAX default,
     the trace fields included (trace_chain0=True, trace_every=1,
-    n_trace_chains=8) and pk_mode ("per_chain")."""
+    n_trace_chains=8), pk_mode ("per_chain") and the stage-1 rule
+    (stage1_adapt="aap", stage1_log_gain=3.0)."""
     port, ref = EngineConfig(), JaxConfig()
     names = [f.name for f in dataclasses.fields(EngineConfig)]
     assert {"trace_chain0", "trace_every", "n_trace_chains",
-            "pk_mode"} <= set(names)
+            "pk_mode", "stage1_adapt", "stage1_log_gain"} <= set(names)
     for name in names:
         if name == "dtype":
             assert str(port.dtype) == f"torch.{np.dtype(ref.dtype).name}"
@@ -99,12 +101,12 @@ def test_config_defaults_match_jax():
 
 @pytest.mark.parametrize("knob", [dict(student_t_dof=3, within_move="hmc"),
                                   dict(within_move="hmc"),
-                                  dict(mix_fit="autorj", stage1_adapt="log"),
-                                  dict(stage1_adapt="log"),
+                                  dict(mix_fit="autorj", within_move="hmc"),
+                                  dict(stage1_adapt="log", within_move="hmc"),
                                   dict(dtype=torch.float64)])
 def test_unported_knobs_raise(knob):
-    """HMC, the log stage-1 rule and float64 are not ported: each raises,
-    alone or beside a ported knob."""
+    """HMC and float64 are not ported: each raises, alone or beside a
+    ported knob (the log stage-1 rule among them)."""
     with pytest.raises(NotImplementedError):
         EngineConfig(**knob)
 
@@ -114,7 +116,10 @@ def test_unported_knobs_raise(knob):
                                   dict(trace_chain0=False),
                                   dict(perm=True, pk_mode="pooled"),
                                   dict(pk_mode="pooled"),
-                                  dict(trace_every=4, pk_mode="pooled")])
+                                  dict(trace_every=4, pk_mode="pooled"),
+                                  dict(stage1_adapt="log"),
+                                  dict(stage1_adapt="log",
+                                       stage1_log_gain=1.5)])
 def test_ported_knobs_accepted(knob):
     cfg = EngineConfig(**knob)
     for name, value in knob.items():
@@ -123,7 +128,8 @@ def test_ported_knobs_accepted(knob):
 
 @pytest.mark.parametrize("knob", [dict(trace_every=0),
                                   dict(student_t_dof=-1),
-                                  dict(mix_fit="em")])
+                                  dict(mix_fit="em"),
+                                  dict(stage1_adapt="exp")])
 def test_invalid_knobs_raise_as_in_jax(knob):
     with pytest.raises(ValueError):
         EngineConfig(**knob)

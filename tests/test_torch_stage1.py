@@ -30,19 +30,22 @@ def test_schedule_matches_jax():
             jstage1._schedule(jcfg, n, c, 2)
 
 
-def test_run_fused_stage1_matches_jax_interpret():
-    """Tutorial, C=64 chains per model, 200 sweeps (+20 burn-in).  The
-    words are bitwise equal and the integer accept counts make the pooled
-    sig update exact, so trajectories agree except where CPU torch and
-    XLA:CPU log/exp/cos differ by an ulp at a marginal accept.  Checked:
-    every chain's final theta within 1e-4 on at least 95% of chains (on
-    this CPU all agree, to 7e-6), the adapted sig within 1e-5 relative
-    (seen: 7e-7 absolute), the samples' moments within 2%."""
-    jcfg = JaxConfig(seed=SEED, fused_stage1="on")
+@pytest.mark.parametrize("rule", ["aap", "log"])
+def test_run_fused_stage1_matches_jax_interpret(rule):
+    """Tutorial, C=64 chains per model, 200 sweeps (+20 burn-in), with
+    the AAP or the log rule (JAX's in-kernel update of
+    fused_stage1.py:669-673).  The words are bitwise equal and the
+    integer accept counts make the pooled sig update exact, so
+    trajectories agree except where CPU torch and XLA:CPU log/exp/cos
+    differ by an ulp at a marginal accept.  Checked: every chain's final
+    theta within 1e-4 on at least 95% of chains (on this CPU all agree,
+    to 7e-6), the adapted sig within 1e-5 relative (seen: 7e-7
+    absolute), the samples' moments within 2%."""
+    jcfg = JaxConfig(seed=SEED, fused_stage1="on", stage1_adapt=rule)
     init = np.asarray(jtutorial.tutorial_set().init_points(None))
     want = [np.asarray(x) for x in jstage1.run_fused_stage1(
         jtutorial.tutorial_set(), jcfg, NSWEEPS, C, jnp.asarray(init))]
-    cfg = EngineConfig(seed=SEED)
+    cfg = EngineConfig(seed=SEED, stage1_adapt=rule)
     got = [x.numpy() for x in fused_stage1.run_fused_stage1(
         tutorial.tutorial_set(), cfg, NSWEEPS, C, torch.tensor(init),
         "cpu")]
@@ -106,7 +109,15 @@ _TOY_INIT = {"toy1": np.array([[0.3, 0.0], [0.2, 0.6]], np.float32),
 
 
 def _toy_sets(name):
+    if name == "tutorial":
+        return jtutorial.tutorial_set(), tutorial.tutorial_set()
     return getattr(jtoy, f"{name}_set")(), getattr(toy, f"{name}_set")()
+
+
+def _init(name):
+    if name == "tutorial":
+        return np.asarray(jtutorial.tutorial_set().init_points(None))
+    return _TOY_INIT[name]
 
 
 def _agree_with_jax(got, want):
@@ -140,21 +151,27 @@ def test_segment_ref_student_t_matches_jax_interpret():
     assert np.all(got[1][0, :, 1:] == 0.0)        # model 1 lacks coord 1
 
 
-@pytest.mark.parametrize("name,dof", [("toy2", 0), ("toy1", 5)])
-def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof):
+@pytest.mark.parametrize("name,dof,rule", [
+    pytest.param("toy2", 0, "aap", id="toy2-0"),
+    pytest.param("toy1", 5, "aap", id="toy1-5"),
+    pytest.param("tutorial", 0, "log", id="tutorial-0-log")])
+def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof,
+                                                              rule):
     """The one-sweep runner (K3's twin plus the pooled update between
-    sweeps) against JAX ``run_fused_stage1_sharded`` on a 1-device CPU
-    mesh, with the tolerances of the segment runner's JAX test, and
-    BITWISE against the port's own segment runner: same sig, samples,
-    telemetry and logp."""
+    sweeps, the log rule's as JAX's seg_fn applies it outside its kernel,
+    fused_stage1.py:239-243) against JAX ``run_fused_stage1_sharded`` on
+    a 1-device CPU mesh, with the tolerances of the segment runner's JAX
+    test, and BITWISE against the port's own segment runner (the rule in
+    its kernel's twin): same sig, samples, telemetry and logp."""
     from automix_tpu.parallel import mesh as mesh_lib
-    init = _TOY_INIT[name]
+    init = _init(name)
     jms, ms = _toy_sets(name)
     nsweeps = 120
-    jcfg = JaxConfig(seed=SEED, fused_stage1="on", student_t_dof=dof)
+    jcfg = JaxConfig(seed=SEED, fused_stage1="on", student_t_dof=dof,
+                     stage1_adapt=rule)
     want = [np.asarray(x) for x in jstage1.run_fused_stage1_sharded(
         jms, jcfg, nsweeps, C, jnp.asarray(init), mesh_lib.make_mesh(1))]
-    cfg = EngineConfig(seed=SEED, student_t_dof=dof)
+    cfg = EngineConfig(seed=SEED, student_t_dof=dof, stage1_adapt=rule)
     args = (ms, cfg, nsweeps, C, torch.tensor(init), "cpu")
     got = fused_stage1.run_fused_stage1_sweeps(*args)
     seg = fused_stage1.run_fused_stage1(*args)
