@@ -20,8 +20,9 @@
 // sees one read and one write of the state per chunk.  The proposal tables
 // (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5,
 // L = 32) are copied to shared memory once per block; at the change-point
-// shape (6, 13) they take 312 + 8496 L bytes, so the wrappers refuse an L
-// above 27 before any launch (kernels/fused.py check_tables).  The chunk
+// shape (6, 13) they take 312 + 8496 L bytes, so L stops at 27 on the H100:
+// the wrappers ask AM_K1_MAXL_SYMBOL and refuse a larger L before any launch
+// (kernels/fused.py check_tables).  The chunk
 // sums (K visit counts, 2*K*D theta sums) stay in registers too, and a
 // sweep adds to its own model's entries only (the twin's 0 * theta
 // additions are exact).  At rb9's K*D = 50 that takes K1 to 232-250 registers with no
@@ -106,6 +107,9 @@
 #endif
 #ifndef AM_K1C_CAP_SYMBOL
 #define AM_K1C_CAP_SYMBOL am_fused_sweep_pooled_cap_p0_t0
+#endif
+#ifndef AM_K1_MAXL_SYMBOL
+#define AM_K1_MAXL_SYMBOL am_fused_sweep_max_l_p0_t0
 #endif
 
 namespace {
@@ -655,6 +659,27 @@ int pooled_capacity(int L, int* chains) {
   return 0;
 }
 
+// The largest L a launch of the kernel takes on the current device: its
+// dynamic tables (sweep_smem) and static arrays within one block's opt-in
+// shared memory, up to kLMax.
+template <int K, int D, bool kPooled>
+int max_l(int* L) {
+  cudaFuncAttributes fa;
+  cudaError_t e =
+      cudaFuncGetAttributes(&fa, fused_sweep_kernel<K, D, kPooled>);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, optin = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  int l = kLMax;
+  while (l > 0 && fa.sharedSizeBytes + sweep_smem<K, D>(l) > (size_t)optin)
+    --l;
+  *L = l;
+  return 0;
+}
+
 template <int K, int D, bool kPooled>
 int launch_sweep(SweepArgs a, cudaStream_t st) {
   cudaError_t e = set_smem<K, D, kPooled>(a.L);
@@ -761,6 +786,17 @@ extern "C" int AM_K1C_SYMBOL(
                  (int*)nri_out, (int*)ks_out, (float*)ts_out,
                  (float*)tq_out, (int*)cnt_out};
   return dispatch<true>(K, D, a, (cudaStream_t)stream);
+}
+
+// The largest L the per-chain (pooled = 0) or the pooled kernel takes at
+// (K, D) on the current device, in ``L``; -1 without an instantiation.
+extern "C" int AM_K1_MAXL_SYMBOL(int K, int D, int pooled, int* L) {
+#define AM_CASE(k, d) \
+  if (K == k && D == d) \
+    return pooled ? max_l<k, d, true>(L) : max_l<k, d, false>(L);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
 }
 
 // Chains K1c can hold resident at (K, D, L) on the current device.

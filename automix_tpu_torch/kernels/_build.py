@@ -65,8 +65,9 @@ def generated_headers() -> dict:
 
 def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
     """Exported name of a stage-3 sweep function of one variant: the
-    per-chain launcher (``kind=""``), the pooled launcher (``"pooled"``)
-    or the pooled capacity query (``"pooled_cap"``)."""
+    per-chain launcher (``kind=""``), the pooled launcher (``"pooled"``),
+    the pooled capacity query (``"pooled_cap"``) or the largest-L query
+    (``"max_l"``)."""
     infix = f"_{kind}" if kind else ""
     return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
 
@@ -77,7 +78,8 @@ _UNITS = tuple(
                         f"-DAM_K1_SYMBOL={sweep_symbol(p, t)}",
                         f"-DAM_K1C_SYMBOL={sweep_symbol(p, t, 'pooled')}",
                         "-DAM_K1C_CAP_SYMBOL="
-                        f"{sweep_symbol(p, t, 'pooled_cap')}"))
+                        f"{sweep_symbol(p, t, 'pooled_cap')}",
+                        f"-DAM_K1_MAXL_SYMBOL={sweep_symbol(p, t, 'max_l')}"))
     for p in (0, 1) for t in (0, 1)) + (
     ("fused_stage1.cu", ()),
     ("fused_stage1_sweep.cu", ()),
@@ -97,8 +99,8 @@ _SIGNATURES = {
     **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
        + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled_cap"): [_I, _I, _I, _P]
-       for p in (0, 1) for t in (0, 1)},
+    **{sweep_symbol(p, t, kind): [_I, _I, _I, _P]
+       for p in (0, 1) for t in (0, 1) for kind in ("pooled_cap", "max_l")},
     "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
     "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]

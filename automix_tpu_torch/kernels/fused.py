@@ -28,8 +28,9 @@ one-sweep launches rebuild it every sweep.  Burn-in and ``adapt=False``
 runs keep the per-chunk kernel, pk being frozen.
 
 The stateless form copies the proposal tables into each block's shared
-memory, so their size bounds L: at the change-point shape (6, 13) the
-wrappers refuse L > 27 before any launch (:func:`check_tables`).
+memory, so their size bounds L: at the change-point shape (6, 13) on the
+H100 the wrappers refuse L > 27 before any launch (:func:`check_tables`
+asks the kernel's launcher).
 
 Chain i draws its words at hash counters i * NW + slot, which is the JAX
 kernel's chain_id for the flat chain index.  The slots follow the JAX
@@ -48,12 +49,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
 from automix_tpu_torch.config import EngineConfig, LOG_ACCEPT_CLAMP, NEG_INF
 from automix_tpu_torch.kernels import _build
-from automix_tpu_torch.model import N_DENSITY_CONSTS, make_density
+from automix_tpu_torch.model import make_density
 from automix_tpu_torch.ops import linalg, randoms
 from automix_tpu_torch.state import Chains, Proposal
 
@@ -391,33 +393,35 @@ def check_form(modelset):
             f"{'cached (DDI)' if cached else 'stateless'} form")
 
 
-def table_smem(K: int, D: int, L: int) -> int:
-    """Bytes of shared memory one block of the stateless sweep kernel
-    needs at L: the proposal tables (``csrc/fused_sweep.cu`` sweep_smem)
-    and, an upper bound, its static arrays (consts [K *
-    N_DENSITY_CONSTS], kinds, dims and hist [K], 16 bytes of alignment
-    each).  The cached form reads its tables from device memory."""
-    KL = K * L
-    tables = 4 * (K * D + 3 * KL + KL * D + 2 * KL * D * D)
-    return tables + 4 * (K * N_DENSITY_CONSTS + 3 * K) + 16 * 4
+@functools.lru_cache(maxsize=None)
+def _max_l(K: int, D: int, perm: bool, tdist: bool, pooled: bool,
+           device: int) -> int:
+    """The largest L the sweep kernel's launcher takes at (K, D) on the
+    card ``device``, as the kernel counts its shared memory."""
+    L = ctypes.c_int()
+    symbol = _build.sweep_symbol(perm, tdist, "max_l")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            K, D, int(pooled), ctypes.byref(L)), symbol)
+    return L.value
 
 
-def check_tables(K: int, D: int, L: int):
-    """Raise, before any launch, unless the sweep kernel holds the
-    proposal tables of L components at (K, D): within kLMax and, in the
-    stateless form, within one block's shared memory (at the change-point
-    shape (6, 13), L <= 27)."""
+def check_tables(K: int, D: int, L: int, device, perm: bool = False,
+                 tdist: bool = False, pooled: bool = False):
+    """Raise, before any launch on the card ``device``, unless the sweep
+    kernel holds the proposal tables of L components at (K, D): within
+    kLMax and, in the stateless form, within one block's shared memory
+    (at the change-point shape (6, 13) on the H100, L <= 27)."""
     if not 1 <= L <= _MAX_L:
         raise ValueError(f"sweep_chunk: L={L} outside 1..{_MAX_L}")
-    cap = _build.MAX_SMEM
-    if (K, D) != _build.CACHED_SHAPE and table_smem(K, D, L) > cap:
-        fit = max(n for n in range(1, _MAX_L + 1)
-                  if table_smem(K, D, n) <= cap)
+    index = torch.device(device).index
+    fit = _max_l(K, D, perm, tdist, pooled, torch.cuda.current_device()
+                 if index is None else index)
+    if L > fit:
         raise ValueError(
             f"sweep_chunk: the proposal tables of L={L} components at "
-            f"K={K}, D={D} need {table_smem(K, D, L)} bytes of shared "
-            f"memory, more than one block's {cap}; the sweep kernel holds "
-            f"at most L={fit} here (EngineConfig.max_mix_comps)")
+            f"K={K}, D={D} do not fit one block's shared memory; the sweep "
+            f"kernel holds at most L={fit} here (EngineConfig.max_mix_comps)")
 
 
 def pooled_capacity(modelset, L: int, device, perm: bool = False,
@@ -429,7 +433,7 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
     K, D = modelset.nmodels, modelset.dmax
     _build.check_shape(K, D, "pooled_capacity")
     check_form(modelset)
-    check_tables(K, D, L)
+    check_tables(K, D, L, device, perm, tdist is not None, pooled=True)
     chains = ctypes.c_int()
     symbol = _build.sweep_symbol(perm, tdist is not None, "pooled_cap")
     with torch.cuda.device(device):
@@ -465,7 +469,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     if dev.type != "cuda":
         raise ValueError(f"sweep_chunk: unsupported device {dev}")
     _build.check_shape(K, D, "sweep_chunk")
-    check_tables(K, D, L)
+    check_tables(K, D, L, dev, perm, tdist is not None, pooled)
     f32, i32 = torch.float32, torch.int32
     for name, x, dtype, shape in (
             ("k", k, i32, (S,)), ("theta", theta, f32, (D, S)),

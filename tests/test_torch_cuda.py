@@ -665,6 +665,11 @@ def test_changepoint_tables_bound_raises_before_launch(cuda):
             fused.sweep_chunk.pooled_launches) == before
     ms, ch, tabs = _cpt_state(cuda, 1024, L=27, seed=1)
     _assert_sweep_exact(ms, ch, tabs, 10)
+    # every other shape holds kLMax components in both forms
+    for K, D in _build.SHAPES:
+        for pooled in (False, True):
+            if (K, D) != (6, 13):
+                fused.check_tables(K, D, fused._MAX_L, cuda, pooled=pooled)
 
 
 def test_changepoint_pooled_capacity(cuda):
