@@ -2,8 +2,11 @@
 
 The three AutoMix stages (stage-1 adaptive RWM, stage-2 EM, stage-3
 reversible-jump sweeps, with perm and Student-t options) run through
-three hand-written CUDA kernels on an NVIDIA H100 (``csrc/``), with
-plain PyTorch twins that run on the CPU.  The CLI
+hand-written CUDA kernels on an NVIDIA H100 (``csrc/``) for model sets
+with compiled CUDA densities, and through the general engine (plain
+PyTorch on the same device, with the K4 draw kernel) for any other set,
+a user's per-theta ``logp`` models among them.  Every kernel has a plain
+PyTorch twin that runs on the CPU.  The CLI
 (``python -m automix_tpu_torch.cli``) drives them on the tutorial, toy
 and builtin problems and writes the reference's report files.  This
 package never imports JAX or ``automix_tpu``.

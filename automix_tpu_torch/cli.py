@@ -1,14 +1,19 @@
 """Command-line entry point of the port: the counterpart of the reference CLI.
 
 Counterpart of ``automix_tpu/cli.py``, with the same flags and defaults
-(-m/-N/-n/-a/-p/-s/-t/-b/-f, --chains, --chains-stage1, --trace-every,
---no-reports, --checkpoint-every, --resume).  ``--device`` (cuda or cpu,
-default cuda) takes the place of ``--platform``; without CUDA,
-``--device cuda`` raises.  The JAX engine switches (--fused,
---fused-stage1) have no counterpart: the port always runs its kernels,
-so traces default to every 16th sweep.
+(-m/-N/-n/-a/-p/-s/-t/-b/-f, --chains, --chains-stage1, --fused,
+--fused-stage1, --trace-every, --no-reports, --checkpoint-every,
+--resume).  ``--device`` (cuda or cpu, default cuda) takes the place of
+``--platform``; without CUDA, ``--device cuda`` raises.  ``--fused`` and
+``--fused-stage1`` (auto, on, off) pick between the CUDA kernels and the
+general engine as ``EngineConfig``'s fields do.  Traces default to every
+16th sweep where the stage-3 kernels can serve the problem (their traced
+runs launch one chunk per trace entry), else to every sweep, as JAX's CLI
+decides.  A problem is a built-in name or ``module:function`` returning a
+ModelSet, its models given as column or per-theta densities:
 
     python -m automix_tpu_torch.cli toy2 --chains 131072 -N 20000 -s 1
+    python -m automix_tpu_torch.cli examples.model_selection_torch:model_set
 
 Modes (-m): 0 = full pipeline with mixture fitting, 1 = resume stage 3
 from a ``<f>_mix.data`` proposal file, 2 = AutoRJ single-Normal fit.
@@ -17,6 +22,7 @@ from a ``<f>_mix.data`` proposal file, 2 = AutoRJ single-Normal fit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import os
 import sys
@@ -86,8 +92,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chains", type=int, default=4096,
                    help="parallel stage-3 chains")
     p.add_argument("--chains-stage1", type=int, default=2048)
-    p.add_argument("--trace-every", type=int, default=16,
-                   help="record traces every Nth sweep (1 = every sweep)")
+    p.add_argument("--fused", default="auto", choices=("auto", "on", "off"),
+                   help="stage-3 engine: auto takes the CUDA kernels where "
+                        "they serve the problem, else the general engine; "
+                        "on forces the kernels (raises where they cannot); "
+                        "off the general engine")
+    p.add_argument("--fused-stage1", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="stage-1 engine, as --fused")
+    p.add_argument("--trace-every", type=int, default=None,
+                   help="record traces every Nth sweep (1 = every sweep). "
+                        "Default: 16 when the stage-3 kernels can serve "
+                        "the problem, else 1")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the kernels (raises without CUDA); cpu "
                         "runs their plain PyTorch versions")
@@ -110,6 +126,7 @@ def main(argv=None):
     from automix_tpu_torch.config import (AUTORJ_MIX_FIT, EngineConfig,
                                           FIGUEIREDO_MIX_FIT)
     from automix_tpu_torch.io import mixfile, reports
+    from automix_tpu_torch.kernels import _build
     from automix_tpu_torch.sampler import AMSampler
 
     t0 = time.perf_counter()
@@ -126,11 +143,17 @@ def main(argv=None):
         mix_fit=AUTORJ_MIX_FIT if args.mode == 2 else FIGUEIREDO_MIX_FIT,
         n_chains=args.chains,
         n_chains_stage1=args.chains_stage1,
-        trace_every=args.trace_every,
+        fused=args.fused,
+        fused_stage1=args.fused_stage1,
+        trace_every=args.trace_every or 1,
     )
     modelset = _resolve_problem(args.problem)()
-    if args.trace_every > 1:
-        print(f"Tracing every {args.trace_every}th sweep (pass "
+    if args.trace_every is None and args.fused != "off" and all(
+            m.cuda is not None for m in modelset.models) and (
+            modelset.nmodels, modelset.dmax) in _build.SHAPES:
+        cfg = dataclasses.replace(cfg, trace_every=16)
+    if cfg.trace_every > 1:
+        print(f"Tracing every {cfg.trace_every}th sweep (pass "
               f"--trace-every 1 for per-sweep traces).")
     am = AMSampler(modelset, cfg, device=args.device)
 

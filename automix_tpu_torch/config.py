@@ -5,9 +5,15 @@ numbers, and every knob the port honours has the JAX default.  The knob
 that selects a path the port has not ported yet (HMC) is rejected with
 ``NotImplementedError``.
 
-The port has a single engine: the semantics of the JAX package's fused
-kernels in their counter-hash (``fused_rng="hash"``) mode.  There is no
-``fused`` / ``fused_rng`` / ``fused_stage1`` / ``rng`` switch.
+The port has two engines: the CUDA kernels, with the semantics of the
+JAX package's fused kernels in their counter-hash (``fused_rng="hash"``)
+mode, and the general engine in plain torch (``kernels/rjmcmc.py``,
+``kernels/rwm.py``).  ``fused`` and ``fused_stage1`` ("auto", "on",
+"off") select between them for stage 3 and stage 1 (``AMSampler``'s
+engine rule); ``rng`` ("auto", "fast", "pallas") selects the general
+engine's stream.  JAX's ``threefry`` stream is not ported: ``rng=
+"threefry"`` raises ``NotImplementedError``, and so does a Student-t run
+that reaches the general engine (JAX sends it to threefry).
 """
 
 from __future__ import annotations
@@ -51,6 +57,11 @@ _UNPORTED = {
 # sig = 10).
 STAGE1_RULES = ("aap", "log")
 
+# Engine switches and the general engine's streams (automix_tpu/config.py
+# fused, fused_stage1, rng).
+ENGINE_SWITCHES = ("auto", "on", "off")
+RNG_MODES = ("auto", "fast", "pallas")
+
 # Stage-3 pk adaptation scopes (automix_tpu/config.py pk_mode): every chain
 # adapts its own pk, or one shared pk adapts from the population's visit
 # histogram (automix.c:1258-1281).
@@ -82,6 +93,9 @@ class EngineConfig:
     chunk_flush_every: int        # chunks kept on the device between flushes
     trace_chain0: bool            # record chain 0's traces by default
     trace_every: int              # sweeps between trace records
+    rng: str                      # general engine's stream: auto/fast/pallas
+    fused: str                    # stage-3 engine: auto/on/off (kernels)
+    fused_stage1: str             # stage-1 engine: auto/on/off (kernels)
     dtype: torch.dtype
 
     def __init__(self, seed: int = 0, adapt: bool = True,
@@ -93,8 +107,9 @@ class EngineConfig:
                  stage1_adapt: str = "aap", stage1_log_gain: float = 3.0,
                  sweep_chunk: int = 1000, n_trace_chains: int = 8,
                  chunk_flush_every: int = 8, trace_chain0: bool = True,
-                 trace_every: int = 1, dtype: torch.dtype = torch.float32,
-                 **unported):
+                 trace_every: int = 1, rng: str = "auto",
+                 fused: str = "auto", fused_stage1: str = "auto",
+                 dtype: torch.dtype = torch.float32, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unknown EngineConfig field {name!r}")
@@ -108,6 +123,21 @@ class EngineConfig:
             raise ValueError(f"unknown mix_fit {mix_fit!r}")
         if stage1_adapt not in STAGE1_RULES:
             raise ValueError(f"unknown stage1_adapt {stage1_adapt!r}")
+        if fused not in ENGINE_SWITCHES:
+            raise ValueError(f"unknown fused {fused!r}")
+        if fused_stage1 not in ENGINE_SWITCHES:
+            raise ValueError(f"unknown fused_stage1 {fused_stage1!r}")
+        if rng == "threefry":
+            raise NotImplementedError(
+                "rng='threefry' is not ported to automix_tpu_torch (only "
+                "'auto', 'fast' and 'pallas')")
+        if rng not in RNG_MODES:
+            raise ValueError(f"unknown rng {rng!r}")
+        if rng in ("fast", "pallas") and student_t_dof > 0:
+            raise ValueError(
+                f"rng={rng!r} draws Gaussian perturbations and cannot be "
+                "combined with student_t_dof > 0; use rng='auto' for "
+                "Student-t runs")
         if dtype != torch.float32:
             raise NotImplementedError("the port runs float32 only")
         if n_chains < 1:
@@ -130,6 +160,7 @@ class EngineConfig:
                       n_trace_chains=n_trace_chains,
                       chunk_flush_every=chunk_flush_every,
                       trace_chain0=trace_chain0, trace_every=trace_every,
+                      rng=rng, fused=fused, fused_stage1=fused_stage1,
                       dtype=dtype)
         for name, value in fields.items():
             object.__setattr__(self, name, value)

@@ -49,6 +49,17 @@ def chains_from_numpy(k, theta, logp, pk, pkllim, nreinit, sweep,
                   sweep=int(np.asarray(sweep)))
 
 
+def chains_from_arrays(chains, device="cpu") -> Chains:
+    """Chains from any object whose k, theta, logp, pk, pkllim, nreinit
+    and sweep attributes convert to numpy arrays (a JAX ``Chains``; its
+    per-chain PRNG ``key`` is dropped, the port's words being hashes of
+    (seed, sweep, chain, slot))."""
+    return chains_from_numpy(
+        **{f: np.asarray(getattr(chains, f)) for f in
+           ("k", "theta", "logp", "pk", "pkllim", "nreinit", "sweep")},
+        device=device)
+
+
 def stage1_state_from_numpy(theta, sig, nacc, ntry, C: int, device="cpu"):
     """Stage-1 segment state from the JAX kernel's lane tiles (theta, sig,
     nacc, ntry each [D, 8, W] with K*C = 8*W lanes) to the port's

@@ -83,6 +83,7 @@ _UNITS = tuple(
     for p in (0, 1) for t in (0, 1)) + (
     ("fused_stage1.cu", ()),
     ("fused_stage1_sweep.cu", ()),
+    ("sweep_rng.cu", ()),
 )
 
 _lock = threading.Lock()
@@ -106,6 +107,7 @@ _SIGNATURES = {
     "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P],
     "am_fused_stage1_smem": [_I, _I, _I, _P, _P],
+    "am_sweep_rng": [_I, _I, _I, _I, _U, _U, _I, _P, _P, _P],
 }
 
 

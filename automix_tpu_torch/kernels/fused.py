@@ -424,6 +424,44 @@ def check_tables(K: int, D: int, L: int, device, perm: bool = False,
             f"kernel holds at most L={fit} here (EngineConfig.max_mix_comps)")
 
 
+def eligible(modelset, cfg: EngineConfig, L: int, device):
+    """(True, why) when the stage-3 kernels serve the model set at
+    proposal size L on ``device``, else (False, why not); the counterpart
+    of JAX's ``fused_eligible``.  The kernels serve it when ``fused`` is
+    not "off", every model has a CUDA density, the kernels are
+    instantiated at its (K, D) in the density's form (:func:`check_form`)
+    and L is within what the sweep kernel's launcher holds there (on the
+    CPU, where the twins run, within kLMax).  ``fused="on"`` raises where
+    they do not serve it."""
+    K, D = modelset.nmodels, modelset.dmax
+    missing = [m.name for m in modelset.models if m.cuda is None]
+    ok = False
+    if cfg.fused == "off":
+        why = "fused='off'"
+    elif missing:
+        why = f"models {missing} have no CUDA density"
+    elif (K, D) not in _build.SHAPES:
+        why = f"no kernel instantiation at (K, D) = ({K}, {D})"
+    else:
+        try:
+            check_form(modelset)
+            dev = torch.device(device)
+            if dev.type == "cuda":
+                tdist = cfg.student_t_dof > 0
+                for pooled in {False, cfg.pk_mode == "pooled" and K > 1}:
+                    check_tables(K, D, L, dev, cfg.perm, tdist, pooled)
+            elif not 1 <= L <= _MAX_L:
+                raise ValueError(f"L={L} outside 1..{_MAX_L}")
+            ok, why = True, (f"every model has a CUDA density at (K, D) = "
+                             f"({K}, {D}), L = {L}")
+        except ValueError as err:
+            why = str(err)
+    if cfg.fused == "on" and not ok:
+        raise ValueError(f"fused='on', but the stage-3 kernels cannot serve "
+                         f"this model set: {why}")
+    return ok, why
+
+
 def pooled_capacity(modelset, L: int, device, perm: bool = False,
                     tdist=None) -> int:
     """Chains the pooled kernel (K1c) can hold resident on the card at

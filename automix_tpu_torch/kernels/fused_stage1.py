@@ -64,6 +64,28 @@ def static_smem_bound(K: int, D: int) -> int:
     return 4 * (4 * K * D + K * N_DENSITY_CONSTS + 2 * K) + 16 * 7
 
 
+def stage1_eligible(modelset, cfg: EngineConfig):
+    """(True, why) when the stage-1 kernels serve the model set, else
+    (False, why not): ``fused_stage1`` is not "off", every model has a
+    CUDA density, and the kernels are instantiated at its (K, D).
+    ``fused_stage1="on"`` raises where they do not serve it."""
+    K, D = modelset.nmodels, modelset.dmax
+    missing = [m.name for m in modelset.models if m.cuda is None]
+    if cfg.fused_stage1 == "off":
+        ok, why = False, "fused_stage1='off'"
+    elif missing:
+        ok, why = False, f"models {missing} have no CUDA density"
+    elif (K, D) not in _build.SHAPES:
+        ok, why = False, f"no kernel instantiation at (K, D) = ({K}, {D})"
+    else:
+        ok, why = True, (f"every model has a CUDA density at (K, D) = "
+                         f"({K}, {D})")
+    if cfg.fused_stage1 == "on" and not ok:
+        raise ValueError(f"fused_stage1='on', but the stage-1 kernels "
+                         f"cannot serve this model set: {why}")
+    return ok, why
+
+
 def fits_one_block(K: int, D: int, C: int) -> bool:
     """True when the segment kernel's one block holds all K*C chains:
     theta and logp of each, (D + 1) * 4 bytes, beside the static arrays."""

@@ -1,33 +1,151 @@
-"""Stage 1 entry point: adaptive within-model RWM for every model at once.
+"""Stage 1: adaptive within-model RWM for every model at once.
 
-Counterpart of ``run_stage1`` in ``automix_tpu/kernels/rwm.py`` (its fused
-branch, the only engine the port has): C chains per model for all K
-models run the pooled-adaptation segments of ``fused_stage1``; their
-thinned tail snapshots feed the stage-2 fit.  A population that fits the
-segment kernel's one block runs one segment kernel per segment, a larger
-one the one-sweep kernel per sweep (``fused_stage1.fits_one_block``).
+Counterpart of ``automix_tpu/kernels/rwm.py``: ``run_stage1`` routes the
+run to the kernels of ``fused_stage1`` or to the general engine's scan
+(``_build_stage1_core`` of the JAX package), by
+``fused_stage1.stage1_eligible``.
+
+On the kernels, the K*C chains (C per model) run the pooled-adaptation
+segments of ``fused_stage1``: one segment kernel per segment when the
+segment kernel's one block holds the population, else the one-sweep
+kernel per sweep (``fused_stage1.fits_one_block``).
+
+The general engine (:func:`run_general_stage1`) runs the same schedule as
+a plain torch loop over sweeps on the chains' device, for any model set:
+pooled integer acceptance counts per (model, coordinate), the AAP or log
+rule, after burn-in a batch-wide block move on 10% of sweeps, telemetry
+every 100 sweeps and ``n_tail`` thinned snapshots of every chain, laid
+out chain-major.  JAX draws this scan's words from threefry, which the
+port does not have; here they come from the counter hash
+(``randoms.fast_sweep_randoms`` at the stage-1 seed, per (sweep, chain,
+slot)), so the port's CPU and card runs draw the same words and the scan
+is held to JAX statistically.
 """
 
 from __future__ import annotations
 
+import logging
+
+import numpy as np
 import torch
 
-from automix_tpu_torch.config import EngineConfig
-from automix_tpu_torch.kernels import fused_stage1
+from automix_tpu_torch.config import EngineConfig, RWM_TARGET_ACCEPT
+from automix_tpu_torch.kernels import fused_stage1, rjmcmc
+from automix_tpu_torch.kernels.fused_stage1 import _accept
+from automix_tpu_torch.ops import randoms
+
+TELEMETRY_EVERY = 100
+
+
+def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
+                       init_theta, device, n_tail: int = 1):
+    """The general engine's stage 1 over K*C chains on ``device``.
+    Returns (sig [K, D], samples [K, C * n_tail, D], tele_sig and
+    tele_acc [n_tele, K, D] on the CPU, final logp [K, C])."""
+    if cfg.student_t_dof > 0:
+        raise NotImplementedError(
+            "Student-t perturbations on the general engine's stage 1 draw "
+            "from JAX's threefry stream, which is not ported; Student-t "
+            "runs on the stage-1 kernels (a model set with CUDA densities)")
+    K, D = modelset.nmodels, modelset.dmax
+    M = K * C
+    f32 = torch.float32
+    nburn = nsweeps // 10
+    total = nsweeps + nburn
+    n_tail = max(1, min(n_tail, max(1, (total - nburn) // 2)))
+    stride = max(1, (total - max(nburn, total // 2)) // n_tail)
+    smp_start = total - n_tail * stride
+    n_tele = max(1, total // TELEMETRY_EVERY)
+    seed = (int(cfg.seed) * 1000003 + 777) & 0x7FFFFFFF
+    # the models a componentwise move on coordinate j changes
+    above = [[m for m in range(K) if modelset.dims[m] > j] for j in range(D)]
+
+    dims = torch.as_tensor(np.asarray(modelset.dims), device=device).long()
+    coord_active = torch.arange(D, device=device)[None, :] < dims[:, None]
+    active_f = coord_active.to(f32)
+    k_assign = torch.arange(K, device=device).repeat_interleave(C)
+    dims_assign = dims[k_assign]
+    mask = active_f[k_assign]
+    theta = init_theta.to(f32).to(device)[k_assign]
+    lp = modelset.logpost_batch(k_assign, theta)
+    sig = 10.0 * active_f
+    nacc = torch.zeros((K, D), dtype=torch.int32, device=device)
+    ntry = torch.zeros((K, D), dtype=torch.int32, device=device)
+    try_inc = coord_active.to(torch.int32) * C
+    tele_sig = torch.zeros((n_tele, K, D), dtype=f32, device=device)
+    tele_acc = torch.zeros((n_tele, K, D), dtype=f32, device=device)
+    smp = torch.zeros((n_tail, M, D), dtype=f32, device=device)
+
+    for sweep in range(1, total + 1):
+        u, z = randoms.fast_sweep_randoms(seed, sweep, 0, M, D, D, device)
+        if sweep > nburn and randoms.block_coin(seed, sweep):
+            # a full-vector non-adapting move (automix.c:606-617)
+            theta_prop = theta + sig[k_assign] * z * mask
+            lpn = modelset.logpost_batch(k_assign, theta_prop)
+            acc = u[:, 0] < _accept(lpn - lp)
+            theta = torch.where(acc[:, None], theta_prop, theta)
+            lp = torch.where(acc, lpn, lp)
+        else:
+            # componentwise with the sweep-start sig (automix.c:618-640)
+            gamma = rjmcmc.gamma_f32(sweep)
+            sig_sel = sig[k_assign]
+            cols = []
+            for j in range(D):
+                theta_prop = theta.clone()
+                theta_prop[:, j] = theta[:, j] + sig_sel[:, j] * z[:, j]
+                lpn = modelset.logpost_batch(k_assign, theta_prop, above[j])
+                acc = (u[:, j] < _accept(lpn - lp)) & (j < dims_assign)
+                theta = torch.where(acc[:, None], theta_prop, theta)
+                lp = torch.where(acc, lpn, lp)
+                cols.append(acc.to(torch.int32).reshape(K, C).sum(dim=1))
+            acc_cols = torch.stack(cols, dim=1).to(torch.int32)
+            err = (acc_cols.to(f32) / C - RWM_TARGET_ACCEPT) * active_f
+            if cfg.stage1_adapt == "log":
+                gain = float(np.float32(cfg.stage1_log_gain)
+                             * np.float32(gamma))
+                sig = sig * torch.exp(gain * err)
+            else:
+                gain = float(np.float32(10.0) * np.float32(gamma))
+                sig = torch.clamp(sig + gain * err, min=0.0)
+            nacc = nacc + acc_cols
+            ntry = ntry + try_inc
+        if sweep % TELEMETRY_EVERY == 0:
+            t_idx = min(sweep // TELEMETRY_EVERY, n_tele - 1)
+            tele_sig[t_idx] = sig
+            tele_acc[t_idx] = nacc.to(f32) / torch.clamp(ntry.to(f32),
+                                                          min=1.0)
+        if sweep > smp_start and (sweep - smp_start) % stride == 0:
+            s_idx = min(max((sweep - smp_start) // stride - 1, 0),
+                        n_tail - 1)
+            smp[s_idx] = theta
+    samples = smp.reshape(n_tail, K, C, D).permute(1, 2, 0, 3) \
+        .reshape(K, C * n_tail, D)
+    return sig, samples, tele_sig.cpu(), tele_acc.cpu(), lp.reshape(K, C)
 
 
 def run_stage1(modelset, cfg: EngineConfig, generator: torch.Generator,
                nsweeps: int, device, n_chains_per_model: int | None = None):
     """Returns ``(sig [K, D], samples [K, C * n_tail, D], telemetry)``; the
-    telemetry holds the sig and pooled acceptance traces at segment
-    boundaries, the final logp [K, C] and the sweep count."""
+    telemetry holds the sig and pooled acceptance traces (at segment
+    boundaries on the kernels, every 100 sweeps on the general engine),
+    the final logp [K, C] and the sweep count.  Logs the engine and why."""
     C = n_chains_per_model or cfg.n_chains_stage1
     init_theta = modelset.init_points(generator)             # [K, D]
-    run = (fused_stage1.run_fused_stage1
-           if fused_stage1.fits_one_block(modelset.nmodels, modelset.dmax, C)
-           else fused_stage1.run_fused_stage1_sweeps)
-    sig, samples, tele_sig, tele_acc, lp = run(
-        modelset, cfg, nsweeps, C, init_theta, device)
+    kernels, why = fused_stage1.stage1_eligible(modelset, cfg)
+    logging.getLogger("automix_tpu_torch").info(
+        "stage 1: %s engine (%s)", "kernel" if kernels else "general", why)
+    if kernels:
+        run = (fused_stage1.run_fused_stage1
+               if fused_stage1.fits_one_block(modelset.nmodels,
+                                              modelset.dmax, C)
+               else fused_stage1.run_fused_stage1_sweeps)
+        sig, samples, tele_sig, tele_acc, lp = run(
+            modelset, cfg, nsweeps, C, init_theta, device)
+    else:
+        target = cfg.stage1_target_samples or 1000 * modelset.dmax
+        sig, samples, tele_sig, tele_acc, lp = run_general_stage1(
+            modelset, cfg, nsweeps, C, init_theta, device,
+            n_tail=-(-target // C))
     return sig, samples, {
         "sig_trace": tele_sig,
         "accept_trace": tele_acc,

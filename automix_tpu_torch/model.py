@@ -1,12 +1,15 @@
 """Model registry of the port.
 
 Counterpart of ``automix_tpu/model.py`` plus ``make_logpost_cols``
-(``automix_tpu/kernels/fused.py``).  A model is a column density
-``logp_cols(rows) -> lp`` on torch tensors (``rows[i]`` holds coordinate i
-of every chain) and, for the CUDA kernels, a :class:`CudaDensity`
-descriptor: the id of a density the kernels implement plus its float
-constants.  A model set whose models lack descriptors runs on the CPU
-only.
+(``automix_tpu/kernels/fused.py``).  A model is a log-density in one or
+two forms: a column density ``logp_cols(rows) -> lp`` on torch tensors
+(``rows[i]`` holds coordinate i of every chain), and/or JAX's per-theta
+``logp(theta [dim]) -> scalar``.  For the CUDA kernels it may also carry
+a :class:`CudaDensity` descriptor: the id of a density the kernels
+implement plus its float constants.  A model set whose models all have
+descriptors at a compiled (K, D) can run on the kernels; every set runs
+on the general engine (``kernels/rjmcmc.py``, ``kernels/rwm.py``), which
+evaluates :meth:`ModelSet.logpost_batch`.
 
 A model set may also carry an incremental density (``fused_density``,
 the JAX ``FusedColsDensity``): per-chain cached statistics that the sweep
@@ -17,6 +20,7 @@ its density object, the stateless adapter for every other family.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -45,17 +49,59 @@ class CudaDensity:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """One model: ``dim`` parameters, a column log-posterior, the stage-1
-    start point (uniform [0, 1) draws where None), an optional CUDA
-    descriptor of the same density, and an optional column form of the
-    likelihood alone (``loglik``, the second column of ``_lp.data``)."""
+    """One model: ``dim`` parameters, a column log-posterior and/or a
+    per-theta one (``logp``, by keyword), the stage-1 start point (uniform
+    [0, 1) draws where None), an optional CUDA descriptor of the same
+    density, and an optional column form of the likelihood alone
+    (``loglik``, the second column of ``_lp.data``).
+
+    ``logp(theta) -> scalar`` takes a [dim] float32 tensor; the general
+    engine maps it over chains with ``torch.func.vmap``, so it must use
+    torch operations only and no Python control flow on tensor values
+    (``torch.where`` in place of ``if``), as ``jax.vmap`` asks of JAX's
+    ``logp``.  Any model prior weight is folded into the density."""
 
     name: str
     dim: int
-    logp_cols: Callable
+    logp_cols: Optional[Callable] = None
     init: Optional[np.ndarray] = None
     cuda: Optional[CudaDensity] = None
     loglik: Optional[Callable] = None
+    logp: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.logp_cols is None and self.logp is None:
+            raise ValueError(f"model {self.name}: needs logp or logp_cols")
+
+    def cols(self, rows):
+        """The column density at ``rows`` (dim tensors [S]): ``logp_cols``
+        where the model has one, else ``logp`` mapped over the chains."""
+        if self.logp_cols is not None:
+            return self.logp_cols(rows)
+        return torch.func.vmap(self.logp)(torch.stack(list(rows), dim=1))
+
+
+def memoized_set(factory):
+    """Memoize a ModelSet factory on its keyword arguments (JAX's
+    ``memoized_set``): the same problem gives the same ModelSet object, so
+    the caches keyed on it (density tables, kernel tables) are reused.
+    Calls with positional or unhashable arguments are not memoized."""
+    cache = {}
+
+    @functools.wraps(factory)
+    def wrapped(*args, **kw):
+        if args:
+            return factory(*args, **kw)
+        key = tuple(sorted(kw.items(), key=lambda t: t[0]))
+        try:
+            hash(key)
+        except TypeError:
+            return factory(**kw)
+        if key not in cache:
+            cache[key] = factory(**kw)
+        return cache[key]
+
+    return wrapped
 
 
 def sanitize(lp):
@@ -87,16 +133,59 @@ class ModelSet:
         self.dmax = int(self.dims.max())
         self._density_tables = {}
 
+    @classmethod
+    def from_callback(cls, nmodels: int, model_dims: Sequence[int], logpost,
+                      init=None, name: str = "model"):
+        """Build from a C-style single callback ``logpost(k, theta)``, with
+        ``theta`` the [dim] slice of model k (JAX's ``from_callback``):
+        each model's per-theta ``logp`` calls it with its static k.
+        ``init`` is the flat concatenated start vector of all models."""
+        inits = [None] * nmodels
+        if init is not None:
+            flat = np.asarray(init, dtype=np.float64)
+            off = 0
+            inits = []
+            for d in model_dims:
+                inits.append(flat[off:off + d].copy())
+                off += d
+        return cls([Model(name=f"{name}{k}", dim=int(model_dims[k]),
+                          logp=functools.partial(logpost, k),
+                          init=inits[k]) for k in range(nmodels)])
+
     def logpost_cols(self, k, rows):
-        """Sanitized log-posterior of each chain under its own model:
-        ``k`` [S] model indices, ``rows`` dmax tensors [S]."""
+        """Log-posterior of each chain under its own model, clamped by
+        :func:`sanitize` (the kernels' twins): ``k`` [S] model indices,
+        ``rows`` dmax tensors [S]."""
         if self.batched_logpost_cols is not None:
             return sanitize(self.batched_logpost_cols(k, rows))
         out = None
         for m, model in enumerate(self.models):
-            lp = sanitize(model.logp_cols(rows[:model.dim]))
+            lp = sanitize(model.cols(rows[:model.dim]))
             out = lp if out is None else torch.where(k == m, lp, out)
         return out
+
+    def logpost_batch(self, k, theta, models=None):
+        """Log-posterior of the general engine (JAX's ``logpost_batch``):
+        ``k`` [S], ``theta`` [S, dmax] -> [S].  Every model is evaluated
+        on every chain (its column form, or its ``logp`` under vmap on
+        ``theta[:, :dim]``) and the chain's own model selected; every
+        non-finite value becomes NEG_INF and finite values stay as they
+        are (the kernels' :func:`sanitize` also clamps +inf).  ``models``,
+        where given, lists the only models to evaluate, and the values of
+        the other models' chains are meaningless: a componentwise move on
+        coordinate j needs no model of dim <= j, whose chains it masks
+        out."""
+        rows = theta.unbind(1)
+        if self.batched_logpost_cols is not None:
+            lp = self.batched_logpost_cols(k, rows)
+        else:
+            lp = None
+            for m in (range(self.nmodels) if models is None else models):
+                lm = self.models[m].cols(rows[:self.models[m].dim])
+                lp = lm if lp is None else torch.where(k == m, lm, lp)
+        lp = lp.to(torch.float32)
+        return torch.where(torch.isfinite(lp), lp,
+                           torch.full_like(lp, NEG_INF))
 
     def density_table(self, device):
         """(kinds int32 [K], consts float32 [K, N_DENSITY_CONSTS], dims

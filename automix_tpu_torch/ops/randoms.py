@@ -1,4 +1,4 @@
-"""Counter-hash randomness of the fused kernels, in torch.
+"""Counter-hash randomness of the fused kernels and the general engine.
 
 Counterpart of the in-kernel hash of ``automix_tpu/kernels/fused.py``
 (``_triple32``, ``_lowbias32``, ``_u01``, ``_gumbel`` and the ``hash``
@@ -10,6 +10,14 @@ of (seed, global sweep, global chain, slot), so the port reproduces the
 JAX package's words bit for bit; ``csrc/common.cuh`` holds the same
 functions for the CUDA kernels.
 
+The general engine's ``fast`` stream (``fast_sweep_randoms``, from
+``automix_tpu/ops/randoms.py``) hashes the same way at counters
+row * (MU + MZ) + slot.  Its uniforms are ``bits_to_uniform`` without the
+kernels' clamp, so a word whose top 24 bits are all ones gives exactly
+1.0, as in JAX; its normals are sqrt(2) * erf_inv(2u - 1) with
+:func:`erf_inv`, XLA's float32 polynomial, so u = 1.0 gives z = +inf
+there too.
+
 torch has no complete uint32 arithmetic, so words live in int64 tensors
 holding values in [0, 2^32): every multiply and add is masked back to 32
 bits before the next shift.  A product that wraps int64 keeps its low 32
@@ -18,6 +26,7 @@ bits, so the masked result is exact.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -64,6 +73,13 @@ def sweep_salts(seed: int, t: int):
             lowbias32((sweep_u + 0x85EBCA6B + seed_u * 0xC2B2AE35) & _M32))
 
 
+def hash_words(seed: int, t: int, counters):
+    """Words of sweep ``t`` at uint32 ``counters`` (int64 tensor):
+    triple32(c ^ salt1) ^ lowbias32(c + salt2)."""
+    salt1, salt2 = sweep_salts(seed, t)
+    return triple32(counters ^ salt1) ^ lowbias32((counters + salt2) & _M32)
+
+
 def sweep_words(seed: int, t: int, chain_ids, slots):
     """[len(slots), S] words of sweep ``t``: counter = chain * NW + slot,
     the ``draw_words`` formula of the fused kernel in ``hash`` mode
@@ -72,15 +88,136 @@ def sweep_words(seed: int, t: int, chain_ids, slots):
     slot_t = torch.as_tensor(list(slots), dtype=torch.int64,
                              device=chain_ids.device)
     c = (chain_ids.to(torch.int64)[None, :] * nw + slot_t[:, None]) & _M32
-    salt1, salt2 = sweep_salts(seed, t)
-    return triple32(c ^ salt1) ^ lowbias32((c + salt2) & _M32)
+    return hash_words(seed, t, c)
+
+
+def bits_to_uniform(words):
+    """Words -> float32 top 24 bits * 2^-24 + 2^-25 (``_bits_to_uniform``
+    of the JAX package): all ones in the top bits gives exactly 1.0."""
+    return (words >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
 
 
 def u01(words):
     """Words -> float32 uniforms in (0, 1): top 24 bits plus a half ulp,
     clamped to the largest float32 below 1 (1 - 2^-25 rounds to 1.0)."""
-    u = (words >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
-    return torch.clamp(u, max=_U01_MAX)
+    return torch.clamp(bits_to_uniform(words), max=_U01_MAX)
+
+
+# XLA's float32 log1p (a Cephes rational for |x| < sqrt(2) - 1, else
+# log(1 + x)) and erf_inv (Giles, "Approximating the erfinv function": two
+# degree-8 polynomials in w = -log1p(-x^2), split at w = 5), with their
+# coefficients rounded to float32.  XLA's CPU backend contracts each Horner
+# step to a fused multiply-add, so :func:`_horner` rounds each step once.
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+_LOG1P_SMALL = 0.41421356237309504880
+
+
+@functools.lru_cache(maxsize=None)
+def _coeffs(rows: tuple, device: str):
+    """[n, degree + 1] float64 tensor of float32-rounded coefficient
+    lists, made once per device."""
+    return torch.tensor(rows, dtype=torch.float32).to(torch.float64) \
+        .to(device)
+
+
+def _horner(x2, rows: tuple):
+    """Several polynomials at once: ``x2`` [n, ...] float32 points,
+    ``rows`` the n coefficient lists, highest degree first.  Each step
+    p * x + c is exact in float64 and rounded once to float32: a fused
+    multiply-add (where the float64 sum sits on a float32 midpoint, the
+    second rounding can differ from it by one ulp)."""
+    c = _coeffs(rows, str(x2.device))
+    c = c.reshape(c.shape + (1,) * (x2.dim() - 1))
+    xd = x2.to(torch.float64)
+    p = c[:, 0].expand_as(x2).to(torch.float32)
+    for i in range(1, c.shape[1]):
+        p = torch.addcmul(c[:, i], p.to(torch.float64), xd) \
+            .to(torch.float32)
+    return p
+
+
+# XLA's CPU float32 log (Cephes logf): x = m * 2^e with m in [1/2, 1),
+# folded to [sqrt(1/2), sqrt(2)), then three degree-2 pieces of a degree-8
+# polynomial in t = m - 1.
+_LOG_P = ((7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1),
+          (-1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1),
+          (2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+
+
+def _fma(a, b, c):
+    return torch.addcmul(c.to(torch.float64), a.to(torch.float64),
+                         b.to(torch.float64)).to(torch.float32)
+
+
+def _log(x):
+    """log of float32 x > 0 in XLA's operation order."""
+    bits = torch.clamp(x, min=2.0 ** -126).view(torch.int32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    small = m < 0.707106781186547524
+    e = e - small.to(torch.float32)
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = t * t
+    x3 = x2 * t
+    y = _horner(torch.stack([t, t, t]), _LOG_P)
+    y = _fma(_fma(y[0], x3, y[1]), x3, y[2]) * x3
+    y = y + -2.12194440e-4 * e
+    t = t - 0.5 * x2
+    t = t + y
+    return t + 0.693359375 * e
+
+
+def _log1p(x):
+    """log1p in XLA's operation order."""
+    x2 = x * x
+    nd = _horner(torch.stack([x, x]), (_LOG1P_NUM, _LOG1P_DEN))
+    small = x + (-0.5 * x2 + (x * x2) * (nd[0] / nd[1]))
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, _log(x + 1.0))
+
+
+def erf_inv(x):
+    """float32 inverse error function in the operation order of XLA's
+    ``erf_inv`` (``jax.lax.erf_inv``), +-inf at x = +-1.  torch.erfinv is
+    another approximation: ~59% of the fast stream's normals differ from
+    JAX's, by up to ~80 ulps; this one, with XLA's log1p and log, is
+    within a few ulps of JAX's on the CPU (tests/test_torch_fast_rng.py
+    states the share that differs)."""
+    w = -_log1p(x * -x)
+    p = _horner(torch.stack([w - 2.5, torch.sqrt(w) - 3.0]),
+                (_ERFINV_W_LT_5, _ERFINV_W_GE_5))
+    out = torch.where(w < 5.0, p[0], p[1]) * x
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, out)
+
+
+_SQRT2 = float(np.sqrt(np.float32(2.0)))
+
+
+def fast_sweep_randoms(seed: int, sweep: int, chain0: int, n_chains: int,
+                       mu_count: int, mz_count: int, device="cpu"):
+    """Uniforms [S, MU] and normals [S, MZ] of one general-engine sweep
+    (``fast_sweep_randoms`` of the JAX package): words at counters
+    (chain0 + row) * (MU + MZ) + slot, uniforms without the clamp,
+    normals sqrt(2) * erf_inv(2u - 1)."""
+    w = mu_count + mz_count
+    rows = (chain0 + torch.arange(n_chains, dtype=torch.int64,
+                                  device=device)) & _M32
+    slots = torch.arange(w, dtype=torch.int64, device=device)
+    counters = (rows[:, None] * w + slots[None, :]) & _M32
+    uall = bits_to_uniform(hash_words(seed, sweep, counters))
+    z = _SQRT2 * erf_inv(2.0 * uall[:, mu_count:] - 1.0)
+    return uall[:, :mu_count], z
 
 
 def gumbel(u):

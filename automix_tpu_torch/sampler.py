@@ -8,11 +8,22 @@ statistics stay on the device for ``chunk_flush_every`` chunks, then are
 absorbed on the host in int64/float64.  The chain continues across
 burn/sample calls through the global sweep counter.
 
-Traces follow the JAX decimation (``trace_every``): a traced run launches
-``trace_every``-sweep chunks and records a snapshot of the state after
-each.  The JAX package records stride-1 traces on its XLA engine; the
-port has one engine, and at ``trace_every=1`` its 1-sweep launches with a
-snapshot after each are exactly a per-sweep trace.
+The engine rule.  Each stage-3 runner build asks ``fused.eligible``
+and each stage-1 run ``fused_stage1.stage1_eligible``: the CUDA kernels
+serve a model set when every model has a CUDA density at a (K, D) they
+are instantiated for (and, in stage 3, the proposal's L fits the sweep
+kernel); the general engine (``kernels/rjmcmc.py``, ``kernels/rwm.py``,
+plain torch on the same device, K4 for ``rng="pallas"``) serves every
+other set, and every set under ``fused="off"`` / ``fused_stage1="off"``.
+``"on"`` raises for a set the kernels cannot serve.  One line on the
+``automix_tpu_torch`` logger names the engine and the reason at each
+runner build, as JAX's ``_log_engine``.
+
+Traces follow the JAX decimation (``trace_every``): a traced run on the
+kernels launches ``trace_every``-sweep chunks and records a snapshot of
+the state after each (at ``trace_every=1`` exactly a per-sweep trace).
+The general engine records stride-1 traces inside its chunks, as JAX's
+XLA engine does, and decimates as the kernels do.
 
 The device is explicit: ``device="cuda"`` (the default) raises when CUDA
 is missing, and nothing falls back to the CPU by itself.
@@ -21,6 +32,7 @@ is missing, and nothing falls back to the CPU by itself.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional, Sequence, Union
 
@@ -56,8 +68,6 @@ class AMSampler:
                 raise RuntimeError("AMSampler(device='cuda'): CUDA is not "
                                    "available; pass device='cpu' to run the "
                                    "plain PyTorch path")
-            # raises for models without CUDA density descriptors
-            self.modelset.density_table(self.device)
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.generator = torch.Generator().manual_seed(int(config.seed))
@@ -69,11 +79,25 @@ class AMSampler:
 
     # -- internals --------------------------------------------------------
 
-    def _runner(self, burning: bool):
-        if burning not in self._runners:
-            self._runners[burning] = fused.build_fused_chunk_runner(
-                self.modelset, self.cfg, burning=burning)
-        return self._runners[burning]
+    def _runner(self, burning: bool, collect: bool):
+        """The stage-3 runner of the engine the rule picks; ``collect``
+        (per-sweep traces inside the chunk) only on the general engine."""
+        kernels, why = fused.eligible(self.modelset, self.cfg,
+                                      self.proposal.lmax, self.device)
+        key = (burning, collect and not kernels, kernels)
+        if key not in self._runners:
+            if kernels:
+                self._runners[key] = fused.build_fused_chunk_runner(
+                    self.modelset, self.cfg, burning=burning)
+            else:
+                self._runners[key] = rjmcmc.build_chunk_runner(
+                    self.modelset, self.cfg, burning=burning,
+                    collect=key[1])
+            logging.getLogger("automix_tpu_torch").info(
+                "stage-3 %s runner: %s engine (%s)",
+                "burn-in" if burning else "production",
+                "kernel" if kernels else "general", why)
+        return self._runners[key], kernels
 
     def _ensure_proposal(self):
         if self.proposal is None:
@@ -86,9 +110,10 @@ class AMSampler:
 
     def _run_sweeps(self, nsweeps: int, burning: bool, collect: bool,
                     stats: Optional[RunStats]):
-        runner = self._runner(burning)
         stride = self.cfg.trace_every
-        chunk_len = stride if collect else self.cfg.sweep_chunk
+        runner, kernels = self._runner(burning, collect and stride == 1)
+        snapshot = collect and (kernels or stride > 1)
+        chunk_len = stride if snapshot else self.cfg.sweep_chunk
         done = 0
         chunks = []
 
@@ -101,8 +126,9 @@ class AMSampler:
             n = min(chunk_len, nsweeps - done)
             self.chains, chunk = runner(self.chains, self.proposal, n)
             if stats is not None:
-                if collect:
+                if snapshot:
                     chunk = dict(chunk, **self._trace_snapshot())
+                if collect:
                     stats.trace_stride = stride
                 # a bounded window of chunk results stays on the device
                 # (a host sync per chunk would serialize the launches)

@@ -48,7 +48,16 @@ PyTorch twin on the card, then drives the port's paths at full size:
   package's own posterior (``tests/data/cpt_jax_reference.json``), cpt
   against cptrs within the JAX test's atol, and the CLI on cpt against
   the JAX package's CLI run from the same proposal
-  (``tests/data/cpt_cli_witness.json``).
+  (``tests/data/cpt_cli_witness.json``);
+* the general engine (plain torch, for sets the kernels do not serve):
+  K4, the ``rng="pallas"`` draw kernel, against its twin at the
+  tutorial's stage-3 shapes and an odd shape; the tutorial at 131072
+  chains with ``fused="off"`` from the main path's proposal, on K4 and on
+  the ``fast`` hash, p(M) against the published values; toy2 with
+  per-theta densities and no CUDA density at 16384 chains through the
+  general stage 1, stage 2 at lmax 10 and stage 3, p(M) against the
+  exact values; and the CLI on ``examples/model_selection_torch.py``'s
+  per-theta set by ``module:function``, p(M) against its closed form.
 
 Every kernel's launch counter is set to 0 just before a path and read
 just after it.  Any failed check exits non-zero without printing a
@@ -166,6 +175,30 @@ CPT_ROUTE_SWEEPS = 20       # the K3 + log route against its twin
 # section 6).
 CPT_TOL, CPT_SPREADS = 0.03, 3.0
 CPT_PAIR_ATOL = 0.08
+
+# The general engine (plain torch, eager: every sweep is a few hundred
+# launches, ~8-25 ms, so its paths run fewer sweeps than the kernels').
+# The tutorial from the main path's proposal: K4 (rng="pallas") for 500
+# burn-in and 2000 timed sweeps, then the fast hash for 1000 timed sweeps
+# from the same state; toy2's whole pipeline at 16384 chains (stage 1 at
+# the CLI's 2048 chains per model, 1000 sweeps; lmax 10; 300 burn-in and
+# 1000 timed sweeps); the CLI on the example at 2048 chains.
+GEN_BURN, GEN_TIMED, GEN_FAST_TIMED = 500, 2000, 1000
+K4_SHAPES = ((N_CHAINS, 25, 4), (3000, 37, 5))
+K4_ULPS = 2
+TOY2_GEN_CHAINS = 16_384
+TOY2_GEN_STAGE1 = 1000
+TOY2_GEN_BURN, TOY2_GEN_TIMED = 300, 1000
+# toy2's stage 1 starts every chain at the origin, between each model's
+# modes at +5 and -5, so the fit weights the +5 modes of the higher models
+# 0.007-0.09 instead of 0.3 and p(M) settles ~0.01 from the exact values:
+# the JAX package's XLA engine at this configuration reads 0.0099-0.0101
+# after 1000 sweeps and drifts on (tools/toy2_general_drift.py,
+# tools/toy2_general_witness.py; PERF.md section 6).  The run is held to
+# JAX's three runs (tests/data/toy2_general_jax_reference.json) within
+# 0.005, or 3 times their spread where that is larger, and to the exact
+# values within 0.02, twice JAX's own distance.
+TOY2_GEN_TOL, TOY2_GEN_SPREADS, TOY2_GEN_EXACT = 0.005, 3.0, 0.02
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
 # cores and HBM3.  Every bound below is against these.
@@ -439,21 +472,23 @@ def timed(fn):
 
 
 def reset_counts():
-    from automix_tpu_torch.kernels import fused, fused_stage1
+    from automix_tpu_torch.kernels import fused, fused_stage1, sweep_rng
     fused.sweep_chunk.launches = 0
     fused.sweep_chunk.pooled_launches = 0
     fused_stage1.segment.launches = 0
     fused_stage1.sweep.launches = 0
+    sweep_rng.draw.launches = 0
 
 
 def read_counts():
     """Launches since the last reset: K1 (every per-chain kernel launch,
-    the K1d runner's one-sweep launches included), K1c, K2, K3."""
-    from automix_tpu_torch.kernels import fused, fused_stage1
+    the K1d runner's one-sweep launches included), K1c, K2, K3, K4."""
+    from automix_tpu_torch.kernels import fused, fused_stage1, sweep_rng
     return {"K1": fused.sweep_chunk.launches,
             "K1c": fused.sweep_chunk.pooled_launches,
             "K2": fused_stage1.segment.launches,
-            "K3": fused_stage1.sweep.launches}
+            "K3": fused_stage1.sweep.launches,
+            "K4": sweep_rng.draw.launches}
 
 
 def uniform(ms):
@@ -1295,6 +1330,203 @@ def changepoint_paths(dev):
     return out
 
 
+def k4_ops(mu, mz):
+    """Operations of one row of K4's function: ceil(W / 4) Philox-4x32-10
+    calls (10 rounds of 2 high and 2 low products and 4 xors, 9 key
+    bumps of 2 adds: 98), 5 per uniform, ~77 per Box-Muller pair."""
+    n_pairs = (mz + 1) // 2
+    words = mu + 2 * n_pairs
+    pair = OPS["log1p"] + OPS["sqrt"] + 2 * OPS["trig"] + 5
+    return -(-words // 4) * 98 + 5 * words + n_pairs * pair
+
+
+def check_k4(dev):
+    """K4 against draw_ref on the card at each of K4_SHAPES: uniforms
+    bitwise, normals within K4_ULPS ulps (kernel and twin call the same
+    libdevice functions), and the block-offset property.  Times the
+    kernel, the twin and torch.rand + torch.randn into the same shapes
+    (the same distributions from another generator, not the same words),
+    at the first shape."""
+    import torch
+    from automix_tpu_torch.kernels import sweep_rng
+    out = None
+    for S, MU, MZ in K4_SHAPES:
+        u, z = sweep_rng.draw(7, 12, 0, S, MU, MZ, dev)
+        (ur, zr), ms_p = timed(
+            lambda: sweep_rng.draw_ref(7, 12, 0, S, MU, MZ, dev))
+        ulps = (z.view(torch.int32).long()
+                - zr.view(torch.int32).long()).abs()
+        u_equal = torch.equal(u, ur)
+        z_err = float((z - zr).abs().max())
+        cb = sweep_rng.choose_block(S)
+        offset = True
+        if (S // 2) % cb == 0:
+            uh, zh = sweep_rng.draw(7, 12, (S // 2) // cb, S // 2, MU, MZ,
+                                    dev)
+            offset = torch.equal(uh, u[S // 2:]) and torch.equal(
+                zh, z[S // 2:])
+        inside = bool((u > 0).all() and (u < 1).all()
+                      and torch.isfinite(z).all())
+        log(f"K4 vs draw_ref ({S} x {MU} uniforms, {MZ} normals): uniforms "
+            f"bitwise {u_equal}, normals max ulps {int(ulps.max())} (max "
+            f"|err| {z_err:.3e}), block offset {offset}, inside (0, 1) and "
+            f"finite {inside}")
+        if not (u_equal and int(ulps.max()) <= K4_ULPS and offset
+                and inside):
+            fail(f"K4 disagrees with its twin at {S} x ({MU}, {MZ})")
+        if out is None:
+            ms_k = cuda_ms(
+                lambda: sweep_rng.draw(7, 12, 0, S, MU, MZ, dev), 200)
+            ms_l = cuda_ms(lambda: (torch.rand(S, MU, device=dev),
+                                    torch.randn(S, MZ, device=dev)), 200)
+            b_ms, b_by = bound(S * k4_ops(MU, MZ), S * (MU + MZ) * 4)
+            log(f"K4 ({S} x {MU + MZ}): kernel {ms_k:.4f} ms, plain "
+                f"{ms_p:.4f} ms, torch.rand + torch.randn {ms_l:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            out = dict(max_abs_err=z_err, ms=ms_k, plain_ms=ms_p,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=ms_l)
+    return out
+
+
+def per_theta(ms):
+    """The set's column densities wrapped as per-theta logp, with no CUDA
+    density: a set only the general engine serves."""
+    from automix_tpu_torch import Model, ModelSet
+    return ModelSet([Model(m.name, m.dim, init=m.init,
+                           logp=(lambda th, f=m.logp_cols:
+                                 f(list(th.unbind(0)))))
+                     for m in ms.models])
+
+
+def general_paths(tut, tut_prop, k1_rate, dev):
+    """The general engine's phase: K4 against its twin, the tutorial on
+    K4 and on the fast hash (beside ``k1_rate``, the main path's K1
+    chain-sweeps/s), toy2 per-theta end to end, the CLI on the example.
+    Returns K4's check and the launch counts of each path."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.models import toy
+    out = {}
+    t0 = time.perf_counter()
+    out["K4"] = check_k4(dev)
+    log(f"phase K4 check: {time.perf_counter() - t0:.2f} s")
+
+    # the tutorial at full width from the main path's proposal
+    t0 = time.perf_counter()
+    rates = {}
+    am = AMSampler(tut, EngineConfig(
+        n_chains=N_CHAINS, seed=0, fused="off", rng="pallas",
+        sweep_chunk=SWEEP_CHUNK, trace_chain0=False), device="cuda")
+    am.set_proposal(tut_prop)
+    reset_counts()
+    am.burn_samples(GEN_BURN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = am.rjmcmc_samples(GEN_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    rates["pallas"] = N_CHAINS * GEN_TIMED / secs
+    log(f"tutorial, general engine, K4: {GEN_TIMED} timed sweeps x "
+        f"{N_CHAINS} chains in {secs:.3f} s = {rates['pallas']:.6e} "
+        f"chain-sweeps/s ({secs / GEN_TIMED * 1e3:.3f} ms per sweep; K1 on "
+        f"the main path: {k1_rate:.6e}); launches {counts}")
+    check_probs("tutorial general engine (K4)", stats.model_probs, PUBLISHED,
+                what="published")
+    if counts["K4"] != GEN_BURN + GEN_TIMED or counts["K1"] or counts["K2"]:
+        fail("the general engine's tutorial run did not launch K4 once per "
+             "sweep, or launched a stage-3/stage-1 kernel")
+    if not bool(torch.isfinite(am.chains.theta).all()):
+        fail("non-finite chain state on the general engine")
+    out["tutorial"] = counts
+    fast = AMSampler(tut, EngineConfig(
+        n_chains=N_CHAINS, seed=0, fused="off", rng="fast",
+        sweep_chunk=SWEEP_CHUNK, trace_chain0=False), device="cuda")
+    fast.set_proposal(tut_prop)
+    fast.chains = am.chains
+    fast.stats = None
+    del am
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = fast.rjmcmc_samples(GEN_FAST_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    rates["fast"] = N_CHAINS * GEN_FAST_TIMED / secs
+    log(f"tutorial, general engine, fast hash: {GEN_FAST_TIMED} timed sweeps "
+        f"in {secs:.3f} s = {rates['fast']:.6e} chain-sweeps/s "
+        f"({secs / GEN_FAST_TIMED * 1e3:.3f} ms per sweep); launches "
+        f"{read_counts()}")
+    check_probs("tutorial general engine (fast)", stats.model_probs,
+                PUBLISHED, what="published")
+    if any(read_counts().values()):
+        fail("the fast-hash run launched a kernel")
+    del fast
+    log(f"phase tutorial general engine: {time.perf_counter() - t0:.2f} s")
+
+    # toy2 with per-theta densities, end to end at 16384 chains
+    t0 = time.perf_counter()
+    am = AMSampler(per_theta(toy.toy2_set()), EngineConfig(
+        n_chains=TOY2_GEN_CHAINS, n_chains_stage1=TOY2_C_K3,
+        stage1_sweeps=TOY2_GEN_STAGE1, max_mix_comps=10, seed=1,
+        trace_chain0=False), device="cuda")
+    reset_counts()
+    am.estimate_conditional_probs()
+    cp = am.cpstats
+    am.burn_samples(TOY2_GEN_BURN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = am.rjmcmc_samples(TOY2_GEN_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    log(f"toy2 per-theta, general engine: stage 1 {cp.timesecs_stage1:.3f} s "
+        f"({TOY2_C_K3} chains per model, {TOY2_GEN_STAGE1 * 11 // 10} "
+        f"sweeps), stage 2 {cp.timesecs_stage2:.3f} s (EM iterations "
+        f"{cp.em_iters.tolist()}, L={am.proposal.lmax}), burn-in "
+        f"{stats.timesecs_burn:.3f} s, {TOY2_GEN_TIMED} timed sweeps x "
+        f"{TOY2_GEN_CHAINS} in {secs:.3f} s = "
+        f"{TOY2_GEN_CHAINS * TOY2_GEN_TIMED / secs:.6e} chain-sweeps/s; "
+        f"launches {counts}")
+    ref = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+        "toy2_general_jax_reference.json")))
+    probs = np.asarray(stats.model_probs)
+    err_jax = float(np.abs(probs - np.asarray(ref["mean"])).max())
+    err_exact = float(np.abs(probs - np.asarray(TOY2_EXACT)).max())
+    tol = max(TOY2_GEN_TOL, TOY2_GEN_SPREADS * ref["spread"])
+    log(f"toy2 per-theta general engine: p(M) = "
+        f"{np.round(probs, 4).tolist()}; vs the JAX XLA engine's mean "
+        f"{np.round(ref['mean'], 4).tolist()} (spread {ref['spread']:.4f}): "
+        f"max err {err_jax:.4f} (bound {tol:.4f}); vs exact "
+        f"{list(TOY2_EXACT)}: max err {err_exact:.4f} (bound "
+        f"{TOY2_GEN_EXACT}; within {PARITY_TOL}: {err_exact <= PARITY_TOL})")
+    if err_jax > tol or err_exact > TOY2_GEN_EXACT:
+        fail("toy2 per-theta on the general engine misses the JAX package's "
+             "p(M) or the exact values")
+    if any(counts.values()):
+        fail("the toy2 per-theta run launched a kernel")
+    del am
+    log(f"phase toy2 per-theta general engine: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the CLI on the example's per-theta set
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from examples import model_selection_torch as example
+    text, counts, secs = run_cli(
+        ["examples.model_selection_torch:model_set", "-m", "2", "--chains",
+         "2048", "-n", "500", "-b", "200", "-N", "1000", "-s", "3",
+         "--no-reports"])
+    check_probs("model_selection_torch CLI", probs_of(text),
+                example.exact_model_probs(), what="closed form")
+    if any(counts.values()):
+        fail("the CLI on the per-theta example launched a kernel")
+    log(f"phase model_selection_torch CLI: {secs:.2f} s")
+    out["rates"] = rates
+    return out
+
+
 def run_cli(argv, reset=True):
     """``cli.main(argv)`` in process; returns (stdout text, launch counts
     since the last reset, seconds).  ``reset`` sets the counts to 0 just
@@ -1434,8 +1666,12 @@ def main():
     # ---- 5. K1 against its twin on the main path's proposal and state --------
     t0 = time.perf_counter()
     k1 = check_sweep(ms, am.proposal, am.chains, dev)
+    tut_prop = am.proposal
     del am
     log(f"phase K1 check: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 5b. the general engine: K4, tutorial, toy2 per-theta, the CLI -----
+    gen = general_paths(ms, tut_prop, rate, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 6. toy2: stages 1-2, then the CLI in mode 1 at its defaults --
@@ -1663,6 +1899,10 @@ def main():
               cpt_out["cli cpt"]["K1"], cpt_out["K1b"]),
         entry("fused_sweep_pooled_cpt", k1_src, k1_at,
               cpt_out["cpt"]["K1c"], cpt_out["K1c"]),
+        dict(entry("sweep_rng", "sweep_rng.cu",
+                   "automix_tpu/kernels/sweep_rng.py:139",
+                   gen["tutorial"]["K4"], gen["K4"]),
+             library_ms=gen["K4"]["library_ms"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -692,3 +692,68 @@ def test_changepoint_pooled_capacity(cuda):
                           seed=1, sweep0=5, n_sweeps=2, adapt=True,
                           pooled=True)
     assert fused.sweep_chunk.pooled_launches == before
+
+
+# --- the general engine and K4 (rng="pallas") -------------------------------
+
+
+def _ulps(a, b):
+    a = a.cpu().view(torch.int32).to(torch.int64)
+    b = b.cpu().view(torch.int32).to(torch.int64)
+    return (a - b).abs()
+
+
+@pytest.mark.parametrize("shape", [(131072, 25, 4), (3000, 37, 5)])
+def test_sweep_rng_kernel_matches_twin(cuda, shape):
+    """K4 against draw_ref on the card: uniforms bitwise, normals within 2
+    ulps (both call the same libdevice log1pf, sqrtf, cosf and sinf), and
+    the block-offset property of the kernel's own rows."""
+    from automix_tpu_torch.kernels import sweep_rng
+    S, MU, MZ = shape
+    u, z = sweep_rng.draw(7, 12, 0, S, MU, MZ, cuda)
+    torch.cuda.synchronize()
+    ur, zr = sweep_rng.draw_ref(7, 12, 0, S, MU, MZ, cuda)
+    assert torch.equal(u, ur)
+    assert int(_ulps(z, zr).max()) <= 2
+    cb = sweep_rng.choose_block(S)
+    half = S // 2
+    if half % cb == 0:
+        uh, zh = sweep_rng.draw(7, 12, half // cb, half, MU, MZ, cuda)
+        assert torch.equal(uh, u[half:]) and torch.equal(zh, z[half:])
+
+
+def test_general_engine_on_the_card_matches_the_cpu(cuda):
+    """5 sweeps of the general engine (fused='off', the fast stream) on the
+    card and on the CPU from the same chains and proposal: k equal on
+    >= 99% of chains (libm ulps can flip a marginal accept), theta and
+    logp within 1e-4 on those; and the same with K4 against its twin."""
+    from automix_tpu_torch.kernels import rjmcmc, sweep_rng
+    ms = toy.toy2_set()
+    am = AMSampler(ms, EngineConfig(n_chains=8192, n_chains_stage1=256,
+                                    stage1_sweeps=300, max_mix_comps=4,
+                                    seed=3, trace_chain0=False),
+                   device="cuda")
+    am.burn_samples(30)
+    prop_c = Proposal(**{f: getattr(am.proposal, f).cpu() for f in
+                         ("lam", "mu", "B", "logdetB", "nmix", "sig")})
+    ch = am.chains
+    ch_c = type(ch)(**{f: (getattr(ch, f).cpu() if f != "sweep"
+                           else ch.sweep) for f in
+                       ("k", "theta", "logp", "pk", "pkllim", "nreinit",
+                        "sweep")})
+    for rng in ("fast", "pallas"):
+        cfg = EngineConfig(n_chains=8192, seed=3, fused="off", rng=rng)
+        run = rjmcmc.build_chunk_runner(ms, cfg, burning=False,
+                                        collect=False)
+        launches = sweep_rng.draw.launches
+        out, chunk = run(ch, am.proposal, 5)
+        out_c, chunk_c = run(ch_c, prop_c, 5)
+        if rng == "pallas":
+            assert sweep_rng.draw.launches == launches + 5
+        same = out.k.cpu() == out_c.k
+        assert same.float().mean() >= 0.99
+        torch.testing.assert_close(out.theta.cpu()[same], out_c.theta[same],
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(out.logp.cpu()[same], out_c.logp[same],
+                                   rtol=1e-4, atol=1e-4)
+        assert int(chunk["ntrytd"]) == int(chunk_c["ntrytd"]) == 8192 * 5

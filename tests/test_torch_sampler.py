@@ -53,7 +53,8 @@ def test_tutorial_slice_matches_published_and_jax():
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither JAX nor the JAX package."""
+    """The port imports neither JAX nor the JAX package, and neither does
+    its example."""
     code = ("import sys, automix_tpu_torch, automix_tpu_torch.sampler, "
             "automix_tpu_torch.convert, automix_tpu_torch.kernels.fused, "
             "automix_tpu_torch.kernels.fused_stage1, automix_tpu_torch.cli, "
@@ -63,7 +64,10 @@ def test_import_leaves_jax_out():
             "automix_tpu_torch.models.rb9, automix_tpu_torch.models.ddi, "
             "automix_tpu_torch.models.ddi_cols, "
             "automix_tpu_torch.models.ddi_stats, "
-            "automix_tpu_torch.models.changepoint; "
+            "automix_tpu_torch.models.changepoint, "
+            "automix_tpu_torch.kernels.rjmcmc, automix_tpu_torch.kernels.rwm, "
+            "automix_tpu_torch.kernels.sweep_rng, "
+            "automix_tpu_torch.ops.randoms, examples.model_selection_torch; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
