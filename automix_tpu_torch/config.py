@@ -6,14 +6,21 @@ that selects a path the port has not ported yet (HMC) is rejected with
 ``NotImplementedError``.
 
 The port has two engines: the CUDA kernels, with the semantics of the
-JAX package's fused kernels in their counter-hash (``fused_rng="hash"``)
-mode, and the general engine in plain torch (``kernels/rjmcmc.py``,
-``kernels/rwm.py``).  ``fused`` and ``fused_stage1`` ("auto", "on",
-"off") select between them for stage 3 and stage 1 (``AMSampler``'s
-engine rule); ``rng`` ("auto", "fast", "pallas") selects the general
-engine's stream.  JAX's ``threefry`` stream is not ported: ``rng=
-"threefry"`` raises ``NotImplementedError``, and so does a Student-t run
-that reaches the general engine (JAX sends it to threefry).
+JAX package's fused kernels, and the general engine in plain torch
+(``kernels/rjmcmc.py``, ``kernels/rwm.py``).  ``fused`` and
+``fused_stage1`` ("auto", "on", "off") select between them for stage 3
+and stage 1 (``AMSampler``'s engine rule).  ``fused_rng`` ("auto", "hw",
+"hash") selects the stage-3 kernel's stream, as in JAX: "hash" is the
+counter hash, every word a pure function of (seed, sweep, chain, slot)
+and bitwise the JAX package's words; "hw" is the port's chunk-granular
+stream in place of the TPU's hardware PRNG (``ops/randoms.py`` ``hw_*``,
+other words than JAX's); "auto" is "hw" on the card and "hash" on the
+CPU, as JAX's is "hw" on its chip and "hash" under its interpreter.  The
+stage-1 kernels draw hash words only, as JAX's do.  ``rng`` ("auto",
+"fast", "pallas") selects the general engine's stream.  JAX's
+``threefry`` stream is not ported: ``rng="threefry"`` raises
+``NotImplementedError``, and so does a Student-t run that reaches the
+general engine (JAX sends it to threefry).
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ STAGE1_RULES = ("aap", "log")
 # fused, fused_stage1, rng).
 ENGINE_SWITCHES = ("auto", "on", "off")
 RNG_MODES = ("auto", "fast", "pallas")
+# The stage-3 kernel's streams (automix_tpu/config.py fused_rng).
+FUSED_RNG_MODES = ("auto", "hw", "hash")
 
 # Stage-3 pk adaptation scopes (automix_tpu/config.py pk_mode): every chain
 # adapts its own pk, or one shared pk adapts from the population's visit
@@ -70,9 +79,8 @@ PK_MODES = ("per_chain", "pooled")
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static configuration of the ported engine (float32, counter-hash
-    randomness).  Field meanings and defaults are those of
-    the JAX ``EngineConfig``."""
+    """Static configuration of the ported engine (float32).  Field
+    meanings and defaults are those of the JAX ``EngineConfig``."""
 
     seed: int
     adapt: bool                   # pk diminishing adaptation in stage 3
@@ -95,6 +103,7 @@ class EngineConfig:
     trace_every: int              # sweeps between trace records
     rng: str                      # general engine's stream: auto/fast/pallas
     fused: str                    # stage-3 engine: auto/on/off (kernels)
+    fused_rng: str                # stage-3 kernel's stream: auto/hw/hash
     fused_stage1: str             # stage-1 engine: auto/on/off (kernels)
     dtype: torch.dtype
 
@@ -108,7 +117,8 @@ class EngineConfig:
                  sweep_chunk: int = 1000, n_trace_chains: int = 8,
                  chunk_flush_every: int = 8, trace_chain0: bool = True,
                  trace_every: int = 1, rng: str = "auto",
-                 fused: str = "auto", fused_stage1: str = "auto",
+                 fused: str = "auto", fused_rng: str = "auto",
+                 fused_stage1: str = "auto",
                  dtype: torch.dtype = torch.float32, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -125,6 +135,8 @@ class EngineConfig:
             raise ValueError(f"unknown stage1_adapt {stage1_adapt!r}")
         if fused not in ENGINE_SWITCHES:
             raise ValueError(f"unknown fused {fused!r}")
+        if fused_rng not in FUSED_RNG_MODES:
+            raise ValueError(f"unknown fused_rng {fused_rng!r}")
         if fused_stage1 not in ENGINE_SWITCHES:
             raise ValueError(f"unknown fused_stage1 {fused_stage1!r}")
         if rng == "threefry":
@@ -160,7 +172,8 @@ class EngineConfig:
                       n_trace_chains=n_trace_chains,
                       chunk_flush_every=chunk_flush_every,
                       trace_chain0=trace_chain0, trace_every=trace_every,
-                      rng=rng, fused=fused, fused_stage1=fused_stage1,
+                      rng=rng, fused=fused, fused_rng=fused_rng,
+                      fused_stage1=fused_stage1,
                       dtype=dtype)
         for name, value in fields.items():
             object.__setattr__(self, name, value)

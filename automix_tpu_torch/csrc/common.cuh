@@ -1,6 +1,7 @@
 // Device functions shared by the stage-1 and stage-3 kernels.
 //
-// Counter hash, uniforms, Gumbel, Box-Muller and Bailey polar t draws, the
+// Counter hash, the stage-3 sweep's two word streams, uniforms, Gumbel,
+// Box-Muller and Bailey polar t draws, the
 // latent log-densities, the shifted Stirling log-gamma and the column
 // densities of the ported problems, each in the operation order of its twin
 // in the JAX package (automix_tpu/kernels/fused.py
@@ -87,6 +88,66 @@ __device__ __forceinline__ AmSalts am_sweep_salts(uint32_t seed, uint32_t t) {
 // Word for counter c = chain * NW + slot (uint32 wrap-around intended).
 __device__ __forceinline__ uint32_t am_word(AmSalts s, uint32_t c) {
   return am_triple32(c ^ s.s1) ^ am_lowbias32(c + s.s2);
+}
+
+// The stage-3 sweep's per-chain word streams, chosen by a run-time uniform
+// ``rng`` (ops/randoms.py, whose hw_* functions are the twin):
+//
+// * AM_RNG_HASH: word = am_word(salts of (seed, sweep), chain * NW + slot),
+//   a pure function of (seed, global sweep, chain, slot), bitwise the JAX
+//   package's fused ``hash`` words.  ``st`` holds the chain's counter base.
+// * AM_RNG_HW (K1f, in place of the TPU's hardware PRNG, which no GPU has):
+//   ``st`` is a 64-bit PCG32 state, seeded at the launch's first sweep from
+//   the hash words of (seed, sweep0) at counters 2 chain and 2 chain + 1 and
+//   stepped once per sweep into a 32-bit key (XSH-RR of the old state); a
+//   word is lowbias32(key ^ slot * 0x9E3779B9), ~10 operations against the
+//   hash's ~23.  Like the TPU stream it is chunk-granular: a launch reseeds.
+//
+// A word stays a function of (its sweep's key or salts, slot), so the kernel
+// computes each word where it uses it and reads a slot twice where it needs
+// it twice, as it does with the hash, and keeps no sweep's words in
+// registers.  The state keeps one 64-bit register pair per chain for both
+// streams.
+#define AM_RNG_HASH 0
+#define AM_RNG_HW 1
+
+__device__ __forceinline__ uint32_t am_hw_word(uint32_t key, uint32_t slot) {
+  return am_lowbias32(key ^ (slot * 0x9E3779B9u));
+}
+
+// One sweep's words of one chain, by slot: hash (s1, s2 the sweep's salts,
+// c the chain's counter base) or hw (s1 the sweep's key).
+struct AmWords {
+  uint32_t s1, s2, c;
+  int rng;
+  __device__ __forceinline__ uint32_t operator()(int slot) const {
+    if (rng == AM_RNG_HW) return am_hw_word(s1, (uint32_t)slot);
+    return am_word(AmSalts{s1, s2}, c + (uint32_t)slot);
+  }
+};
+
+// The chain's stream state at the launch's first sweep ``sweep0``.
+__device__ __forceinline__ uint64_t am_stream_init(int rng, uint32_t seed,
+                                                   int sweep0, uint32_t chain,
+                                                   uint32_t cbase) {
+  if (rng != AM_RNG_HW) return cbase;
+  const AmSalts s = am_sweep_salts(seed, (uint32_t)sweep0);
+  return ((uint64_t)am_word(s, 2u * chain + 1u) << 32)
+         | am_word(s, 2u * chain);
+}
+
+// The words of global sweep ``t``; advances a hw state by one sweep.
+__device__ __forceinline__ AmWords am_stream_sweep(int rng, uint32_t seed,
+                                                   int t, uint64_t& st) {
+  if (rng == AM_RNG_HW) {
+    const uint64_t old = st;
+    st = old * 6364136223846793005ull + 1442695040888963407ull;
+    const uint32_t x = (uint32_t)(((old >> 18) ^ old) >> 27);
+    const uint32_t rot = (uint32_t)(old >> 59);
+    return AmWords{(x >> rot) | (x << ((32u - rot) & 31u)), 0u, 0u, rng};
+  }
+  const AmSalts s = am_sweep_salts(seed, (uint32_t)t);
+  return AmWords{s.s1, s.s2, (uint32_t)st, rng};
 }
 
 // Top 24 bits plus half an ulp, clamped to the largest float below 1.

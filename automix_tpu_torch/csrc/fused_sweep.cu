@@ -1,90 +1,96 @@
 // Stage-3 reversible-jump sweep kernel: a whole chunk of sweeps per chain.
 //
 // Replaces the Pallas kernel of automix_tpu/kernels/fused.py
-// (build_fused_chunk_runner._built -> kernel, pallas_call at line 859)
-// with counter-hash randomness, for stateless column densities and, in a
-// cached form (kCache, K1e), for the DDI family's incremental density; in
-// four variants: Normal or Student-t perturbations (AM_TDIST: Bailey polar
-// draws and the t latent density) and with or without the latent
-// permutation (AM_PERM: the stable bubble network over per-slot uniform
-// keys).  Each variant is its own compilation unit and exports three
-// functions: the per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1
-// and adapt = 0 it is also the per-sweep kernel of the pooled runner, K1d,
-// the JAX _built(1, L, S, False)), the pooled-pk launcher AM_K1C_SYMBOL
-// (K1c, the JAX in-kernel pooled branch, fused.py:773-779) and
-// AM_K1C_CAP_SYMBOL, the number of chains K1c can hold resident.  The
-// plain PyTorch twin is automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
+// (build_fused_chunk_runner._built -> kernel, pallas_call at line 859) with
+// either of its word streams, a run-time uniform argument ``rng``: the counter
+// hash (``hash``) or K1f, the port's counterpart of its TPU hardware PRNG
+// (``hw``, fused.py:421-445; common.cuh AmWords); for stateless column
+// densities and, in a cached form (kCache, K1e), for the DDI family's
+// incremental density; in four variants: Normal or Student-t perturbations
+// (AM_TDIST: Bailey polar draws and the t latent density) and with or without
+// the latent permutation (AM_PERM: the stable bubble network over per-slot
+// uniform keys).  Each variant is its own compilation unit and exports three
+// functions: the per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1 and
+// adapt = 0 it is also the per-sweep kernel of the pooled runner, K1d, the JAX
+// _built(1, L, S, False)), the pooled-pk launcher AM_K1C_SYMBOL (K1c, the JAX
+// in-kernel pooled branch, fused.py:773-779) and AM_K1C_CAP_SYMBOL, the number
+// of chains K1c can hold resident.  The plain PyTorch twin is
+// automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
-// pkllim, nreinit) stays in registers for the whole chunk; device memory
-// sees one read and one write of the state per chunk.  The proposal tables
-// (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5,
-// L = 32) are copied to shared memory once per block; at the change-point
-// shape (6, 13) they take 312 + 8496 L bytes, so L stops at 27 on the H100:
-// the wrappers ask AM_K1_MAXL_SYMBOL and refuse a larger L before any launch
-// (kernels/fused.py check_tables).  The chunk
-// sums (K visit counts, 2*K*D theta sums) stay in registers too, and a
-// sweep adds to its own model's entries only (the twin's 0 * theta
-// additions are exact).  At rb9's K*D = 50 that takes K1 to 232-250 registers with no
-// spills, 2 blocks per SM; keeping the sums in shared memory instead (56 KB a
-// block, 3 blocks per SM) made a 100-sweep launch on rb9 5 times slower.
+// pkllim, nreinit) stays in registers for the whole chunk; device memory sees
+// one read and one write of the state per chunk.  The proposal tables
+// (K*L*(2D^2+D+3)+K*D floats: 38 KB at K = D = 5, 74 KB at K = 10, D = 5, L =
+// 32) are copied to shared memory once per block; at the change-point shape
+// (6, 13) they take 312 + 8496 L bytes, so L stops at 27 on the H100: the
+// wrappers ask AM_K1_MAXL_SYMBOL and refuse a larger L before any launch
+// (kernels/fused.py check_tables).  The chunk sums (K visit counts, 2*K*D
+// theta sums) stay in registers too, and a sweep adds to its own model's
+// entries only (the twin's 0 * theta additions are exact).  At rb9's K*D = 50
+// that takes K1 to 232-250 registers with no spills, 2 blocks per SM; keeping
+// the sums in shared memory instead (56 KB a block, 3 blocks per SM) made a
+// 100-sweep launch on rb9 5 times slower.
 //
-// K1c: the JAX kernel keeps the population in one lane block, so its
-// visit histogram is a cross-lane sum.  Here the population spans many
-// blocks, so K1c is a cooperative launch over blocks that the card holds
-// resident at once (the launcher refuses a population above that bound;
-// nothing falls back).  Each sweep, after the RJ accept, every warp counts
-// its chains per model with ballots, every block adds its counts to a
-// shared histogram and then, with one atomicAdd per model, to this sweep's
-// global histogram (three buffers in turn: the one read in the previous
-// sweep is zeroed after this sweep's grid barrier, when nobody reads it
-// any more and before anybody writes it again); after the grid barrier
-// every thread reads the counts and applies the update of fused.py:768-792
-// with oh = count * (1/S).  Integer counts make the update exact and
-// independent of order, so K1c equals the per-sweep runner (K1d) and the
-// twin bit for bit; the gain is am_gain(t), the float32 expression the
-// twin and the K1d runner compute in torch (kernels/fused.py _gains).
-// Threads past S run a copy of chain 0, count nothing and store nothing:
-// they must reach every barrier.
+// K1c: the JAX kernel keeps the population in one lane block, so its visit
+// histogram is a cross-lane sum.  Here the population spans many blocks, so
+// K1c is a cooperative launch over blocks that the card holds resident at once
+// (the launcher refuses a population above that bound; nothing falls back).
+// Each sweep, after the RJ accept, every warp counts its chains per model with
+// ballots, every block adds its counts to a shared histogram and then, with
+// one atomicAdd per model, to this sweep's global histogram (three buffers in
+// turn: the one read in the previous sweep is zeroed after this sweep's grid
+// barrier, when nobody reads it any more and before anybody writes it again);
+// after the grid barrier every thread reads the counts and applies the update
+// of fused.py:768-792 with oh = count * (1/S).  Integer counts make the update
+// exact and independent of order, so K1c equals the twin bit for bit, and with
+// the hash the per-sweep runner (K1d) too: the hw stream reseeds at every
+// launch, so K1d's one-sweep launches draw other words than K1c's chunk, as
+// JAX's _compiled_pooled does against its in-kernel pooled chunk; the gain is
+// am_gain(t), the float32 expression the twin and the K1d runner compute in
+// torch (kernels/fused.py _gains). Threads past S run a copy of chain 0, count
+// nothing and store nothing: they must reach every barrier.
 //
-// What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads
-// and writes nothing in device memory and costs ~NW hash words (NW = 3D+1+
-// 2L+K, plus D with perm and 2D with Student-t), ~2L+K+4 logf/expf/log1pf,
-// a few cosf/sinf and 2L small triangular matvecs.  Unlike the TPU kernel,
-// which evaluates every model and every (model, component) residual on
-// every lane and mask-selects because lanes cannot branch, a thread
-// branches: it loops over its own model's L components for the forward
-// allocation and the destination model's for the reverse one, recomputes
-// the selected component's residual instead of keeping K*L*D of them,
-// evaluates only its own model's density, and computes each random word
-// when it is used.  Densities are sanitized to finite values, so the TPU
-// kernel's 0*x + 1*y mask sums equal the directly selected y; its accept
-// blends x + a*(y - x) are kept as blends, since they are not always equal
-// to a select in floating point.  The variant switches are compile-time
-// constants, so the main-path variant carries no Student-t or perm code.
+// What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads and
+// writes nothing in device memory and costs ~NW random words (NW = 3D+1+2L+K,
+// plus D with perm and 2D with Student-t; ~23 operations a hash word, ~10 a hw
+// word and ~16 for the hw state's step of the sweep), ~2L+K+4
+// logf/expf/log1pf, a few cosf/sinf and 2L small triangular matvecs.  Unlike
+// the TPU kernel, which evaluates every model and every (model, component)
+// residual on every lane and mask-selects because lanes cannot branch, a
+// thread branches: it loops over its own model's L components for the forward
+// allocation and the destination model's for the reverse one, recomputes the
+// selected component's residual instead of keeping K*L*D of them, evaluates
+// only its own model's density, and computes each random word when it is used
+// (the stream's per-chain state is one 64-bit register pair: the hash's
+// counter base, or the hw stream's PCG state, so the stream is a run-time
+// argument and not a template one, which would double the instantiations and
+// the build).  Densities are sanitized to finite values, so the TPU kernel's
+// 0*x + 1*y mask sums equal the directly selected y; its accept blends x +
+// a*(y - x) are kept as blends, since they are not always equal to a select in
+// floating point.  The variant switches are compile-time constants, so the
+// main-path variant carries no Student-t or perm code.
 //
 // K1e, the cached form (the JAX kernel with a FusedColsDensity,
-// fused.py:460-466, 527-569, 729-765), is compiled at the DDI family's
-// shape (2, 16) only, where it is the only form.  A chain carries both
-// models' class statistics (AM_DDI_NCACHE = 165 floats, csrc/ddi.cuh) as
-// JAX does: fresh at the chunk's start (logp kept), updated by the accepted
-// moves, and recomputed with logp from the state after the RJ move of
-// every sweep t with t % 16 == 15.  A candidate's statistics are never
-// stored: its lp takes each column as the class loop needs it (from
-// scratch, or the carried column plus the coordinate move's features), and
-// an accepted move recomputes the columns it blends, c + (cn - c).  A
-// rejected move leaves the cache as it is, which equals JAX's blend with
-// acc = 0 whenever the candidate statistics are finite.  Both models'
-// statistics follow every accepted alpha move, whatever the chain's model,
-// so a jump's blend starts from the same carried values as in JAX.  The
-// componentwise loop runs over coordinates at run time (it is unrolled in
-// the stateless form), selecting theta's entries by compare so that theta
-// stays in registers.  The cache lives in shared memory as [column][thread]
-// (a warp's 32 accesses to one column hit 32 banks), which was faster than
-// each thread's local memory at the same registers (PERF.md section 6).
-// The proposal tables are read from device memory through L1 instead of
-// being copied to shared memory, which leaves shared memory to the cache
-// at any L: 84.5 KB a block, 2 blocks per SM at 221 registers.
+// fused.py:460-466, 527-569, 729-765), is compiled at the DDI family's shape
+// (2, 16) only, where it is the only form.  A chain carries both models' class
+// statistics (AM_DDI_NCACHE = 165 floats, csrc/ddi.cuh) as JAX does: fresh at
+// the chunk's start (logp kept), updated by the accepted moves, and recomputed
+// with logp from the state after the RJ move of every sweep t with t % 16 ==
+// 15.  A candidate's statistics are never stored: its lp takes each column as
+// the class loop needs it (from scratch, or the carried column plus the
+// coordinate move's features), and an accepted move recomputes the columns it
+// blends, c + (cn - c).  A rejected move leaves the cache as it is, which
+// equals JAX's blend with acc = 0 whenever the candidate statistics are
+// finite.  Both models' statistics follow every accepted alpha move, whatever
+// the chain's model, so a jump's blend starts from the same carried values as
+// in JAX.  The componentwise loop runs over coordinates at run time (it is
+// unrolled in the stateless form), selecting theta's entries by compare so
+// that theta stays in registers.  The cache lives in shared memory as
+// [column][thread] (a warp's 32 accesses to one column hit 32 banks), which
+// was faster than each thread's local memory at the same registers (PERF.md
+// section 6). The proposal tables are read from device memory through L1
+// instead of being copied to shared memory, which leaves shared memory to the
+// cache at any L: 84.5 KB a block, 2 blocks per SM at 221 registers.
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -139,7 +145,8 @@ size_t sweep_smem(int L) {
 
 template <int K, int D, bool kPooled>
 __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
-    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt, AmT tc,
+    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,
+    int rng, AmT tc,
     int* __restrict__ ghist, float inv_S,
     const float* __restrict__ tab, const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,
@@ -226,20 +233,23 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   const int s_gcmp = D + 1 + L + K, s_perm = D + 1 + 2 * L + K;
   const int s_bm = s_perm + (kPerm ? D : 0);
   const int NW = s_bm + (kTdist ? 4 * D : 2 * D);
-  const uint32_t cbase = (uint32_t)i * (uint32_t)NW;
+  // the chain's stream: the hash's counter base, or K1f's state seeded at
+  // this launch's first sweep (common.cuh)
+  uint64_t st = am_stream_init(rng, seed, sweep0, (uint32_t)i,
+                               (uint32_t)i * (uint32_t)NW);
   // RWM perturbation and latent filler of coordinate d this sweep
-  auto z_rwm = [&](const AmSalts& sa, int d) {
-    float u1 = am_u01(am_word(sa, cbase + s_bm + d));
-    float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
+  auto z_rwm = [&](const AmWords& wd, int d) {
+    float u1 = am_u01(wd(s_bm + d));
+    float u2 = am_u01(wd(s_bm + D + d));
     if (kTdist) return am_bailey_t(u1, u2, tc);
     return am_bm_radius(u1) * cosf(AM_TWO_PI * u2);
   };
-  auto z_lat = [&](const AmSalts& sa, int d) {
+  auto z_lat = [&](const AmWords& wd, int d) {
     if (kTdist)
-      return am_bailey_t(am_u01(am_word(sa, cbase + s_bm + 2 * D + d)),
-                         am_u01(am_word(sa, cbase + s_bm + 3 * D + d)), tc);
-    float u1 = am_u01(am_word(sa, cbase + s_bm + d));
-    float u2 = am_u01(am_word(sa, cbase + s_bm + D + d));
+      return am_bailey_t(am_u01(wd(s_bm + 2 * D + d)),
+                         am_u01(wd(s_bm + 3 * D + d)), tc);
+    float u1 = am_u01(wd(s_bm + d));
+    float u2 = am_u01(wd(s_bm + D + d));
     return am_bm_radius(u1) * sinf(AM_TWO_PI * u2);
   };
   auto lat_lpdf = [&](float w) {
@@ -250,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 
   for (int tr = 0; tr < n_sweeps; ++tr) {
     const int t = sweep0 + tr;
-    const AmSalts sa = am_sweep_salts(seed, (uint32_t)t);
+    const AmWords wd = am_stream_sweep(rng, seed, t, st);
     const int dk = dims_s[kk];
 
     // ---- (a) within-model move: block every 10th sweep, else per coord --
@@ -258,15 +268,14 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       float prop[D];
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(sa, d) : th[d];
+        prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(wd, d) : th[d];
       float lpn;
       if constexpr (kCache)
         lpn = (kk == 0) ? am_ddi_logpost<0>(prop) : am_ddi_logpost<1>(prop);
       else
         lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk,
                                prop);
-      float acc = (am_u01(am_word(sa, cbase)) < am_accept(lpn - lp)) ? 1.0f
-                                                                      : 0.0f;
+      float acc = (am_u01(wd(0)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
       if constexpr (kCache) {
         if (acc != 0.0f) {
           am_ddi_cache_full<0>(prop, cache, true);
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d)
           if (d == j) oldj = th[d];
-        const float pj = oldj + sig[kk * D + j] * z_rwm(sa, j);
+        const float pj = oldj + sig[kk * D + j] * z_rwm(wd, j);
         float prop[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = (d == j) ? pj : th[d];
@@ -294,8 +303,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
                               ? am_ddi_lp_coord<0>(j, prop, oldj, cache)
                               : am_ddi_lp_coord<1>(j, prop, oldj, cache);
         const float acc =
-            (am_u01(am_word(sa, cbase + j)) < am_accept(lpn - lp)) ? 1.0f
-                                                                   : 0.0f;
+            (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
         if (acc != 0.0f) {
           am_ddi_cache_coord<0>(j, prop, oldj, cache);
           am_ddi_cache_coord<1>(j, prop, oldj, cache);
@@ -314,12 +322,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         float prop[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
-        prop[j] = th[j] + sig[kk * D + j] * z_rwm(sa, j);
+        prop[j] = th[j] + sig[kk * D + j] * z_rwm(wd, j);
         float lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS,
                                      dk, prop);
-        float acc = (am_u01(am_word(sa, cbase + j)) < am_accept(lpn - lp))
-                        ? 1.0f
-                        : 0.0f;
+        float acc = (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
         th[j] = th[j] + acc * (prop[j] - th[j]);
         lp = lp + acc * (lpn - lp);
         cnt[2] += (int)acc;
@@ -344,11 +350,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       logits[li] = abase[ml] - 0.5f * quad;
     }
     int l_idx = 0;
-    float best = logits[0] + am_gumbel(am_u01(am_word(sa, cbase + s_gall)));
+    float best = logits[0] + am_gumbel(am_u01(wd(s_gall)));
     float mx = logits[0];
     for (int li = 1; li < L; ++li) {
-      float v = logits[li]
-                + am_gumbel(am_u01(am_word(sa, cbase + s_gall + li)));
+      float v = logits[li] + am_gumbel(am_u01(wd(s_gall + li)));
       if (v > best) {
         best = v;
         l_idx = li;
@@ -384,12 +389,11 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       float logpk[K];
 #pragma unroll
       for (int m = 0; m < K; ++m) logpk[m] = logf(fmaxf(pk[m], 1e-38f));
-      float bk = logpk[0] + am_gumbel(am_u01(am_word(sa, cbase + s_gmod)));
+      float bk = logpk[0] + am_gumbel(am_u01(wd(s_gmod)));
       kn = 0;
 #pragma unroll
       for (int m = 1; m < K; ++m) {
-        float v = logpk[m]
-                  + am_gumbel(am_u01(am_word(sa, cbase + s_gmod + m)));
+        float v = logpk[m] + am_gumbel(am_u01(wd(s_gmod + m)));
         if (v > bk) {
           bk = v;
           kn = m;
@@ -408,10 +412,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     // destination component ln ~ lam[kn]
     int ln = 0;
     {
-      float bl = loglam[kn * L] + am_gumbel(am_u01(am_word(sa, cbase + s_gcmp)));
+      float bl = loglam[kn * L] + am_gumbel(am_u01(wd(s_gcmp)));
       for (int li = 1; li < L; ++li) {
         float v = loglam[kn * L + li]
-                  + am_gumbel(am_u01(am_word(sa, cbase + s_gcmp + li)));
+                  + am_gumbel(am_u01(wd(s_gcmp + li)));
         if (v > bl) {
           bl = v;
           ln = li;
@@ -424,7 +428,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     // the permutation, the "shrink" density after it
     float wf[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) wf[d] = (d < dk) ? work[d] : z_lat(sa, d);
+    for (int d = 0; d < D; ++d) wf[d] = (d < dk) ? work[d] : z_lat(wd, d);
 #pragma unroll
     for (int d = 0; d < D; ++d)
       if (d >= dk && d < dkn) logratio = logratio - lat_lpdf(wf[d]);
@@ -436,8 +440,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       float keys[D];
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        keys[d] = (d < nact) ? am_u01(am_word(sa, cbase + s_perm + d))
-                             : 1.0f + (float)d;
+        keys[d] = (d < nact) ? am_u01(wd(s_perm + d)) : 1.0f + (float)d;
 #pragma unroll
       for (int pass = 0; pass < D; ++pass) {
 #pragma unroll
@@ -507,8 +510,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
     logratio = logratio + (logdet[kn * L + ln] - logdet[kk * L + l_idx]);
     const float accf =
-        (am_u01(am_word(sa, cbase + s_uacc)) < am_accept(logratio)) ? 1.0f
-                                                                     : 0.0f;
+        (am_u01(wd(s_uacc)) < am_accept(logratio)) ? 1.0f : 0.0f;
     const int acci = (int)accf;
     if constexpr (kCache) {
       if (acci) {
@@ -615,7 +617,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 struct SweepArgs {
   int S, L;
   unsigned int seed;
-  int sweep0, n_sweeps, adapt;
+  int sweep0, n_sweeps, adapt, rng;
   AmT tc;
   int* ghist;
   float inv_S;
@@ -693,7 +695,7 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
     if (rc != 0) return rc;
     if (a.S > cap) return -2;
     void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
-                    &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
+                    &a.rng, &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
                     &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
                     &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
                     &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
@@ -704,8 +706,8 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
     if (e != cudaSuccess) return (int)e;
   } else {
     fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
-        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.tc, a.ghist,
-        a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
+        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.rng, a.tc,
+        a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
         a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
         a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
         a.cnt_out);
@@ -736,19 +738,21 @@ int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
 // for a (K, D) pair without an instantiation or an L above kLMax.  The form
 // follows from (K, D): at the cached shape (AM_DDI_K, AM_DDI_D) the kernel
 // evaluates the DDI density with its cache, elsewhere the stateless
-// densities of common.cuh.  ``tconsts`` is a host array of the five
-// Student-t constants (AmT); the Normal variants ignore it.
+// densities of common.cuh.  ``rng`` is the stream, AM_RNG_HASH or AM_RNG_HW
+// (K1f).  ``tconsts`` is a host array of the five Student-t constants (AmT);
+// the Normal variants ignore it.
 extern "C" int AM_K1_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int adapt, const float* tconsts, const void* tab,
+    int adapt, int rng, const float* tconsts, const void* tab,
     const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
     void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
     void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
   if (L < 1 || L > kLMax || S < 1) return -1;
+  if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
   if (kTdist && !tconsts) return -1;
-  SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, t_consts(tconsts),
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, rng, t_consts(tconsts),
                  nullptr, 0.0f,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,
@@ -767,15 +771,16 @@ extern "C" int AM_K1_SYMBOL(
 // (AM_K1C_CAP_SYMBOL).
 extern "C" int AM_K1C_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    const float* tconsts, void* ghist, float inv_S,
+    int rng, const float* tconsts, void* ghist, float inv_S,
     const void* tab, const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
     void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
     void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
   if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
+  if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
   if (kTdist && !tconsts) return -1;
-  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, t_consts(tconsts),
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, t_consts(tconsts),
                  (int*)ghist, inv_S,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,

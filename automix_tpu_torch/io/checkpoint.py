@@ -3,8 +3,13 @@
 Counterpart of ``automix_tpu/io/checkpoint.py``: one ``.npz`` holding the
 chain state, the proposal, the global sweep counter and the host run
 statistics, so a killed run continues with identical trajectories.  The
-port's chains carry no PRNG keys (every word is a hash of seed, sweep,
-chain and slot), so there is no ``chains.key`` entry.  Written atomically.
+port's chains carry no PRNG keys, so there is no ``chains.key`` entry: a
+``hash`` word is a function of seed, sweep, chain and slot, and the
+stage-3 kernel's ``hw`` stream is reseeded from (seed, the launch's first
+sweep, chain) at every launch.  As in JAX, an ``hw`` run resumed at a
+chunk boundary and chunked the same way reproduces bitwise; chunked
+otherwise (another ``sweep_chunk``, or a resume inside a chunk) it draws
+other words.  Written atomically.
 """
 
 from __future__ import annotations

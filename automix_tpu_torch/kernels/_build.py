@@ -94,10 +94,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
+    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _I, _P]
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
-    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _P]
+    **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
        + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, kind): [_I, _I, _I, _P]

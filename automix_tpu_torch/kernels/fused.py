@@ -1,10 +1,26 @@
 """Stage 3: reversible-jump sweeps, a whole chunk per kernel launch.
 
-Counterpart of ``automix_tpu/kernels/fused.py`` with ``hash`` randomness,
-with or without perm and Student-t: ``_prep_tables``, the chunk runners of
-``_compiled``, ``_compiled_pooled`` and ``runner``, and the sweep kernel
-itself, which is ``csrc/fused_sweep.cu`` on the card and
-:func:`sweep_chunk_ref` on the CPU.
+Counterpart of ``automix_tpu/kernels/fused.py``, with or without perm
+and Student-t: ``_prep_tables``, the chunk runners of ``_compiled``,
+``_compiled_pooled`` and ``runner``, and the sweep kernel itself, which is
+``csrc/fused_sweep.cu`` on the card and :func:`sweep_chunk_ref` on the
+CPU.
+
+The words come from one of two streams, as in JAX (``fused_rng``).
+``hash`` is JAX's counter hash, every word a pure function of (seed,
+global sweep, chain, slot), so its runs are bitwise JAX's words and
+resume at any sweep.  ``hw`` (K1f) stands for the TPU's hardware PRNG,
+which no GPU has: a per-chain state seeded at each launch's first sweep
+from (seed, sweep0, global chain) and stepped once per sweep into a key,
+every word a cheap mix of (key, slot) (``ops/randoms.py`` ``hw_*``).  It
+is chunk-granular as JAX's is: a launch reseeds, so a run resumed at a
+chunk boundary and chunked the same way reproduces bitwise, and K1d's
+one-sweep launches reseed every sweep, as JAX's ``_compiled_pooled``
+does.  ``auto`` resolves on the chains' device (:func:`resolve_rng`):
+``hw`` on the card, ``hash`` on the CPU, as JAX's is ``hw`` on its chip
+and ``hash`` under its interpreter.  An explicit ``hw`` on the CPU runs
+the twin of the port's own stream, which JAX cannot do for the TPU's.
+The wrappers' own default stays ``hash``.
 
 A model set's density is a stateless column density or an incremental
 one with a per-chain cache (``model.make_density``; the DDI family's,
@@ -22,9 +38,10 @@ for a population the card holds resident at once
 (:func:`pooled_capacity`).  A larger population takes K1d
 (:func:`pooled_sweeps`): one launch of the per-chain kernel per sweep with
 pk frozen, and the shared update between launches in plain torch on the
-device, as the JAX ``_compiled_pooled``.  For stateless densities the two
-routes give bitwise the same chains; with a cache they do not, since K1d's
-one-sweep launches rebuild it every sweep.  Burn-in and ``adapt=False``
+device, as the JAX ``_compiled_pooled``.  With the hash and a stateless
+density the two routes give bitwise the same chains; with a cache they do
+not, since K1d's one-sweep launches rebuild it every sweep, nor with the
+hw stream, which they reseed every sweep.  Burn-in and ``adapt=False``
 runs keep the per-chunk kernel, pk being frozen.
 
 The stateless form copies the proposal tables into each block's shared
@@ -32,8 +49,9 @@ memory, so their size bounds L: at the change-point shape (6, 13) on the
 H100 the wrappers refuse L > 27 before any launch (:func:`check_tables`
 asks the kernel's launcher).
 
-Chain i draws its words at hash counters i * NW + slot, which is the JAX
-kernel's chain_id for the flat chain index.  The slots follow the JAX
+Chain i draws its hash words at counters i * NW + slot, which is the JAX
+kernel's chain_id for the flat chain index; its hw stream is keyed by i
+too, so neither depends on the launch geometry.  The slots follow the JAX
 layout: D RWM accepts, the RJ accept, L + K + L Gumbel words, then
 ``s_perm = 2L + K + D + 1`` (D permutation keys with perm),
 ``s_bm = s_perm + (D if perm else 0)`` and
@@ -64,6 +82,20 @@ _MAX_L = 32          # csrc/fused_sweep.cu kLMax
 # Sweeps between full refreshes of an incremental density's cache and
 # logp (the JAX _REFRESH): keyed on the global sweep, t % 16 == 15.
 _REFRESH = 16
+# The sweep kernel's word streams, by their launcher code (csrc/common.cuh
+# AM_RNG_HASH, AM_RNG_HW).
+RNG_STREAMS = {"hash": 0, "hw": 1}
+
+
+def resolve_rng(fused_rng: str, device) -> str:
+    """``EngineConfig.fused_rng`` on ``device``: "auto" is "hw" on the card
+    and "hash" on the CPU (JAX's rule: "hw" on a TPU, "hash" under the
+    interpreter); "hw" and "hash" are kept."""
+    if fused_rng == "auto":
+        return "hw" if torch.device(device).type == "cuda" else "hash"
+    if fused_rng not in RNG_STREAMS:
+        raise ValueError(f"unknown fused_rng {fused_rng!r}")
+    return fused_rng
 
 
 @dataclasses.dataclass
@@ -176,11 +208,13 @@ def _gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
 def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                     tables: SweepTables, *, seed: int, sweep0: int,
                     n_sweeps: int, adapt: bool, perm: bool = False,
-                    tdist=None, pooled: bool = False):
+                    tdist=None, pooled: bool = False, rng: str = "hash"):
     """Plain PyTorch twin of the sweep kernel: ``n_sweeps`` sweeps (global
     sweeps sweep0 ...) of every chain.  ``theta`` is [D, S] and ``pk``
     [K, S]; ``perm`` permutes the RJ latent and ``tdist`` (a
-    ``randoms.StudentT``) selects Student-t perturbations.  ``pooled``
+    ``randoms.StudentT``) selects Student-t perturbations.  ``rng`` is the
+    word stream, "hash" or "hw" (seeded here from (seed, sweep0, chain)
+    and stepped once per sweep).  ``pooled``
     (K1c's twin) adapts pk from the population's visit histogram; every
     row of pk, pkllim and nreinit then stays equal.  Returns (k, theta,
     logp, pk, pkllim, nreinit, ksum [K, S], tsum [K*D, S], tqsum
@@ -194,6 +228,10 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW = word_slots(
         K, D, L, perm, tdist is not None)
     chain = torch.arange(S, device=dev)
+    if rng == "hw":
+        stream = randoms.hw_state(seed, sweep0, chain)
+    elif rng != "hash":
+        raise ValueError(f"sweep_chunk: unknown rng {rng!r}")
     dims = torch.as_tensor(modelset.dims, device=dev).long()
     mu3 = tables.mu.reshape(K, L, D)
     binv4 = tables.binv.reshape(K, L, D, D)
@@ -218,7 +256,11 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
 
     for tr in range(n_sweeps):
         t = sweep0 + tr
-        words = randoms.sweep_words(seed, t, chain, range(NW))
+        if rng == "hw":
+            stream, key = randoms.hw_step(stream)
+            words = randoms.hw_words(key, range(NW))
+        else:
+            words = randoms.sweep_words(seed, t, chain, range(NW))
         u = randoms.u01(words)                                  # [NW, S]
         if tdist is not None:
             z_rwm = randoms.bailey_t(u[s_bm:s_bm + D],
@@ -483,23 +525,26 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
                 n_sweeps: int, adapt: bool, perm: bool = False,
-                tdist=None, pooled: bool = False):
+                tdist=None, pooled: bool = False, rng: str = "hash"):
     """``n_sweeps`` stage-3 sweeps of every chain: the CUDA kernel for
     tensors on the card, its plain twin for tensors on the CPU.  Same
     arguments and results as :func:`sweep_chunk_ref`.  ``pooled`` launches
-    K1c (counted in ``sweep_chunk.pooled_launches``), whose launcher
-    refuses a population above :func:`pooled_capacity` (then this
-    raises); the per-chain kernel counts in ``sweep_chunk.launches``.  A
-    model set with an incremental density (DDI) launches the cached form
-    K1e; a kernel that cannot build or launch raises, and nothing falls
-    back to the twin."""
+    K1c, whose launcher refuses a population above :func:`pooled_capacity`
+    (then this raises).  Launches count by stream: the per-chain kernel in
+    ``sweep_chunk.launches`` (hash) and ``sweep_chunk.hw_launches`` (K1f),
+    the pooled one in ``sweep_chunk.pooled_launches`` and
+    ``sweep_chunk.pooled_hw_launches``.  A model set with an incremental
+    density (DDI) launches the cached form K1e; a kernel that cannot build
+    or launch raises, and nothing falls back to the twin."""
     if pooled and not (adapt and modelset.nmodels > 1):
         raise ValueError("sweep_chunk: pooled pk needs adapt and K > 1")
+    if rng not in RNG_STREAMS:
+        raise ValueError(f"sweep_chunk: unknown rng {rng!r}")
     if k.device.type == "cpu":
         return sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                                tables, seed=seed, sweep0=sweep0,
                                n_sweeps=n_sweeps, adapt=adapt, perm=perm,
-                               tdist=tdist, pooled=pooled)
+                               tdist=tdist, pooled=pooled, rng=rng)
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -539,22 +584,30 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
         symbol = _build.sweep_symbol(perm, tdist is not None, "pooled")
         status = getattr(_build.library(), symbol)(
             K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps,
-            _build.tconsts(tdist), ghist.data_ptr(),
+            RNG_STREAMS[rng], _build.tconsts(tdist), ghist.data_ptr(),
             float(torch.tensor(1.0 / S, dtype=f32)), *state)
         _build.check(status, symbol)
-        sweep_chunk.pooled_launches += 1
+        if rng == "hw":
+            sweep_chunk.pooled_hw_launches += 1
+        else:
+            sweep_chunk.pooled_launches += 1
         return outs
     symbol = _build.sweep_symbol(perm, tdist is not None)
     status = getattr(_build.library(), symbol)(
         K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
-        _build.tconsts(tdist), *state)
+        RNG_STREAMS[rng], _build.tconsts(tdist), *state)
     _build.check(status, symbol)
-    sweep_chunk.launches += 1
+    if rng == "hw":
+        sweep_chunk.hw_launches += 1
+    else:
+        sweep_chunk.launches += 1
     return outs
 
 
 sweep_chunk.launches = 0
 sweep_chunk.pooled_launches = 0
+sweep_chunk.hw_launches = 0
+sweep_chunk.pooled_hw_launches = 0
 
 
 def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
@@ -576,16 +629,17 @@ def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
 
 def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                   *, seed: int, perm: bool = False, tdist=None,
-                  sweep_fn=None):
+                  sweep_fn=None, rng: str = "hash"):
     """K1d, the per-sweep pooled runner (the JAX ``_compiled_pooled``):
     each sweep one launch of the per-chain kernel with pk frozen (its
     plain twin on the CPU), then :func:`pooled_update` of the shared pk
     from the sweep's integer histogram, all on the chains' device with no
     host sync.  Returns (chains', chunk) as the chunk runner does; the
     float sums are summed sweep by sweep, so they may differ from K1c's in
-    the last bits.  Its launches count in ``sweep_chunk.launches``.
-    ``sweep_fn=sweep_chunk_ref`` is the runner's plain twin on any
-    device."""
+    the last bits.  Its launches count in ``sweep_chunk.launches`` (or
+    ``hw_launches`` with ``rng="hw"``, whose one-sweep launches reseed the
+    stream every sweep).  ``sweep_fn=sweep_chunk_ref`` is the runner's
+    plain twin on any device."""
     sweep_fn = sweep_fn or sweep_chunk
     K, D = modelset.nmodels, modelset.dmax
     S = chains.n_chains
@@ -606,7 +660,7 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
         outs = sweep_fn(modelset, k, th, lp, pk_in, chains.pkllim,
                         chains.nreinit, tables, seed=seed,
                         sweep0=chains.sweep + tr, n_sweeps=1, adapt=False,
-                        perm=perm, tdist=tdist)
+                        perm=perm, tdist=tdist, rng=rng)
         k, th, lp = outs[0], outs[1], outs[2]
         hist = outs[6].sum(dim=1, dtype=i64)
         ks_a += hist
@@ -644,7 +698,8 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     when ``cfg.adapt`` and not burning.  An adapting pooled run takes K1c
     when the card holds the population resident (on the CPU, where both
     routes are twins, always) and K1d otherwise or when
-    ``_FORCE_POOLED_SCAN`` is set."""
+    ``_FORCE_POOLED_SCAN`` is set.  The words follow ``cfg.fused_rng``
+    resolved on the chains' device (:func:`resolve_rng`)."""
     K, D = modelset.nmodels, modelset.dmax
     adapt = cfg.adapt and not burning
     pooled = cfg.pk_mode == "pooled" and adapt and K > 1
@@ -662,19 +717,20 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     def runner(chains: Chains, prop: Proposal, n_sweeps: int):
         tables = tables_for(prop)
         dev = chains.k.device
+        rng = resolve_rng(cfg.fused_rng, dev)
         if pooled and (_FORCE_POOLED_SCAN or (
                 dev.type == "cuda" and chains.n_chains > pooled_capacity(
                     modelset, tables.loglam.shape[1], dev, cfg.perm,
                     tdist))):
             return pooled_sweeps(modelset, chains, tables, n_sweeps,
                                  seed=int(cfg.seed), perm=cfg.perm,
-                                 tdist=tdist)
+                                 tdist=tdist, rng=rng)
         outs = sweep_chunk(
             modelset, chains.k, chains.theta.T.contiguous(), chains.logp,
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
             tables, seed=int(cfg.seed), sweep0=chains.sweep,
             n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist,
-            pooled=pooled)
+            pooled=pooled, rng=rng)
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,

@@ -56,14 +56,6 @@ def resolve_rng(cfg) -> str:
     return "threefry"
 
 
-def _mulhilo(m: int, b):
-    """(hi, lo) 32-bit halves of the constant ``m`` times the uint32
-    words ``b`` (int64 tensor)."""
-    p_lo = m * (b & 0xFFFF)
-    mid = m * (b >> 16) + (p_lo >> 16)
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
-
-
 def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
     """Philox-4x32-``rounds`` of counters (c0, c1, c2, c3) under key
     (k0, k1): uint32 values in int64 tensors or Python ints, broadcast."""
@@ -71,8 +63,8 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
         if r:
             k0 = (k0 + _W0) & _M32
             k1 = (k1 + _W1) & _M32
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
+        hi0, lo0 = randoms.mulhilo(_M0, c0)
+        hi1, lo1 = randoms.mulhilo(_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     return c0, c1, c2, c3
 

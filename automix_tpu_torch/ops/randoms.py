@@ -18,10 +18,23 @@ kernels' clamp, so a word whose top 24 bits are all ones gives exactly
 :func:`erf_inv`, XLA's float32 polynomial, so u = 1.0 gives z = +inf
 there too.
 
+The stage-3 kernel's second stream, ``hw`` (K1f, the port's counterpart
+of the JAX kernel's TPU hardware PRNG), keeps one 64-bit state per chain:
+:func:`hw_state` seeds it at a launch's first sweep from (seed, sweep0,
+global chain) through the hash, :func:`hw_step` advances it once per sweep
+(a PCG32 step: the LCG state * 6364136223846793005 + 1442695040888963407
+mod 2^64, and the XSH-RR output of the old state as the sweep's 32-bit
+key), and :func:`hw_words` makes each word a pure function of (key, slot),
+lowbias32(key ^ slot * 0x9E3779B9).  Like the TPU stream it is
+chunk-granular: a launch reseeds, so runs chunked alike are bitwise equal
+and runs chunked otherwise draw other words.
+
 torch has no complete uint32 arithmetic, so words live in int64 tensors
 holding values in [0, 2^32): every multiply and add is masked back to 32
 bits before the next shift.  A product that wraps int64 keeps its low 32
-bits, so the masked result is exact.
+bits, so the masked result is exact.  The ``hw`` stream's functions do not
+rely on that: they split each 32 x 32-bit product into 16-bit halves, and
+hold the 64-bit state as two 32-bit halves (lo, hi).
 """
 
 from __future__ import annotations
@@ -89,6 +102,69 @@ def sweep_words(seed: int, t: int, chain_ids, slots):
                              device=chain_ids.device)
     c = (chain_ids.to(torch.int64)[None, :] * nw + slot_t[:, None]) & _M32
     return hash_words(seed, t, c)
+
+
+# The hw stream (K1f): PCG32's multiplier and increment, and the golden
+# ratio that spreads the slots of a sweep's words.
+_PCG_MUL = 6364136223846793005
+_PCG_INC = 1442695040888963407
+_GOLDEN = 0x9E3779B9
+
+
+def mulhilo(m: int, b):
+    """(hi, lo) 32-bit halves of the uint32 constant ``m`` times the uint32
+    words ``b`` (int64 tensor), every partial product below 2^49."""
+    p_lo = m * (b & 0xFFFF)
+    mid = m * (b >> 16) + (p_lo >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def _mul_lo(x, c: int):
+    """The low 32 bits of ``x * c`` (uint32 values, a uint32 constant)."""
+    return mulhilo(c, x)[1]
+
+
+def hw_state(seed: int, sweep0: int, chain_ids):
+    """The hw stream's per-chain state at a launch whose first sweep is
+    ``sweep0``: (lo, hi), the hash words of sweep ``sweep0`` at counters
+    2 * chain and 2 * chain + 1 (``chain_ids`` the global chain indices, an
+    int64 tensor)."""
+    c = (chain_ids.to(torch.int64) * 2) & _M32
+    return (hash_words(seed, sweep0, c),
+            hash_words(seed, sweep0, (c + 1) & _M32))
+
+
+def hw_step(state):
+    """One sweep's advance of the hw stream: (the next state, the sweep's
+    32-bit key), the key being the XSH-RR output of the current state."""
+    lo, hi = state
+    # state * _PCG_MUL + _PCG_INC mod 2^64, in 32-bit halves
+    m_lo, m_hi = _PCG_MUL & _M32, _PCG_MUL >> 32
+    p_hi, p_lo = mulhilo(m_lo, lo)
+    s_lo = p_lo + (_PCG_INC & _M32)
+    n_hi = (p_hi + _mul_lo(lo, m_hi) + _mul_lo(hi, m_lo) + (_PCG_INC >> 32)
+            + (s_lo >> 32)) & _M32
+    # XSH-RR: x = ((old >> 18) ^ old) >> 27 (low 32 bits), rotated right by
+    # old >> 59
+    y_lo = ((lo >> 18) | ((hi << 14) & _M32)) ^ lo
+    y_hi = (hi >> 18) ^ hi
+    x = (y_lo >> 27) | ((y_hi << 5) & _M32)
+    rot = hi >> 27
+    key = (x >> rot) | ((x << ((32 - rot) & 31)) & _M32)
+    return (s_lo & _M32, n_hi), key
+
+
+def hw_words(key, slots):
+    """[len(slots), S] words of one sweep from its keys [S]:
+    lowbias32(key ^ slot * 0x9E3779B9)."""
+    slot_t = torch.as_tensor(list(slots), dtype=torch.int64,
+                             device=key.device)
+    x = key[None, :] ^ ((slot_t * _GOLDEN) & _M32)[:, None]
+    x = x ^ (x >> 16)
+    x = _mul_lo(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_lo(x, 0x846CA68B)
+    return x ^ (x >> 16)
 
 
 def bits_to_uniform(words):

@@ -17,7 +17,9 @@ plain torch on the same device, K4 for ``rng="pallas"``) serves every
 other set, and every set under ``fused="off"`` / ``fused_stage1="off"``.
 ``"on"`` raises for a set the kernels cannot serve.  One line on the
 ``automix_tpu_torch`` logger names the engine and the reason at each
-runner build, as JAX's ``_log_engine``.
+runner build, as JAX's ``_log_engine``, and for the kernel engine the
+stage-3 stream ``fused_rng`` resolves to on the device ("kernel engine,
+rng hw" on the card by default: ``fused.resolve_rng``).
 
 Traces follow the JAX decimation (``trace_every``): a traced run on the
 kernels launches ``trace_every``-sweep chunks and records a snapshot of
@@ -93,10 +95,12 @@ class AMSampler:
                 self._runners[key] = rjmcmc.build_chunk_runner(
                     self.modelset, self.cfg, burning=burning,
                     collect=key[1])
+            engine = (f"kernel engine, rng "
+                      f"{fused.resolve_rng(self.cfg.fused_rng, self.device)}"
+                      if kernels else "general engine")
             logging.getLogger("automix_tpu_torch").info(
-                "stage-3 %s runner: %s engine (%s)",
-                "burn-in" if burning else "production",
-                "kernel" if kernels else "general", why)
+                "stage-3 %s runner: %s (%s)",
+                "burn-in" if burning else "production", engine, why)
         return self._runners[key], kernels
 
     def _ensure_proposal(self):

@@ -45,9 +45,10 @@ PyTorch twin on the card, then drives the port's paths at full size:
   and 10000 timed sweeps; K1, K1 + perm and K1c on cpt's proposal and
   state, each equal to its twin; the CLI in mode 1 at its defaults with
   ``-N 10000`` from each set's ``_mix.data``.  p(M) against the JAX
-  package's own posterior (``tests/data/cpt_jax_reference.json``), cpt
-  against cptrs within the JAX test's atol, and the CLI on cpt against
-  the JAX package's CLI run from the same proposal
+  package's own posterior (``tests/data/cpt_jax_reference.json``), the
+  mean of eight cpt stage-3 runs from its proposal (each also held to
+  JAX's posterior) against cptrs within the JAX test's atol, and the CLI
+  on cpt against the JAX package's CLI run from the same proposal
   (``tests/data/cpt_cli_witness.json``);
 * the general engine (plain torch, for sets the kernels do not serve):
   K4, the ``rng="pallas"`` draw kernel, against its twin at the
@@ -59,12 +60,25 @@ PyTorch twin on the card, then drives the port's paths at full size:
   exact values; and the CLI on ``examples/model_selection_torch.py``'s
   per-theta set by ``module:function``, p(M) against its closed form.
 
+``fused_rng="auto"`` is the hw stream on the card, so every sampler path
+above runs the sweep kernel's hw form (K1f).  Beside them: 20000 timed
+sweeps of the main path's state on the hash (both streams' chain-sweeps/s
+in one log) and K1 timed on that state with each stream in turns; K1f
+against its twin on the card in seven forms (the tutorial, toy2 perm +
+Student-t and perm, rb9's K1c and K1d runner, DDI's K1e bitwise, cpt at
+(6, 13)); the two routes held bitwise (K1c against the forced K1d on rb9,
+the K1d runner against its twin) pinned to the hash, which they need; and
+each hash form whose own path now runs K1f driven through ``AMSampler``
+pinned to the hash (the burn-ins of the toy2 and rb9 check states, and
+short drives from the DDI and cpt states).
+
 Every kernel's launch counter is set to 0 just before a path and read
-just after it.  Any failed check exits non-zero without printing a
-result.  The kernels' JSON record gives each kernel's time, its plain
-twin's time and its bound: the larger of the operations its function
-needs on these inputs over the card's float32 peak and the bytes it must
-move over the card's memory rate (``bound``).
+just after it; the sweep kernel counts its two streams apart.  Any
+failed check exits non-zero without printing a result.  The kernels' JSON
+record gives each kernel's time, its plain twin's time and its bound: the
+larger of the operations its function needs on these inputs over the
+card's float32 peak and the bytes it must move over the card's memory
+rate (``bound``).
 
     python3 chip_smoke.py
 
@@ -73,6 +87,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -175,6 +190,13 @@ CPT_ROUTE_SWEEPS = 20       # the K3 + log route against its twin
 # section 6).
 CPT_TOL, CPT_SPREADS = 0.03, 3.0
 CPT_PAIR_ATOL = 0.08
+# The pair check compares cptrs with the mean of CPT_REPLICAS runs of
+# cpt's stage 3 from the one fitted proposal (seeds 5, 105, ...): one
+# run's largest gap reads 0.0735-0.0818 over 16 stage-3 seeds on either
+# stream, mean 0.078 with a spread of 0.002, so a single run crosses 0.08
+# in 1-3 of 16 (tools/cpt_stream_spread.py; PERF.md section 6), and the
+# mean of eight has a spread of ~0.0007.  cptrs spreads 0.0002.
+CPT_REPLICAS = 8
 
 # The general engine (plain torch, eager: every sweep is a few hundred
 # launches, ~8-25 ms, so its paths run fewer sweeps than the kernels').
@@ -205,12 +227,16 @@ TOY2_GEN_TOL, TOY2_GEN_SPREADS, TOY2_GEN_EXACT = 0.005, 3.0, 0.02
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # Operations per call, counted from csrc/common.cuh: the counter hash and
-# u01 of one word, and the accurate libdevice functions (no fast math),
-# approximately.  A multiply and an add count as one operation each:
-# -fmad=false forbids fusing them, while the 67 TFLOP/s peak counts a fused
-# multiply-add as two, so this code can reach half the peak at most.
-OPS = {"word": 27, "log": 16, "exp": 12, "log1p": 20, "trig": 24,
-       "sqrt": 4, "div": 8}
+# u01 of one word ("word": two 32-bit hashes, 23, and u01, 4), K1f's word
+# ("hw_word": lowbias32 of key ^ slot * golden, 10, and u01) and its state's
+# step once per chain-sweep ("hw_step": the 64-bit LCG step in 32-bit
+# operations and the XSH-RR output), and the accurate libdevice functions
+# (no fast math), approximately.  A multiply and an add count as one
+# operation each: -fmad=false forbids fusing them, while the 67 TFLOP/s
+# peak counts a fused multiply-add as two, so this code can reach half the
+# peak at most.
+OPS = {"word": 27, "hw_word": 14, "hw_step": 16, "log": 16, "exp": 12,
+       "log1p": 20, "trig": 24, "sqrt": 4, "div": 8}
 OPS["gammaln"] = 2 * OPS["log"] + OPS["div"] + 16
 OPS["gumbel"] = OPS["log1p"] + OPS["log"] + 2
 OPS["normal"] = OPS["log1p"] + OPS["sqrt"] + OPS["trig"] + 3
@@ -289,12 +315,14 @@ def density_ops(ms, probs):
     return float(np.dot(probs, per))
 
 
-def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None):
+def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None,
+              rng="hash"):
     """Operations of one stage-3 chain-sweep (K1): random words, the
     within-model move, both allocations (L triangular matvecs each), the
     destination draws, the latent fill, the accept, the pk update and the
     chunk sums, at the mean model dimension under ``probs``; ``density``
-    replaces the operations of one density evaluation."""
+    replaces the operations of one density evaluation.  ``rng="hw"``
+    counts K1f's words and its state's step in place of the hash's."""
     import numpy as np
     K, D = ms.nmodels, ms.dmax
     dk = float(np.dot(probs, ms.dims))
@@ -303,7 +331,8 @@ def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None):
     moves = 0.9 * dk + 0.1            # componentwise, block every 10th
     alloc = L * (1.5 * dk * (dk + 1) + 2 * dk + 3) + L * OPS["exp"] \
         + OPS["log"] + 2 * L
-    ops = (words * OPS["word"]
+    word = OPS["hw_word"] if rng == "hw" else OPS["word"]
+    ops = (words * word + (OPS["hw_step"] if rng == "hw" else 0)
            + (2 * L + K) * OPS["gumbel"]
            + dk * z + moves * (OPS["exp"] + 8)
            + 2 * alloc
@@ -316,7 +345,7 @@ def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None):
     return ops
 
 
-def cache_sweep_ops(ms, L, probs, cnt, perm=False):
+def cache_sweep_ops(ms, L, probs, cnt, perm=False, rng="hash"):
     """Operations of one K1e chain-sweep on the DDI family: K1's work
     without its density (``sweep_ops`` at a zero-cost density), then the
     work the cached density needs for this run's data.  ``cnt`` holds the
@@ -353,7 +382,7 @@ def cache_sweep_ops(ms, L, probs, cnt, perm=False):
         acc_coord += pm * (f_oth * coord[o]
                            + 2 * (f_own * touched[m] + f_oth * touched[o]))
     own_lp = float(np.dot(probs, lp))
-    ops = (sweep_ops(ms, L, probs, perm, density=0.0)
+    ops = (sweep_ops(ms, L, probs, perm, density=0.0, rng=rng)
            + float(cnt[1]) / n * own_full
            + float(cnt[3]) / n * own_coord
            + own_full                                     # RJ evaluation
@@ -475,17 +504,23 @@ def reset_counts():
     from automix_tpu_torch.kernels import fused, fused_stage1, sweep_rng
     fused.sweep_chunk.launches = 0
     fused.sweep_chunk.pooled_launches = 0
+    fused.sweep_chunk.hw_launches = 0
+    fused.sweep_chunk.pooled_hw_launches = 0
     fused_stage1.segment.launches = 0
     fused_stage1.sweep.launches = 0
     sweep_rng.draw.launches = 0
 
 
 def read_counts():
-    """Launches since the last reset: K1 (every per-chain kernel launch,
-    the K1d runner's one-sweep launches included), K1c, K2, K3, K4."""
+    """Launches since the last reset: K1 (every per-chain kernel launch
+    with the hash, the K1d runner's one-sweep launches included), K1c
+    (pooled, hash), K1f and K1fc (the same two with the hw stream), K2, K3,
+    K4."""
     from automix_tpu_torch.kernels import fused, fused_stage1, sweep_rng
     return {"K1": fused.sweep_chunk.launches,
             "K1c": fused.sweep_chunk.pooled_launches,
+            "K1f": fused.sweep_chunk.hw_launches,
+            "K1fc": fused.sweep_chunk.pooled_hw_launches,
             "K2": fused_stage1.segment.launches,
             "K3": fused_stage1.sweep.launches,
             "K4": sweep_rng.draw.launches}
@@ -755,12 +790,13 @@ def check_pooled(ms, prop, chains, dev):
                 bound_by=b_by)
 
 
-def check_pooled_runner(ms, prop, chains, dev):
+def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
     """The K1d runner against the same loop over the twin, both on the
-    card, from a pooled run's state: the first 16384 chains x 20 sweeps.
-    k equal on >= 99% of chains; where all agree, the shared pk and the
-    visit counts bitwise equal.  Timed per sweep on every chain of the
-    state (one K1 launch and the shared update in torch)."""
+    card, from a pooled run's state: the first 16384 chains x 20 sweeps,
+    on the stream ``rng`` (pinned: "hash" by default).  k equal on >= 99%
+    of chains; where all agree, the shared pk and the visit counts bitwise
+    equal.  Timed per sweep on every chain of the state (one K1 launch and
+    the shared update in torch)."""
     import torch
     from automix_tpu_torch.kernels import fused
     from automix_tpu_torch.state import Chains
@@ -769,18 +805,19 @@ def check_pooled_runner(ms, prop, chains, dev):
     sub = Chains(**{f: getattr(chains, f)[:n].contiguous() for f in
                     ("k", "theta", "logp", "pk", "pkllim", "nreinit")},
                  sweep=chains.sweep)
-    a, ca = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17)
+    a, ca = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
+                                rng=rng)
     b, cb = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
-                                sweep_fn=fused.sweep_chunk_ref)
+                                sweep_fn=fused.sweep_chunk_ref, rng=rng)
     torch.cuda.synchronize()
     same = a.k == b.k
     frac = float(same.float().mean())
     th_err = float((a.theta - b.theta).abs()[same].max())
     shared = (torch.equal(a.pk, b.pk) and torch.equal(a.nreinit, b.nreinit)
               and torch.equal(ca["ksummary"], cb["ksummary"]))
-    log(f"K1d runner vs twin runner ({n} chains x {K1D_CHECK_SWEEPS} "
-        f"sweeps): k equal on {frac:.6f}, theta max|err| {th_err:.3e}, "
-        f"shared pk and visit counts equal {shared}")
+    log(f"K1d runner vs twin runner, {rng} ({n} chains x "
+        f"{K1D_CHECK_SWEEPS} sweeps): k equal on {frac:.6f}, theta max|err| "
+        f"{th_err:.3e}, shared pk and visit counts equal {shared}")
     if frac < 0.99:
         fail(f"K1d k agrees on only {frac:.4f} of chains")
     if th_err > 1e-3:
@@ -788,20 +825,134 @@ def check_pooled_runner(ms, prop, chains, dev):
     if frac == 1.0 and not shared:
         fail("K1d shared pk differs on identical trajectories")
     ms_k = cuda_ms(lambda: fused.pooled_sweeps(
-        ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17), 2) / K1D_CHECK_SWEEPS
+        ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17, rng=rng),
+        2) / K1D_CHECK_SWEEPS
     ms_p = cuda_ms(lambda: fused.pooled_sweeps(
-        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref), 1,
-        warm=False) / 2
+        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref,
+        rng=rng), 1, warm=False) / 2
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
     b_ms, b_by = bound(
-        S * (sweep_ops(ms, L, k_probs(ms, chains.k)) + K) + 20 * K,
+        S * (sweep_ops(ms, L, k_probs(ms, chains.k), rng=rng) + K) + 20 * K,
         S * state_bytes(K, D) + 4 * S * (K + 2 * K * D + 6)
         + tables_bytes(K, D, L))
-    log(f"K1d runner ({S} chains, per sweep): {ms_k:.4f} ms, plain "
+    log(f"K1d runner, {rng} ({S} chains, per sweep): {ms_k:.4f} ms, plain "
         f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def check_hw(ms, prop, chains, label, perm=False, tdist=None, pooled=False,
+             exact=False):
+    """K1f, the kernel with its hw stream, against its twin (the same
+    stream in torch) run on the card: the first K1_CHAINS chains of a run's
+    state x K1_SWEEPS sweeps.  ``exact`` (K1e) holds every output bitwise
+    equal, as ``exact_check``; otherwise k equal on >= 99% of chains and
+    theta / logp within check_sweep's tolerances on those.  The kernel is
+    timed on the same inputs, the twin on its check run."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.model import make_density
+    from automix_tpu_torch.state import Chains
+    tabs = fused.prep_tables(prop, ms.dims)
+    n = min(K1_CHAINS, chains.n_chains)
+    sub = Chains(**{f: getattr(chains, f)[:n].contiguous() for f in
+                    ("k", "theta", "logp", "pk", "pkllim", "nreinit")},
+                 sweep=chains.sweep)
+    args = chunk_args(sub)
+    kw = dict(seed=11, sweep0=sub.sweep, n_sweeps=K1_SWEEPS, adapt=True,
+              perm=perm, tdist=tdist, pooled=pooled, rng="hw")
+    got = fused.sweep_chunk(ms, *args, tabs, **kw)
+    want, ms_p = timed(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kw))
+    same = got[0] == want[0]
+    frac = float(same.float().mean())
+    th_err = float((got[1] - want[1]).abs()[:, same].max())
+    lp_err = float(((got[2] - want[2]).abs()
+                    / (1 + want[2].abs()))[same].max())
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    hashed = fused.sweep_chunk(ms, *args, tabs, **dict(kw, rng="hash"))
+    other = float((hashed[0] != got[0]).float().mean())
+    log(f"{label} vs its twin ({n} chains x {K1_SWEEPS} sweeps, K="
+        f"{ms.nmodels}, D={ms.dmax}, L={tabs.loglam.shape[1]}): k equal on "
+        f"{frac:.6f}, theta max|err| {th_err:.3e}, logp max rel err "
+        f"{lp_err:.3e}, every output equal {equal}; k differs from the "
+        f"hash kernel's on {other:.4f}")
+    if exact and not equal:
+        fail(f"{label} differs from its twin")
+    if frac < 0.99:
+        fail(f"{label} k agrees on only {frac:.4f} of chains")
+    if th_err > 1e-3 or lp_err > 1e-4:
+        fail(f"{label} theta/logp differ: {th_err:.3e} / {lp_err:.3e}")
+    if pooled and frac == 1.0 and not all(
+            torch.equal(got[i], want[i]) for i in (3, 4, 5)):
+        fail(f"{label} shared pk differs on identical trajectories")
+    ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kw), 5)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    probs = k_probs(ms, sub.k)
+    if make_density(ms).n_cache:
+        ops = cache_sweep_ops(ms, L, probs, got[9].sum(1).double().cpu()
+                              .numpy(), perm, rng="hw")
+    else:
+        ops = sweep_ops(ms, L, probs, perm, tdist is not None, rng="hw")
+    b_ms, b_by = bound(n * K1_SWEEPS * (ops + (2 * K if pooled else 0)),
+                       n * state_bytes(K, D) + tables_bytes(K, D, L))
+    log(f"{label} ({n} chains x {K1_SWEEPS} sweeps): kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+        f"{b_ms / ms_k:.2%}")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def stream_times(ms, prop, chains):
+    """K1 with each stream on every chain of a state x TIME_SWEEPS sweeps,
+    in turns (hash, hw, hw, hash) within one run: each stream's mean ms,
+    its bound and its share of it."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    args = chunk_args(chains)
+    times = {"hash": [], "hw": []}
+    for rng in ("hash", "hw", "hw", "hash"):
+        times[rng].append(cuda_ms(lambda: fused.sweep_chunk(
+            ms, *args, tabs, seed=5, sweep0=chains.sweep,
+            n_sweeps=TIME_SWEEPS, adapt=True, rng=rng), 5))
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    S = chains.n_chains
+    out = {}
+    for rng, t in times.items():
+        ms_k = sum(t) / len(t)
+        b_ms, b_by = bound(S * TIME_SWEEPS * sweep_ops(
+            ms, L, k_probs(ms, chains.k), rng=rng),
+            S * state_bytes(K, D) + tables_bytes(K, D, L))
+        out[rng] = (ms_k, b_ms, b_by)
+        log(f"K1 {rng} stream on the main path's state ({S} chains x "
+            f"{TIME_SWEEPS} sweeps, turns hash/hw/hw/hash): "
+            f"{' / '.join(f'{x:.4f}' for x in t)} ms, mean {ms_k:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms_k:.2%}")
+    return out
+
+
+def hash_drive(ms, prop, chains, label, seed=21, **cfg):
+    """The path of a hash form whose sampler path now runs K1f ("auto" is
+    hw on the card): ``AMSampler`` pinned to fused_rng="hash" from a run's
+    proposal and state, TIME_SWEEPS production sweeps in one chunk, counts
+    set to 0 just before.  Fails unless it launched the hash kernel and no
+    K1f.  Returns its launch counts."""
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    am = AMSampler(ms, EngineConfig(
+        n_chains=chains.n_chains, seed=seed, fused_rng="hash",
+        sweep_chunk=TIME_SWEEPS, trace_chain0=False, **cfg), device="cuda")
+    am.set_proposal(prop)
+    am.chains = chains
+    reset_counts()
+    am.rjmcmc_samples(TIME_SWEEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{label}, fused_rng='hash', {chains.n_chains} chains x "
+        f"{TIME_SWEEPS} sweeps: launches {counts}")
+    if counts["K1"] + counts["K1c"] == 0 or counts["K1f"] + counts["K1fc"]:
+        fail(f"{label} did not run the hash kernel alone")
+    return counts
 
 
 def chunk_args(chains):
@@ -1019,8 +1170,10 @@ def ddi_paths(dev):
             f"chain-sweeps/s; launches {counts}")
         check_probs("ddi AMSampler", stats.model_probs, oracle,
                     what="C oracle mean")
-        if counts["K1"] == 0 or counts["K2"] + counts["K3"] == 0:
-            fail("the DDI path did not launch K1e and a stage-1 kernel")
+        if counts["K1f"] == 0 or counts["K2"] + counts["K3"] == 0 \
+                or counts["K1"]:
+            fail("the DDI path did not launch K1e on the hw stream (K1f) "
+                 "alone and a stage-1 kernel")
         fresh = dd.logpost_cols(am.chains.k.long(), list(am.chains.theta.T))
         d = (am.chains.logp - fresh).abs()
         drift = float(d.max())
@@ -1048,6 +1201,11 @@ def ddi_paths(dev):
         out["K1e perm"] = check_cache_sweep(dd, prop, am.chains, perm=True,
                                             label="K1e perm")
         check_cache_lmax(dd, prop, am.chains)
+        out["K1e hw"] = check_hw(dd, prop, am.chains, "K1f K1e ddi",
+                                 exact=True)
+        out["drive"] = hash_drive(dd, prop, am.chains, "ddi K1e")
+        out["drive perm"] = hash_drive(dd, prop, am.chains, "ddi K1e perm",
+                                       perm=True)
         out["K2"] = check_segment(dd, DDI_C_STAGE1, dev, label="K2 ddi",
                                   exact=True)
         del am
@@ -1060,8 +1218,8 @@ def ddi_paths(dev):
         log(f"launches on the ddi CLI path: {cli_counts}")
         check_probs("ddi CLI mode 1", probs_of(cli_out), oracle,
                     what="C oracle mean")
-        if cli_counts["K1"] == 0:
-            fail("the ddi CLI run did not launch K1e")
+        if cli_counts["K1f"] == 0 or cli_counts["K1"]:
+            fail("the ddi CLI run did not launch K1e on the hw stream")
         out["cli"] = cli_counts
         log(f"phase ddi CLI mode 1: {secs:.2f} s")
 
@@ -1086,14 +1244,17 @@ def ddi_paths(dev):
         f"{counts}")
     check_probs("ddi pooled", stats.model_probs, oracle,
                 what="C oracle mean")
-    if not (counts["K1c"] > 0 and counts["K1"] == 0 if route == "K1c"
-            else counts["K1"] == DDI_TIMED and counts["K1c"] == 0):
-        fail(f"the ddi pooled run did not take {route}")
+    if not (counts["K1fc"] > 0 and counts["K1f"] == 0 if route == "K1c"
+            else counts["K1f"] == DDI_TIMED and counts["K1fc"] == 0) \
+            or counts["K1"] + counts["K1c"]:
+        fail(f"the ddi pooled run did not take {route} on the hw stream")
     if not bool((am.chains.pk == am.chains.pk[0]).all()):
         fail("the ddi pooled pk rows differ")
     out["pooled"] = counts
     if route == "K1c":
         out["K1c"] = check_cache_pooled(dd, prop, am.chains)
+        out["drive pooled"] = hash_drive(dd, prop, am.chains, "ddi pooled",
+                                         pk_mode="pooled")
     del am
     log(f"phase ddi pooled: {time.perf_counter() - t0:.2f} s")
     return out
@@ -1276,9 +1437,10 @@ def changepoint_paths(dev):
                 f"chain-sweeps/s (K1c holds {cap} at L={prop.lmax}); "
                 f"launches {counts}")
             check_cpt_probs(f"{name} AMSampler", stats.model_probs, ref[name])
-            if not (counts["K1"] > 0 and counts["K1c"] > 0
-                    and counts["K3"] > 0):
-                fail(f"the {name} path did not launch K1, K1c and K3")
+            if not (counts["K1f"] > 0 and counts["K1fc"] > 0
+                    and counts["K3"] > 0) or counts["K1"] + counts["K1c"]:
+                fail(f"the {name} path did not launch K1 and K1c on the hw "
+                     "stream (K1f) alone, and K3")
             if not bool((am.chains.pk == am.chains.pk[0]).all()):
                 fail(f"the {name} pooled pk rows differ")
             out[name] = counts
@@ -1293,15 +1455,40 @@ def changepoint_paths(dev):
                                                "K1 perm cpt", perm=True)
                 out["K1c"] = check_exact_sweep(ms, prop, am.chains,
                                                "K1c cpt", pooled=True)
+                out["K1f"] = check_hw(ms, prop, am.chains, "K1f cpt")
+                out["drive"] = hash_drive(ms, prop, am.chains, "cpt K1")
+                out["drive perm"] = hash_drive(ms, prop, am.chains,
+                                               "cpt K1 perm", perm=True)
+                out["drive pooled"] = hash_drive(ms, prop, am.chains,
+                                                 "cpt K1c", pk_mode="pooled")
                 log(f"phase cpt kernel checks: "
                     f"{time.perf_counter() - t0:.2f} s")
+
+                # ---- replicas of cpt's stage 3 for the pair check ------
+                t0 = time.perf_counter()
+                runs = [probs[name]]
+                for r in range(1, CPT_REPLICAS):
+                    seed = CPT_SEEDS[name] + 100 * r
+                    rep = AMSampler(ms, EngineConfig(**dict(
+                        cpt_config(name), seed=seed)), device="cuda")
+                    rep.set_proposal(prop)
+                    rep.burn_samples(CPT_BURN)
+                    runs.append(np.asarray(
+                        rep.rjmcmc_samples(CPT_TIMED).model_probs))
+                    check_cpt_probs(f"cpt stage-3 replica at seed {seed}",
+                                    runs[-1], ref[name])
+                probs["cpt runs"] = np.stack(runs)
+                log(f"phase cpt replicas: {time.perf_counter() - t0:.2f} s")
             del am
-        gap = np.abs(probs["cpt"] - probs["cptrs"])
+        singles = np.abs(probs["cpt runs"] - probs["cptrs"]).max(1)
+        gap = np.abs(probs["cpt runs"].mean(0) - probs["cptrs"])
         jax_gap = np.abs(np.asarray(ref["cpt"]["mean"])
                          - np.asarray(ref["cptrs"]["mean"]))
-        log(f"|cpt - cptrs| (time rescaled by 1459): p(M) "
-            f"{np.round(gap, 4).tolist()}, max {gap.max():.4f} (atol "
-            f"{CPT_PAIR_ATOL}); the JAX means' max {jax_gap.max():.4f}")
+        log(f"|cpt - cptrs| (time rescaled by 1459), cpt the mean of "
+            f"{CPT_REPLICAS} stage-3 runs: p(M) {np.round(gap, 4).tolist()}, "
+            f"max {gap.max():.4f} (atol {CPT_PAIR_ATOL}); each run's max "
+            f"{np.round(singles, 4).tolist()}; the JAX means' max "
+            f"{jax_gap.max():.4f}")
         if gap.max() > CPT_PAIR_ATOL:
             fail("cpt and cptrs differ by more than the JAX test's atol")
 
@@ -1323,8 +1510,9 @@ def changepoint_paths(dev):
             else:
                 check_cpt_probs("cptrs CLI mode 1", probs_of(cli_out),
                                 ref[name])
-            if cli_counts["K1"] == 0:
-                fail(f"the {name} CLI run did not launch K1 (perm)")
+            if cli_counts["K1f"] == 0 or cli_counts["K1"]:
+                fail(f"the {name} CLI run did not launch K1 (perm) on the hw "
+                     "stream")
             out[f"cli {name}"] = cli_counts
             log(f"phase {name} CLI mode 1: {secs:.2f} s")
     return out
@@ -1596,10 +1784,11 @@ def main():
     log(f"phase build: {time.perf_counter() - t0:.2f} s ({lib_path.name})")
     log("build units, seconds to each object: " + "; ".join(
         f"{u} {t:.1f}" for u, t in unit_seconds(lib_path)))
-    log("ptxas at (6, 13), per form (registers, stack frame, spill stores, "
-        "spill loads): " + "; ".join(
-            f"{n} {r}, {f}, {st}, {ld}"
-            for n, r, f, st, ld in ptxas_summary(lib_path, 6, 13)))
+    for K, D in ((3, 2), (10, 5), (2, 16), (6, 13)):
+        log(f"ptxas at ({K}, {D}), per form (registers, stack frame, spill "
+            "stores, spill loads): " + "; ".join(
+                f"{n} {r}, {f}, {st}, {ld}"
+                for n, r, f, st, ld in ptxas_summary(lib_path, K, D)))
 
     ms = tutorial_set()
     toy1, toy2 = toy.toy1_set(), toy.toy2_set()
@@ -1648,8 +1837,11 @@ def main():
     log(f"p(M) = {np.round(probs, 4).tolist()} vs published "
         f"{list(PUBLISHED)}: max err {err:.4f}")
     log(f"launches on the main path: {main_counts}")
-    if main_counts["K1"] == 0 or main_counts["K2"] == 0:
+    if main_counts["K1f"] == 0 or main_counts["K2"] == 0:
         fail("a kernel of the main path was never launched")
+    # fused_rng="auto" is the hw stream on the card: no hash launch
+    if main_counts["K1"] or main_counts["K1c"]:
+        fail("fused_rng='auto' did not resolve to the hw stream (K1f)")
     if err > PARITY_TOL:
         fail(f"p(M) misses the published values by {err:.4f}")
     n_sweeps = WARMUP + TIMED
@@ -1663,9 +1855,37 @@ def main():
         fail("non-finite posterior means")
     log(f"phase tutorial main path: {time.perf_counter() - t0:.2f} s")
 
+    # ---- 4b. the main path's state on the hash stream --------------------
+    t0 = time.perf_counter()
+    hs = AMSampler(ms, dataclasses.replace(cfg, fused_rng="hash"),
+                   device="cuda")
+    hs.set_proposal(am.proposal)
+    hs.chains = am.chains
+    reset_counts()
+    hs.rjmcmc_samples(WARMUP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hstats = hs.rjmcmc_samples(TIMED)
+    torch.cuda.synchronize()
+    h_elapsed = time.perf_counter() - t1
+    hash_counts = read_counts()
+    h_rate = N_CHAINS * TIMED / h_elapsed
+    log(f"main path's state, fused_rng='hash': {TIMED} timed sweeps x "
+        f"{N_CHAINS} chains in {h_elapsed:.3f} s = {h_rate:.6e} "
+        f"chain-sweeps/s (hw, the main path: {rate:.6e}); launches "
+        f"{hash_counts}")
+    check_probs("tutorial on the hash", hstats.model_probs, PUBLISHED,
+                what="published")
+    if hash_counts["K1"] == 0 or hash_counts["K1f"]:
+        fail("the hash run did not launch K1 on the hash alone")
+    del hs
+    log(f"phase tutorial hash run: {time.perf_counter() - t0:.2f} s")
+
     # ---- 5. K1 against its twin on the main path's proposal and state --------
     t0 = time.perf_counter()
     k1 = check_sweep(ms, am.proposal, am.chains, dev)
+    k1f = check_hw(ms, am.proposal, am.chains, "K1f tutorial")
+    stream_times(ms, am.proposal, am.chains)
     tut_prop = am.proposal
     del am
     log(f"phase K1 check: {time.perf_counter() - t0:.2f} s")
@@ -1702,8 +1922,9 @@ def main():
         toy2_counts = read_counts()
         log(f"launches on the toy2 path: {toy2_counts}")
         check_probs("toy2 CLI mode 1", probs_of(out), TOY2_EXACT)
-        if toy2_counts["K1"] == 0 or toy2_counts["K3"] == 0:
-            fail("the toy2 path did not launch K1 and K3")
+        if toy2_counts["K1f"] == 0 or toy2_counts["K3"] == 0 \
+                or toy2_counts["K1"]:
+            fail("the toy2 path did not launch K1f (perm) alone and K3")
         files = [f"{stem}_{s}.data" for s in
                  ("mix", "log", "adapt", "cf", "k", "lp", "pk", "ac")] + [
             f"{stem}_theta{k}.data" for k in range(1, 6)]
@@ -1715,15 +1936,26 @@ def main():
 
         # ---- 7. K1 perm + Student-t against its twin on toy2 -----------------
         t1 = time.perf_counter()
+        # the burn-in pinned to the hash: the path of K1a on the hash
         am = AMSampler(toy2, EngineConfig(
             n_chains=N_CHAINS, seed=5, perm=True, student_t_dof=5,
-            trace_chain0=False), device="cuda")
+            fused_rng="hash", trace_chain0=False), device="cuda")
         am.set_proposal(prop)
+        reset_counts()
         am.burn_samples(200)
+        k1a_counts = read_counts()
+        log(f"launches on the toy2 perm + Student-t burn-in (hash): "
+            f"{k1a_counts}")
+        if k1a_counts["K1"] == 0 or k1a_counts["K1f"]:
+            fail("the toy2 hash burn-in did not launch K1 on the hash")
         k1a = check_sweep(toy2, am.proposal, am.chains, dev, perm=True,
                           tdist=t5, label="K1 perm + Student-t toy2")
         check_sweep(toy2, am.proposal, am.chains, dev, perm=True,
                     label="K1 perm toy2")
+        k1fa = check_hw(toy2, am.proposal, am.chains,
+                        "K1f perm + Student-t toy2", perm=True, tdist=t5)
+        k1fb = check_hw(toy2, am.proposal, am.chains, "K1f perm toy2",
+                        perm=True)
         del am
         log(f"phase K1 variant checks: {time.perf_counter() - t1:.2f} s")
 
@@ -1733,8 +1965,8 @@ def main():
              str(CLI_SWEEPS), "-s", "2", "-f", os.path.join(tmp, "toy1")])
         log(f"launches on the toy1 Student-t CLI path: {t_counts}")
         check_probs("toy1 -t 5 CLI", probs_of(out), TOY1_EXACT)
-        if t_counts["K1"] == 0 or t_counts["K2"] == 0:
-            fail("the toy1 CLI run did not launch K1 and K2")
+        if t_counts["K1f"] == 0 or t_counts["K2"] == 0 or t_counts["K1"]:
+            fail("the toy1 CLI run did not launch K1f alone and K2")
         log(f"phase toy1 Student-t CLI: {secs:.2f} s")
 
         # ---- 9. rb9: stages 1-2 at the bench size, reports -----------------
@@ -1768,18 +2000,25 @@ def main():
         log(f"launches on the rb9 path (stages 1-2 + CLI): {rb_counts}")
         check_probs("rb9 CLI mode 1", probs_of(out), oracle,
                     what="C oracle mean")
-        if rb_counts["K1"] == 0 or rb_counts["K3"] == 0:
-            fail("the rb9 path did not launch K1 (perm) and K3")
+        if rb_counts["K1f"] == 0 or rb_counts["K3"] == 0 or rb_counts["K1"]:
+            fail("the rb9 path did not launch K1f (perm) alone and K3")
         log(f"phase rb9 CLI mode 1: {secs:.2f} s")
 
         # ---- 11. rb9 kernel checks at (10, 5) --------------------------------
         t0 = time.perf_counter()
         check_segment(rb, RB9_C_K2, dev, label="K2 rb9")
         check_sweep_kernel(rb, RB9_C_STAGE1, dev, label="K3 rb9")
-        am = AMSampler(rb, EngineConfig(n_chains=N_CHAINS, seed=7,
+        # the burn-in pinned to the hash with perm: the path of K1b on rb9
+        am = AMSampler(rb, EngineConfig(n_chains=N_CHAINS, seed=7, perm=True,
+                                        fused_rng="hash",
                                         trace_chain0=False), device="cuda")
         am.set_proposal(rb_prop)
+        reset_counts()
         am.burn_samples(200)
+        k1b_counts = read_counts()
+        log(f"launches on the rb9 perm burn-in (hash): {k1b_counts}")
+        if k1b_counts["K1"] == 0 or k1b_counts["K1f"]:
+            fail("the rb9 hash burn-in did not launch K1 on the hash")
         check_sweep(rb, am.proposal, am.chains, dev, label="K1 rb9")
         per_sweep = launch_lengths(rb, am.proposal, am.chains)
         log(f"K1 rb9 ms per sweep of {N_CHAINS} chains, pk frozen, by "
@@ -1812,22 +2051,28 @@ def main():
         check_probs(f"rb9 pooled {n_chains} chains", stats.model_probs,
                     oracle, what="C oracle mean")
         # K1c: one pooled launch per chunk and no per-chain launch; K1d:
-        # one per-chain launch per sweep and no pooled launch
-        if not (counts["K1c"] > 0 and counts["K1"] == 0 if route == "K1c"
-                else counts["K1"] == CLI_SWEEPS and counts["K1c"] == 0):
-            fail(f"the pooled run at {n_chains} chains did not take {route}")
+        # one per-chain launch per sweep and no pooled launch; both on the
+        # hw stream ("auto" on the card)
+        if not (counts["K1fc"] > 0 and counts["K1f"] == 0 if route == "K1c"
+                else counts["K1f"] == CLI_SWEEPS and counts["K1fc"] == 0) \
+                or counts["K1"] + counts["K1c"]:
+            fail(f"the pooled run at {n_chains} chains did not take {route} "
+                 "on the hw stream")
         if not bool((am.chains.pk == am.chains.pk[0]).all()):
             fail("the pooled pk rows differ")
-        pooled[route] = (am, counts["K1c" if route == "K1c" else "K1"])
+        pooled[route] = (am, counts["K1fc" if route == "K1c" else "K1f"])
         log(f"phase rb9 pooled {route}: {time.perf_counter() - t0:.2f} s")
 
+    # K1c and the forced K1d are bitwise equal on the hash only (the hw
+    # stream reseeds at each of K1d's one-sweep launches), so this pins it
     t0 = time.perf_counter()
     short = {}
     for force in (False, True):
         fused._FORCE_POOLED_SCAN = force
         try:
             am = AMSampler(rb, EngineConfig(n_chains=RB9_POOLED_K1C,
-                                            sweep_chunk=100, **pooled_cfg),
+                                            sweep_chunk=100, fused_rng="hash",
+                                            **pooled_cfg),
                            device="cuda")
             am.set_proposal(rb_prop)
             am.burn_samples(RB9_FORCED[0])
@@ -1846,7 +2091,12 @@ def main():
             or cb["K1"] != RB9_FORCED[1]:
         fail("the forced K1d run is not bitwise equal to K1c")
     k1c = check_pooled(rb, rb_prop, pooled["K1c"][0].chains, dev)
-    k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev)
+    k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev,
+                              rng="hash")
+    k1fc = check_hw(rb, rb_prop, pooled["K1c"][0].chains, "K1f pooled rb9",
+                    pooled=True)
+    k1fd = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev,
+                               rng="hw")
     log(f"phase rb9 pooled checks: {time.perf_counter() - t0:.2f} s")
 
     # ---- 13. DDI: AMSampler, kernel checks, the CLI, pooled pk -------------
@@ -1863,14 +2113,26 @@ def main():
                 "replaces": replaces, "launches": launches, **check,
                 "library_ms": None}
 
+    # The hash forms' launches come from the paths that run them on the
+    # hash (the hw stream is "auto" on the card): the main path's state on
+    # the hash, the hash-pinned burn-ins and forced-K1d comparison, and the
+    # hash drives; the K1f forms' from the sampler paths.
     k1_src, k1_at = "fused_sweep.cu", "automix_tpu/kernels/fused.py:859"
     log(json.dumps({"kernels": [
-        entry("fused_sweep", k1_src, k1_at, main_counts["K1"], k1),
-        entry("fused_sweep_student_t", k1_src, k1_at, t_counts["K1"], k1a),
-        entry("fused_sweep_perm_rb9", k1_src, k1_at, rb_counts["K1"], k1b),
-        entry("fused_sweep_pooled", k1_src, k1_at, pooled["K1c"][1], k1c),
-        entry("fused_sweep_pooled_runner", k1_src, k1_at, pooled["K1d"][1],
-              k1d),
+        entry("fused_sweep", k1_src, k1_at, hash_counts["K1"], k1),
+        entry("fused_sweep_student_t", k1_src, k1_at, k1a_counts["K1"], k1a),
+        entry("fused_sweep_perm_rb9", k1_src, k1_at, k1b_counts["K1"], k1b),
+        entry("fused_sweep_pooled", k1_src, k1_at, ca["K1c"], k1c),
+        entry("fused_sweep_pooled_runner", k1_src, k1_at, cb["K1"], k1d),
+        entry("fused_sweep_hw", k1_src, k1_at, main_counts["K1f"], k1f),
+        entry("fused_sweep_student_t_hw", k1_src, k1_at, t_counts["K1f"],
+              k1fa),
+        entry("fused_sweep_perm_hw", k1_src, k1_at, toy2_counts["K1f"],
+              k1fb),
+        entry("fused_sweep_pooled_hw", k1_src, k1_at, pooled["K1c"][1],
+              k1fc),
+        entry("fused_sweep_pooled_runner_hw", k1_src, k1_at,
+              pooled["K1d"][1], k1fd),
         entry("fused_stage1_segment", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696", main_counts["K2"],
               k2),
@@ -1878,14 +2140,16 @@ def main():
               "automix_tpu/kernels/fused_stage1.py:416", toy2_counts["K3"],
               k3),
         entry("fused_sweep_cache_ddi", k1_src, k1_at,
-              ddi_out["main"]["K1"], ddi_out["K1e"]),
+              ddi_out["drive"]["K1"], ddi_out["K1e"]),
         entry("fused_sweep_cache_perm_ddi", k1_src, k1_at,
-              ddi_out["cli"]["K1"], ddi_out["K1e perm"]),
+              ddi_out["drive perm"]["K1"], ddi_out["K1e perm"]),
+        entry("fused_sweep_cache_ddi_hw", k1_src, k1_at,
+              ddi_out["main"]["K1f"], ddi_out["K1e hw"]),
         entry("fused_stage1_segment_ddi", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696",
               ddi_out["main"]["K2"], ddi_out["K2"]),
     ] + ([entry("fused_sweep_cache_pooled_ddi", k1_src, k1_at,
-                ddi_out["pooled"]["K1c"], ddi_out["K1c"])]
+                ddi_out["drive pooled"]["K1c"], ddi_out["K1c"])]
          if "K1c" in ddi_out else []) + [
         entry("fused_stage1_segment_log_cpt", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696",
@@ -1893,12 +2157,14 @@ def main():
         entry("fused_stage1_sweep_log_cpt", "fused_stage1_sweep.cu",
               "automix_tpu/kernels/fused_stage1.py:416",
               cpt_out["cpt"]["K3"], cpt_out["K3-log"]),
-        entry("fused_sweep_cpt", k1_src, k1_at, cpt_out["cpt"]["K1"],
+        entry("fused_sweep_cpt", k1_src, k1_at, cpt_out["drive"]["K1"],
               cpt_out["K1"]),
         entry("fused_sweep_perm_cpt", k1_src, k1_at,
-              cpt_out["cli cpt"]["K1"], cpt_out["K1b"]),
+              cpt_out["drive perm"]["K1"], cpt_out["K1b"]),
         entry("fused_sweep_pooled_cpt", k1_src, k1_at,
-              cpt_out["cpt"]["K1c"], cpt_out["K1c"]),
+              cpt_out["drive pooled"]["K1c"], cpt_out["K1c"]),
+        entry("fused_sweep_cpt_hw", k1_src, k1_at, cpt_out["cpt"]["K1f"],
+              cpt_out["K1f"]),
         dict(entry("sweep_rng", "sweep_rng.cu",
                    "automix_tpu/kernels/sweep_rng.py:139",
                    gen["tutorial"]["K4"], gen["K4"]),

@@ -143,6 +143,47 @@ def test_sweep_kernel_variants_match_twin(cuda, variant):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("variant", [dict(), dict(perm=True),
+                                     dict(tdist=randoms.student_t(5)),
+                                     dict(perm=True,
+                                          tdist=randoms.student_t(5))],
+                         ids=["normal", "perm", "student_t",
+                              "perm_student_t"])
+def test_hw_sweep_kernel_variants_match_twin(cuda, variant):
+    """K1f, the hw stream, in each of the four variants on toy2: 4096
+    chains x 30 sweeps from the origin under a two-mode proposal, one
+    launch counted in ``hw_launches`` and none in ``launches``; k equal to
+    the twin's (the same stream in torch) on >= 99% of chains, theta and
+    logp within 1e-4 on those."""
+    ms = toy.toy2_set()
+    S = 4096
+    tabs = fused.prep_tables(_toy2_proposal(), ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(cuda)
+                         for f in tabs.__dataclass_fields__})
+    k = (torch.arange(S, device=cuda) % 5).to(torch.int32)
+    theta = torch.zeros((5, S), device=cuda)
+    logp = ms.logpost_cols(k.long(), list(theta))
+    pk = torch.full((5, S), 0.2, device=cuda)
+    args = (k, theta, logp, pk, torch.full((S,), 0.1, device=cuda),
+            torch.ones(S, dtype=torch.int32, device=cuda))
+    kw = dict(seed=2, sweep0=11, n_sweeps=30, adapt=True, rng="hw",
+              **variant)
+    before = (fused.sweep_chunk.launches, fused.sweep_chunk.hw_launches)
+    got = fused.sweep_chunk(ms, *args, tabs, **kw)
+    assert (fused.sweep_chunk.launches,
+            fused.sweep_chunk.hw_launches) == (before[0], before[1] + 1)
+    want = fused.sweep_chunk_ref(ms, *args, tabs, **kw)
+    hashed = fused.sweep_chunk(ms, *args, tabs, **dict(kw, rng="hash"))
+    same = got[0] == want[0]
+    assert same.float().mean() >= 0.99
+    assert (got[0] != k).float().mean() > 0.05        # dimension changes
+    assert (got[0] != hashed[0]).float().mean() > 0.05   # other words
+    torch.testing.assert_close(got[1][:, same], want[1][:, same],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_toy2_on_the_card(cuda):
     """toy2 with perm on the card at 8192 chains x 2000 sweeps: p(M)
     within 0.02 of the exact 0.5 / 0.25 / 0.125 / 0.0625 / 0.0625."""
@@ -359,6 +400,36 @@ def test_pooled_kernel_matches_twin(cuda, perm):
             assert torch.equal(got[i], want[i]), i
 
 
+def test_hw_pooled_kernel_matches_twin(cuda):
+    """K1c with the hw stream at rb9's (10, 5), 4096 chains x 30 sweeps:
+    one launch counted in ``pooled_hw_launches``; k equal to the pooled
+    twin's on >= 99% of chains, theta and logp within 1e-4 on those; one
+    shared pk, bitwise the twin's where every chain agrees."""
+    ms, ch, tabs = _rb9_state(cuda, 4096)
+    args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+            ch.pkllim, ch.nreinit, tabs)
+    kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=30, adapt=True, pooled=True,
+              rng="hw")
+    before = (fused.sweep_chunk.pooled_launches,
+              fused.sweep_chunk.pooled_hw_launches)
+    got = fused.sweep_chunk(ms, *args, **kw)
+    assert (fused.sweep_chunk.pooled_launches,
+            fused.sweep_chunk.pooled_hw_launches) == (before[0],
+                                                      before[1] + 1)
+    want = fused.sweep_chunk_ref(ms, *args, **kw)
+    same = got[0] == want[0]
+    assert same.float().mean() >= 0.99
+    assert (got[0] != ch.k).float().mean() > 0.05
+    torch.testing.assert_close(got[1][:, same], want[1][:, same],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2][same], want[2][same], rtol=1e-4,
+                               atol=1e-4)
+    assert bool((got[3] == got[3][:, :1]).all())         # one shared pk
+    if bool(same.all()):
+        for i in (3, 4, 5):
+            assert torch.equal(got[i], want[i]), i
+
+
 def test_pooled_runner_matches_twin(cuda):
     """The K1d runner (one K1 launch per sweep) against the same loop over
     the twin on the card, 4096 rb9 chains x 20 sweeps: 20 launches of the
@@ -384,7 +455,9 @@ def test_pooled_routes_bitwise_on_card(cuda):
     """K1c and the K1d runner through the chunk runner on 4096 rb9 chains,
     two chunks (15 + 10 sweeps): bitwise equal in k, theta, pk, pkllim,
     nreinit and the visit counts and counters; the float sums within
-    1e-5 (another summation order)."""
+    1e-5 (another summation order).  The stream is pinned to the hash:
+    the hw stream ("auto" on the card) reseeds at every launch, so K1d's
+    one-sweep launches draw other words than K1c's chunk, as in JAX."""
     ms, ch, tabs = _rb9_state(cuda, 4096, seed=2)
     prop = _start_proposal(ms)
     prop = Proposal(**{f: getattr(prop, f).to(cuda)
@@ -394,7 +467,8 @@ def test_pooled_routes_bitwise_on_card(cuda):
         fused._FORCE_POOLED_SCAN = force
         try:
             run = fused.build_fused_chunk_runner(
-                ms, EngineConfig(seed=6, pk_mode="pooled"), burning=False)
+                ms, EngineConfig(seed=6, pk_mode="pooled",
+                                 fused_rng="hash"), burning=False)
             c, chunks = ch, []
             for n in (15, 10):
                 c, chunk = run(c, prop, n)
@@ -520,13 +594,14 @@ def _scaled_state(ms, scale, dev, S, L, seed, sweep):
 
 
 def _assert_sweep_exact(ms, ch, tabs, n_sweeps, **kw):
-    """A sweep kernel (K1e, or K1 / K1c at a stateless shape) against its
-    twin on the card from the same state: one launch, and every output
-    bitwise equal."""
+    """A sweep kernel (K1e, or K1 / K1c at a stateless shape; with
+    ``rng="hw"`` its K1f stream) against its twin on the card from the
+    same state: one launch, and every output bitwise equal."""
     args = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
             ch.pkllim, ch.nreinit, tabs)
     kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=n_sweeps, adapt=True, **kw)
-    key = "pooled_launches" if kw.get("pooled") else "launches"
+    key = ("pooled_" if kw.get("pooled") else "") + (
+        "hw_launches" if kw.get("rng") == "hw" else "launches")
     before = getattr(fused.sweep_chunk, key)
     got = fused.sweep_chunk(ms, *args, **kw)
     assert getattr(fused.sweep_chunk, key) == before + 1
@@ -545,6 +620,15 @@ def test_ddi_cache_kernel_matches_twin_exactly(cuda, perm):
     equal to the twin run on the card, every output bit for bit."""
     ms, ch, tabs = _ddi_state(cuda, 4096)
     _assert_sweep_exact(ms, ch, tabs, 40, perm=perm)
+
+
+@pytest.mark.parametrize("perm", [False, True], ids=["noperm", "perm"])
+def test_ddi_cache_kernel_hw_matches_twin_exactly(cuda, perm):
+    """K1e with the hw stream (K1f), with and without perm: 4096 DDI
+    chains x 40 sweeps from sweep 5 equal to the hw twin run on the card,
+    every output bit for bit."""
+    ms, ch, tabs = _ddi_state(cuda, 4096)
+    _assert_sweep_exact(ms, ch, tabs, 40, perm=perm, rng="hw")
 
 
 def test_ddi_cache_kernel_at_the_largest_l(cuda):

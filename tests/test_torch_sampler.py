@@ -3,6 +3,7 @@ production sweeps through ``AMSampler``, against the published tutorial
 posteriors and a JAX fused run of the same size."""
 
 import dataclasses
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -24,14 +25,27 @@ SIZE = dict(n_chains=1024, n_chains_stage1=128, stage1_sweeps=200,
 BURN, SWEEPS = 100, 600
 
 
-def test_tutorial_slice_matches_published_and_jax():
+@functools.lru_cache(maxsize=None)
+def _jax_tutorial_probs():
+    """p(M) of the JAX package's fused interpret-mode run at SIZE with the
+    hash (run once for both streams of the port)."""
+    jam = JaxSampler(jtutorial.tutorial_set(), JaxConfig(
+        **SIZE, fused="on", fused_rng="hash", fused_stage1="on",
+        trace_chain0=False))
+    jam.estimate_conditional_probs()
+    jam.burn_samples(BURN)
+    return jam.rjmcmc_samples(SWEEPS, collect=False).model_probs
+
+
+@pytest.mark.parametrize("fused_rng", ["hash", "hw"])
+def test_tutorial_slice_matches_published_and_jax(fused_rng):
     """p(M) within 0.05 of the published 0.7928 / 0.0239 / 0.1834 and of
     the JAX package's fused interpret-mode run of the same size (1024
     chains x 600 sweeps: the Monte Carlo error of a visit fraction is
-    ~0.01 here, and the two runs share the hash words but not every
-    trajectory)."""
-    am = AMSampler(tutorial.tutorial_set(), EngineConfig(**SIZE),
-                   device="cpu")
+    ~0.01 here; with the hash the two runs share the words but not every
+    trajectory, with the port's hw stream they share neither)."""
+    am = AMSampler(tutorial.tutorial_set(),
+                   EngineConfig(**SIZE, fused_rng=fused_rng), device="cpu")
     am.estimate_conditional_probs()
     am.burn_samples(BURN)
     stats = am.rjmcmc_samples(SWEEPS)
@@ -42,14 +56,7 @@ def test_tutorial_slice_matches_published_and_jax():
     assert am.chains.sweep == 1 + BURN + SWEEPS
     np.testing.assert_allclose(probs, tutorial.TUTORIAL_MODEL_PROBS,
                                atol=0.05)
-
-    jam = JaxSampler(jtutorial.tutorial_set(), JaxConfig(
-        **SIZE, fused="on", fused_rng="hash", fused_stage1="on",
-        trace_chain0=False))
-    jam.estimate_conditional_probs()
-    jam.burn_samples(BURN)
-    jprobs = jam.rjmcmc_samples(SWEEPS, collect=False).model_probs
-    np.testing.assert_allclose(probs, jprobs, atol=0.05)
+    np.testing.assert_allclose(probs, _jax_tutorial_probs(), atol=0.05)
 
 
 def test_import_leaves_jax_out():
@@ -133,7 +140,8 @@ def test_ported_knobs_accepted(knob):
 @pytest.mark.parametrize("knob", [dict(trace_every=0),
                                   dict(student_t_dof=-1),
                                   dict(mix_fit="em"),
-                                  dict(stage1_adapt="exp")])
+                                  dict(stage1_adapt="exp"),
+                                  dict(fused_rng="bogus")])
 def test_invalid_knobs_raise_as_in_jax(knob):
     with pytest.raises(ValueError):
         EngineConfig(**knob)
