@@ -8,10 +8,15 @@
 // coordinate j, the column adds the features containing j in feature order
 // (am_ddi<M>_fidx) and then the linear feature j.  The coefficients, one
 // row of quadratic and linear coefficients per column, live in __constant__
-// memory (am_ddi.h, generated from ddi_cols.py header()).  Every thread of a
-// warp walks the same columns and features, so each coefficient load is a
-// broadcast and the zero test a uniform branch; the nesting (columns
-// outside, features inside) is free, the order within a column is not.
+// memory (am_ddi.h, generated from ddi_cols.py header()); the column
+// functions read them and the feature indices through a view of one model:
+// AmDdiConst reads __constant__ memory (K2, K3, the stateless sweep forms
+// and K1c), AmDdiShared the same arrays copied into shared memory once per
+// block (K1e, whose sweeps read the 29 KB so often that they thrashed the
+// constant cache; PERF.md section 6).  Every thread of a warp walks the
+// same columns and features, so each coefficient load is a broadcast and
+// the zero test a uniform branch; the nesting (columns outside, features
+// inside) is free, the order within a column is not.
 // The feature values live in registers: the feature loops are unrolled, so
 // every index into them is a constant.
 //
@@ -73,12 +78,64 @@ __device__ __forceinline__ void am_ddi_features(const float* th, float* delta,
     for (int i2 = i1; i2 < P::kFix; ++i2) phi[f++] = delta[i1] * delta[i2];
 }
 
-// Statistic column ``col`` of model M from scratch.
+// Model M's coefficient rows and feature indices in __constant__ memory.
 template <int M>
-__device__ __forceinline__ float am_ddi_col_full(int col, const float* delta,
+struct AmDdiConst {
+  __device__ const float* coef() const { return AmDdi<M>::coef(); }
+  __device__ const int* fidx() const { return AmDdi<M>::fidx(); }
+};
+
+// The same arrays copied into shared memory (am_ddi_shared_load).
+template <int M>
+struct AmDdiShared {
+  const float* c;
+  const int* f;
+  __device__ const float* coef() const { return c; }
+  __device__ const int* fidx() const { return f; }
+};
+
+// Floats of shared memory holding both models' coefficients, then their
+// feature indices (am_ddi_shared_load).
+constexpr int kAmDdiCoef0 = AmDdi<0>::kCols * AmDdi<0>::kF;
+constexpr int kAmDdiCoef1 = AmDdi<1>::kCols * AmDdi<1>::kF;
+constexpr int kAmDdiFidx0 = AmDdi<0>::kFix * AmDdi<0>::kFix;
+constexpr int kAmDdiShared =
+    kAmDdiCoef0 + kAmDdiCoef1 + kAmDdiFidx0 + AmDdi<1>::kFix * AmDdi<1>::kFix;
+
+// Copy both models' coefficients and feature indices from __constant__
+// memory into ``s`` with the block's threads (the caller synchronizes).
+__device__ __forceinline__ void am_ddi_shared_load(float* s, int tid,
+                                                   int nthreads) {
+  for (int x = tid; x < kAmDdiCoef0; x += nthreads) s[x] = AmDdi<0>::coef()[x];
+  for (int x = tid; x < kAmDdiCoef1; x += nthreads)
+    s[kAmDdiCoef0 + x] = AmDdi<1>::coef()[x];
+  int* fi = reinterpret_cast<int*>(s + kAmDdiCoef0 + kAmDdiCoef1);
+  for (int x = tid; x < kAmDdiFidx0; x += nthreads) fi[x] = AmDdi<0>::fidx()[x];
+  for (int x = tid; x < kAmDdiShared - kAmDdiCoef0 - kAmDdiCoef1 - kAmDdiFidx0;
+       x += nthreads)
+    fi[kAmDdiFidx0 + x] = AmDdi<1>::fidx()[x];
+}
+
+// Model M's view of the tables: the copies at ``s`` (am_ddi_shared_load)
+// with kShared, else __constant__ memory.
+template <int M, bool kShared>
+__device__ __forceinline__ auto am_ddi_tables(const float* s) {
+  if constexpr (kShared) {
+    const int* fi = reinterpret_cast<const int*>(s + kAmDdiCoef0 + kAmDdiCoef1);
+    return M == 0 ? AmDdiShared<M>{s, fi}
+                  : AmDdiShared<M>{s + kAmDdiCoef0, fi + kAmDdiFidx0};
+  } else {
+    return AmDdiConst<M>{};
+  }
+}
+
+// Statistic column ``col`` of model M from scratch, from the tables ``tab``.
+template <int M, class Tab>
+__device__ __forceinline__ float am_ddi_col_full(const Tab& tab, int col,
+                                                 const float* delta,
                                                  const float* phi, float th0) {
   using P = AmDdi<M>;
-  const float* cf = P::coef() + col * P::kF;
+  const float* cf = tab.coef() + col * P::kF;
   float acc = P::cst()[col] + 0.0f * th0;
 #pragma unroll
   for (int f = 0; f < P::kQuad; ++f) {
@@ -118,13 +175,14 @@ __device__ __forceinline__ float am_ddi_increments(int j, const float* prop,
 
 // Statistic column ``col`` of model M after the move of coordinate j whose
 // increments are dphi, dd, from its carried value ``c``.
-template <int M>
-__device__ __forceinline__ float am_ddi_col_coord(int col, int j, float c,
+template <int M, class Tab>
+__device__ __forceinline__ float am_ddi_col_coord(const Tab& tab, int col,
+                                                  int j, float c,
                                                   const float* dphi,
                                                   float dd) {
   using P = AmDdi<M>;
-  const float* cf = P::coef() + col * P::kF;
-  const int* fi = P::fidx() + j * P::kFix;
+  const float* cf = tab.coef() + col * P::kF;
+  const int* fi = tab.fidx() + j * P::kFix;
   float acc = c;
 #pragma unroll
   for (int i = 0; i < P::kFix; ++i) {
@@ -228,12 +286,14 @@ __device__ __forceinline__ float am_ddi_lp(const float* th, Col col) {
 }
 
 // The stateless density of model M: statistics from scratch, then lp.
-template <int M>
-__device__ __forceinline__ float am_ddi_logpost(const float* th) {
+template <int M, class Tab = AmDdiConst<M>>
+__device__ __forceinline__ float am_ddi_logpost(const float* th,
+                                                const Tab& tab = Tab{}) {
   float delta[AmDdi<M>::kFix], phi[AmDdi<M>::kQuad];
   am_ddi_features<M>(th, delta, phi);
-  return am_ddi_lp<M>(
-      th, [&](int c) { return am_ddi_col_full<M>(c, delta, phi, th[0]); });
+  return am_ddi_lp<M>(th, [&](int c) {
+    return am_ddi_col_full<M>(tab, c, delta, phi, th[0]);
+  });
 }
 
 // A chain's cache of both models' statistics: column i at p[i * kStride]
@@ -248,14 +308,15 @@ struct AmDdiCache {
 
 // Model M's part of the cache from scratch at ``th``: stored, or blended
 // into the carried columns as c + (cn - c) (an accepted move's blend).
-template <int M, class Cache>
-__device__ __forceinline__ void am_ddi_cache_full(const float* th, Cache c,
+template <int M, class Tab, class Cache>
+__device__ __forceinline__ void am_ddi_cache_full(const Tab& tab,
+                                                  const float* th, Cache c,
                                                   bool blend) {
   using P = AmDdi<M>;
   float delta[P::kFix], phi[P::kQuad];
   am_ddi_features<M>(th, delta, phi);
   for (int col = 0; col < P::kCols; ++col) {
-    const float v = am_ddi_col_full<M>(col, delta, phi, th[0]);
+    const float v = am_ddi_col_full<M>(tab, col, delta, phi, th[0]);
     float& x = c[P::kOff + col];
     x = blend ? x + (v - x) : v;
   }
@@ -263,8 +324,9 @@ __device__ __forceinline__ void am_ddi_cache_full(const float* th, Cache c,
 
 // lp of model M at ``prop`` (theta with coordinate j moved from ``oldj``)
 // from the carried cache updated for the move.
-template <int M, class Cache>
-__device__ __forceinline__ float am_ddi_lp_coord(int j, const float* prop,
+template <int M, class Tab, class Cache>
+__device__ __forceinline__ float am_ddi_lp_coord(const Tab& tab, int j,
+                                                 const float* prop,
                                                  float oldj, Cache c) {
   using P = AmDdi<M>;
   if (j >= P::kFix)
@@ -272,14 +334,15 @@ __device__ __forceinline__ float am_ddi_lp_coord(int j, const float* prop,
   float dphi[P::kFix];
   const float dd = am_ddi_increments<M>(j, prop, oldj, dphi);
   return am_ddi_lp<M>(prop, [&](int col) {
-    return am_ddi_col_coord<M>(col, j, c[P::kOff + col], dphi, dd);
+    return am_ddi_col_coord<M>(tab, col, j, c[P::kOff + col], dphi, dd);
   });
 }
 
 // An accepted move of coordinate j: model M's cache columns blended to
 // their updated values as c + (cn - c) (untouched columns stay equal).
-template <int M, class Cache>
-__device__ __forceinline__ void am_ddi_cache_coord(int j, const float* prop,
+template <int M, class Tab, class Cache>
+__device__ __forceinline__ void am_ddi_cache_coord(const Tab& tab, int j,
+                                                   const float* prop,
                                                    float oldj, Cache c) {
   using P = AmDdi<M>;
   if (j >= P::kFix) return;
@@ -287,7 +350,7 @@ __device__ __forceinline__ void am_ddi_cache_coord(int j, const float* prop,
   const float dd = am_ddi_increments<M>(j, prop, oldj, dphi);
   for (int col = 0; col < P::kCols; ++col) {
     float& x = c[P::kOff + col];
-    const float v = am_ddi_col_coord<M>(col, j, x, dphi, dd);
+    const float v = am_ddi_col_coord<M>(tab, col, j, x, dphi, dd);
     x = x + (v - x);
   }
 }

@@ -13,9 +13,10 @@
 // functions: the per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1 and
 // adapt = 0 it is also the per-sweep kernel of the pooled runner, K1d, the JAX
 // _built(1, L, S, False)), the pooled-pk launcher AM_K1C_SYMBOL (K1c, the JAX
-// in-kernel pooled branch, fused.py:773-779) and AM_K1C_CAP_SYMBOL, the number
-// of chains K1c can hold resident.  The plain PyTorch twin is
-// automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
+// in-kernel pooled branch, fused.py:773-779), AM_K1C_CAP_SYMBOL, the number
+// of chains K1c can hold resident, AM_K1_MAXL_SYMBOL, the largest L, and
+// AM_K1_OCC_SYMBOL, the per-chain kernel's resident warps per SM.  The plain
+// PyTorch twin is automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
 // pkllim, nreinit) stays in registers for the whole chunk; device memory sees
@@ -90,7 +91,13 @@
 // was faster than each thread's local memory at the same registers (PERF.md
 // section 6). The proposal tables are read from device memory through L1
 // instead of being copied to shared memory, which leaves shared memory to the
-// cache at any L: 84.5 KB a block, 2 blocks per SM at 221 registers.
+// cache at any L.  K1e also copies DDI's coefficient rows and feature indices
+// into shared memory ahead of the cache (csrc/ddi.cuh am_ddi_shared_load,
+// 28.9 KB): read through the __constant__ cache, their 29 KB working set
+// thrashed it, 1.64 times K1e's time on DDI's state (PERF.md section 6).
+// K1e's block takes 111.4 KB, so 2 blocks fit an SM's 228 KB at up to 256
+// registers.  K1c keeps the __constant__ tables and its 84.5 KB block.  K1d,
+// the per-chain launcher with n_sweeps = 1, runs K1e's form.
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -117,6 +124,9 @@
 #ifndef AM_K1_MAXL_SYMBOL
 #define AM_K1_MAXL_SYMBOL am_fused_sweep_max_l_p0_t0
 #endif
+#ifndef AM_K1_OCC_SYMBOL
+#define AM_K1_OCC_SYMBOL am_fused_sweep_occupancy_p0_t0
+#endif
 
 namespace {
 
@@ -134,11 +144,13 @@ __host__ __device__ constexpr bool cached_shape() {
 }
 
 // Dynamic shared memory of one block: the tables, or in the cached form
-// the cache (the tables are then read from device memory).
-template <int K, int D>
+// the cache (the tables are then read from device memory), after K1e's copy
+// of DDI's coefficient tables.
+template <int K, int D, bool kPooled>
 size_t sweep_smem(int L) {
   if constexpr (cached_shape<K, D>())
-    return sizeof(float) * (size_t)AM_DDI_NCACHE * kThreads;
+    return sizeof(float) * ((kPooled ? 0 : (size_t)kAmDdiShared) +
+                            (size_t)AM_DDI_NCACHE * kThreads);
   const int KL = K * L;
   return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
 }
@@ -171,6 +183,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   const int n_tab = K * D + 3 * KL + KL * D + 2 * KL * D * D;
   if constexpr (!kCache)
     for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
+  else if constexpr (!kPooled)
+    am_ddi_shared_load(smem, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < K * AM_N_CONSTS; i += blockDim.x)
     consts_s[i] = consts_g[i];
   for (int m = threadIdx.x; m < K; m += blockDim.x) {
@@ -217,11 +231,15 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   int cnt[6] = {0, 0, 0, 0, 0, 0};
 
   // K1e: the chain's cache of both models' statistics, fresh at the chunk's
-  // start state (a chunk boundary refreshes the cache, not logp)
-  [[maybe_unused]] const AmDdiCache<kThreads> cache{smem + threadIdx.x};
+  // start state (a chunk boundary refreshes the cache, not logp); DDI's
+  // coefficient tables in shared memory (K1e) or __constant__ memory (K1c)
+  [[maybe_unused]] const auto tab0 = am_ddi_tables<0, !kPooled>(smem);
+  [[maybe_unused]] const auto tab1 = am_ddi_tables<1, !kPooled>(smem);
+  [[maybe_unused]] const AmDdiCache<kThreads> cache{
+      smem + (kPooled ? 0 : kAmDdiShared) + threadIdx.x};
   if constexpr (kCache) {
-    am_ddi_cache_full<0>(th, cache, false);
-    am_ddi_cache_full<1>(th, cache, false);
+    am_ddi_cache_full<0>(tab0, th, cache, false);
+    am_ddi_cache_full<1>(tab1, th, cache, false);
   }
 
   // Random word slots of one sweep (kernels/fused.py s_* offsets):
@@ -271,15 +289,16 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(wd, d) : th[d];
       float lpn;
       if constexpr (kCache)
-        lpn = (kk == 0) ? am_ddi_logpost<0>(prop) : am_ddi_logpost<1>(prop);
+        lpn = (kk == 0) ? am_ddi_logpost<0>(prop, tab0)
+                        : am_ddi_logpost<1>(prop, tab1);
       else
         lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk,
                                prop);
       float acc = (am_u01(wd(0)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
       if constexpr (kCache) {
         if (acc != 0.0f) {
-          am_ddi_cache_full<0>(prop, cache, true);
-          am_ddi_cache_full<1>(prop, cache, true);
+          am_ddi_cache_full<0>(tab0, prop, cache, true);
+          am_ddi_cache_full<1>(tab1, prop, cache, true);
         }
       }
 #pragma unroll
@@ -300,13 +319,13 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = (d == j) ? pj : th[d];
         const float lpn = (kk == 0)
-                              ? am_ddi_lp_coord<0>(j, prop, oldj, cache)
-                              : am_ddi_lp_coord<1>(j, prop, oldj, cache);
+                              ? am_ddi_lp_coord<0>(tab0, j, prop, oldj, cache)
+                              : am_ddi_lp_coord<1>(tab1, j, prop, oldj, cache);
         const float acc =
             (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
         if (acc != 0.0f) {
-          am_ddi_cache_coord<0>(j, prop, oldj, cache);
-          am_ddi_cache_coord<1>(j, prop, oldj, cache);
+          am_ddi_cache_coord<0>(tab0, j, prop, oldj, cache);
+          am_ddi_cache_coord<1>(tab1, j, prop, oldj, cache);
         }
 #pragma unroll
         for (int d = 0; d < D; ++d)
@@ -501,7 +520,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     // MH accept
     float lpn;
     if constexpr (kCache)
-      lpn = (kn == 0) ? am_ddi_logpost<0>(thn) : am_ddi_logpost<1>(thn);
+      lpn = (kn == 0) ? am_ddi_logpost<0>(thn, tab0)
+                      : am_ddi_logpost<1>(thn, tab1);
     else
       lpn = am_logpost<K, D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn,
                              thn);
@@ -514,8 +534,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     const int acci = (int)accf;
     if constexpr (kCache) {
       if (acci) {
-        am_ddi_cache_full<0>(thn, cache, true);
-        am_ddi_cache_full<1>(thn, cache, true);
+        am_ddi_cache_full<0>(tab0, thn, cache, true);
+        am_ddi_cache_full<1>(tab1, thn, cache, true);
       }
     }
     kk = kk + acci * (kn - kk);
@@ -526,8 +546,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       // periodic refresh of the cache and logp from the state (keyed on
       // the global sweep, so a resume at a chunk boundary replays it)
       if (t % kRefresh == kRefresh - 1) {
-        am_ddi_cache_full<0>(th, cache, false);
-        am_ddi_cache_full<1>(th, cache, false);
+        am_ddi_cache_full<0>(tab0, th, cache, false);
+        am_ddi_cache_full<1>(tab1, th, cache, false);
         const auto col0 = [&](int c) { return cache[AmDdi<0>::kOff + c]; };
         const auto col1 = [&](int c) { return cache[AmDdi<1>::kOff + c]; };
         lp = (kk == 0) ? am_ddi_lp<0>(th, col0) : am_ddi_lp<1>(th, col1);
@@ -638,7 +658,7 @@ template <int K, int D, bool kPooled>
 cudaError_t set_smem(int L) {
   return cudaFuncSetAttribute(fused_sweep_kernel<K, D, kPooled>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sweep_smem<K, D>(L));
+                              (int)sweep_smem<K, D, kPooled>(L));
 }
 
 // Chains K1c can hold resident at once on the current device at this L:
@@ -655,9 +675,25 @@ int pooled_capacity(int L, int* chains) {
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_sweep_kernel<K, D, true>, kThreads, sweep_smem<K, D>(L));
+      &per_sm, fused_sweep_kernel<K, D, true>, kThreads,
+      sweep_smem<K, D, true>(L));
   if (e != cudaSuccess) return (int)e;
   *chains = coop ? per_sm * sms * kThreads : 0;
+  return 0;
+}
+
+// Warps of the per-chain kernel (K1, K1e) resident on one SM of the current
+// device at this L.
+template <int K, int D>
+int occupancy(int L, int* warps) {
+  cudaError_t e = set_smem<K, D, false>(L);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_sweep_kernel<K, D, false>, kThreads,
+      sweep_smem<K, D, false>(L));
+  if (e != cudaSuccess) return (int)e;
+  *warps = per_sm * kThreads / 32;
   return 0;
 }
 
@@ -676,7 +712,8 @@ int max_l(int* L) {
                              dev);
   if (e != cudaSuccess) return (int)e;
   int l = kLMax;
-  while (l > 0 && fa.sharedSizeBytes + sweep_smem<K, D>(l) > (size_t)optin)
+  while (l > 0 &&
+         fa.sharedSizeBytes + sweep_smem<K, D, kPooled>(l) > (size_t)optin)
     --l;
   *L = l;
   return 0;
@@ -687,7 +724,7 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
   cudaError_t e = set_smem<K, D, kPooled>(a.L);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kThreads - 1) / kThreads);
-  const size_t smem = sweep_smem<K, D>(a.L);
+  const size_t smem = sweep_smem<K, D, kPooled>(a.L);
   if constexpr (kPooled) {
     // refuse a population the card cannot hold resident
     int cap = 0;
@@ -799,6 +836,17 @@ extern "C" int AM_K1_MAXL_SYMBOL(int K, int D, int pooled, int* L) {
 #define AM_CASE(k, d) \
   if (K == k && D == d) \
     return pooled ? max_l<k, d, true>(L) : max_l<k, d, false>(L);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
+}
+
+// Warps of the per-chain kernel resident per SM at (K, D, L) on the current
+// device, in ``warps``; -1 without an instantiation.
+extern "C" int AM_K1_OCC_SYMBOL(int K, int D, int L, int* warps) {
+  if (L < 1 || L > kLMax) return -1;
+#define AM_CASE(k, d) \
+  if (K == k && D == d) return occupancy<k, d>(L, warps);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;

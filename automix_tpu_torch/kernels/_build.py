@@ -66,8 +66,9 @@ def generated_headers() -> dict:
 def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
     """Exported name of a stage-3 sweep function of one variant: the
     per-chain launcher (``kind=""``), the pooled launcher (``"pooled"``),
-    the pooled capacity query (``"pooled_cap"``) or the largest-L query
-    (``"max_l"``)."""
+    the pooled capacity query (``"pooled_cap"``), the largest-L query
+    (``"max_l"``) or the per-chain kernel's occupancy query
+    (``"occupancy"``)."""
     infix = f"_{kind}" if kind else ""
     return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
 
@@ -79,7 +80,9 @@ _UNITS = tuple(
                         f"-DAM_K1C_SYMBOL={sweep_symbol(p, t, 'pooled')}",
                         "-DAM_K1C_CAP_SYMBOL="
                         f"{sweep_symbol(p, t, 'pooled_cap')}",
-                        f"-DAM_K1_MAXL_SYMBOL={sweep_symbol(p, t, 'max_l')}"))
+                        f"-DAM_K1_MAXL_SYMBOL={sweep_symbol(p, t, 'max_l')}",
+                        "-DAM_K1_OCC_SYMBOL="
+                        f"{sweep_symbol(p, t, 'occupancy')}"))
     for p in (0, 1) for t in (0, 1)) + (
     ("fused_stage1.cu", ()),
     ("fused_stage1_sweep.cu", ()),
@@ -101,7 +104,8 @@ _SIGNATURES = {
        + [_P, _F] + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, kind): [_I, _I, _I, _P]
-       for p in (0, 1) for t in (0, 1) for kind in ("pooled_cap", "max_l")},
+       for p in (0, 1) for t in (0, 1)
+       for kind in ("pooled_cap", "max_l", "occupancy")},
     "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
     + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
     "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]

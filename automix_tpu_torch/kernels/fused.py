@@ -522,6 +522,23 @@ def pooled_capacity(modelset, L: int, device, perm: bool = False,
     return chains.value
 
 
+def occupancy(modelset, L: int, device, perm: bool = False,
+              tdist=None) -> int:
+    """Warps of the per-chain sweep kernel resident per SM on the card at
+    this proposal size L, from the CUDA occupancy of its block (registers
+    and shared memory)."""
+    K, D = modelset.nmodels, modelset.dmax
+    _build.check_shape(K, D, "occupancy")
+    check_form(modelset)
+    check_tables(K, D, L, device, perm, tdist is not None)
+    warps = ctypes.c_int()
+    symbol = _build.sweep_symbol(perm, tdist is not None, "occupancy")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            K, D, L, ctypes.byref(warps)), symbol)
+    return warps.value
+
+
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
                 n_sweeps: int, adapt: bool, perm: bool = False,

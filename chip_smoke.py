@@ -33,8 +33,10 @@ PyTorch twin on the card, then drives the port's paths at full size:
   ``_mix.data`` at its defaults, and pooled pk at 16384 chains on the
   route ``pooled_capacity`` picks, p(M) each against the C oracle's ddi
   mean; K1e, K1e + perm (100 sweeps, crossing six cache refreshes), K1e at
-  L = 32, K1c with the cache and the stage-1 kernel with the DDI density
-  each equal to its twin run on the card;
+  L = 32, K1d with the cache (the per-sweep pooled runner, forced on the
+  run's 16384 chains; with K1e's registers and resident warps per SM),
+  K1c with the cache and the stage-1 kernel with the
+  DDI density each equal to its twin run on the card;
 * change-point (6 models of dims 3-13, D5): the segment kernel with the
   log rule (K2-log) and the one-sweep route with the log update between
   launches, each equal to its twin on the card; stage 1 of cpt at 512
@@ -483,6 +485,23 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` replayed from one CUDA graph of
+    ``reps`` calls (after a warm-up call on a side stream): the kernels'
+    time without the host's per-call launch and allocation cost."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def timed(fn):
@@ -1101,6 +1120,38 @@ def check_cache_lmax(ms, prop, chains):
                 seed=7, sweep0=sub.sweep, n_sweeps=20, adapt=True)
 
 
+def check_cache_pooled_runner(ms, prop, chains, dev):
+    """K1d with the DDI cache, the per-sweep pooled runner (one K1e launch
+    a sweep, rebuilding the cache), against the same loop over the twin,
+    both on the card's stream from a DDI run's state: every chain x
+    K1D_CHECK_SWEEPS sweeps, every chain field and chunk statistic bit for
+    bit.  Logs K1e's registers (ptxas) and resident warps per SM."""
+    import torch
+    from automix_tpu_torch.kernels import _build, fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    rng = fused.resolve_rng("auto", dev)
+    a, ca = fused.pooled_sweeps(ms, chains, tabs, K1D_CHECK_SWEEPS,
+                                seed=17, rng=rng)
+    b, cb = fused.pooled_sweeps(ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17,
+                                sweep_fn=fused.sweep_chunk_ref, rng=rng)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "k", "theta", "logp", "pk", "pkllim", "nreinit")) and all(
+        torch.equal(ca[n], cb[n]) for n in ca)
+    jumps = float((a.k != chains.k).float().mean())
+    regs = [r for n, r, *_ in ptxas_summary(_build.build(),
+                                            *_build.CACHED_SHAPE)
+            if n == "fused_sweep_kernel<0>"]
+    warps = fused.occupancy(ms, prop.lmax, dev)
+    log(f"K1d with the cache, {rng}, vs its twin runner ({chains.n_chains} "
+        f"chains x {K1D_CHECK_SWEEPS} sweeps): every output equal {equal}, "
+        f"chains that jumped {jumps:.4f}; K1e: one thread per chain, "
+        f"{warps} resident warps per SM, registers {regs} (ptxas, per "
+        "variant)")
+    if not equal:
+        fail("K1d with the cache differs from its twin")
+
+
 def check_cache_pooled(ms, prop, chains):
     """K1c with the DDI cache against the pooled twin on the card, every
     chain of a pooled run's state x DDI_CHECK_SWEEPS sweeps: every output
@@ -1201,6 +1252,7 @@ def ddi_paths(dev):
         out["K1e perm"] = check_cache_sweep(dd, prop, am.chains, perm=True,
                                             label="K1e perm")
         check_cache_lmax(dd, prop, am.chains)
+        check_cache_pooled_runner(dd, prop, am.chains, dev)
         out["K1e hw"] = check_hw(dd, prop, am.chains, "K1f K1e ddi",
                                  exact=True)
         out["drive"] = hash_drive(dd, prop, am.chains, "ddi K1e")
@@ -1534,7 +1586,10 @@ def check_k4(dev):
     libdevice functions), and the block-offset property.  Times the
     kernel, the twin and torch.rand + torch.randn into the same shapes
     (the same distributions from another generator, not the same words),
-    at the first shape."""
+    at the first shape: kernel and library called one by one from Python,
+    as the general engine calls them (``ms``, ``library_ms``), and replayed
+    from a CUDA graph, their device time without the host's per-call cost
+    (``graph_ms``, ``library_graph_ms``)."""
     import torch
     from automix_tpu_torch.kernels import sweep_rng
     out = None
@@ -1563,16 +1618,24 @@ def check_k4(dev):
                 and inside):
             fail(f"K4 disagrees with its twin at {S} x ({MU}, {MZ})")
         if out is None:
-            ms_k = cuda_ms(
-                lambda: sweep_rng.draw(7, 12, 0, S, MU, MZ, dev), 200)
-            ms_l = cuda_ms(lambda: (torch.rand(S, MU, device=dev),
-                                    torch.randn(S, MZ, device=dev)), 200)
+            def draw():
+                return sweep_rng.draw(7, 12, 0, S, MU, MZ, dev)
+
+            def library():
+                return (torch.rand(S, MU, device=dev),
+                        torch.randn(S, MZ, device=dev))
+
+            eager_k, eager_l = cuda_ms(draw, 200), cuda_ms(library, 200)
+            ms_k, ms_l = graph_ms(draw, 100), graph_ms(library, 100)
             b_ms, b_by = bound(S * k4_ops(MU, MZ), S * (MU + MZ) * 4)
-            log(f"K4 ({S} x {MU + MZ}): kernel {ms_k:.4f} ms, plain "
-                f"{ms_p:.4f} ms, torch.rand + torch.randn {ms_l:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            out = dict(max_abs_err=z_err, ms=ms_k, plain_ms=ms_p,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=ms_l)
+            log(f"K4 ({S} x {MU + MZ}): kernel {eager_k:.4f} ms, plain "
+                f"{ms_p:.4f} ms, torch.rand + torch.randn {eager_l:.4f} ms "
+                f"(called from Python); CUDA graph replays: kernel "
+                f"{ms_k:.4f} ms, library {ms_l:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by})")
+            out = dict(max_abs_err=z_err, ms=eager_k, plain_ms=ms_p,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=eager_l,
+                       graph_ms=ms_k, library_graph_ms=ms_l)
     return out
 
 

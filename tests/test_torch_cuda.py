@@ -646,6 +646,33 @@ def test_ddi_pooled_cache_kernel_matches_twin(cuda):
     assert bool((got[3] == got[3][:, :1]).all())
 
 
+def test_ddi_pooled_runner_with_the_cache_matches_twin(cuda):
+    """K1d with the DDI cache: the per-sweep pooled runner (one K1e launch
+    a sweep, which rebuilds the cache; the route of a population above
+    K1c's bound, forced here on 4096 chains) on the card's stream, 20
+    sweeps from sweep 7 (a block move at 10, a refresh after 15), against
+    the same runner over the twin on the card: every chain field and every
+    chunk statistic bit for bit."""
+    ms, ch, tabs = _ddi_state(cuda, 4096, seed=3, sweep=7)
+    rng = fused.resolve_rng("auto", cuda)
+    key = "hw_launches" if rng == "hw" else "launches"
+    before = (getattr(fused.sweep_chunk, key),
+              fused.sweep_chunk.pooled_launches,
+              fused.sweep_chunk.pooled_hw_launches)
+    a, ca = fused.pooled_sweeps(ms, ch, tabs, 20, seed=6, rng=rng)
+    assert (getattr(fused.sweep_chunk, key),
+            fused.sweep_chunk.pooled_launches,
+            fused.sweep_chunk.pooled_hw_launches) == (before[0] + 20,
+                                                      *before[1:])
+    b, cb = fused.pooled_sweeps(ms, ch, tabs, 20, seed=6, rng=rng,
+                                sweep_fn=fused.sweep_chunk_ref)
+    for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for name in ca:
+        assert torch.equal(ca[name], cb[name]), name
+    assert (a.k != ch.k).any()
+
+
 def test_ddi_stateless_forms_refused_at_the_cached_shape(cuda):
     """At (2, 16) only the cached form exists: a stateless model set of
     that shape (DDI's models without their incremental density) is refused
@@ -677,6 +704,41 @@ def test_tutorial_sweep_kernel_registers(cuda):
         r"registers", log)]
     assert len(regs) == 8, regs             # 4 variants x K1 and K1c
     assert all(56 <= r <= 64 for r in regs), regs
+
+
+def test_ddi_cache_kernel_registers(cuda):
+    """K1e, the per-chain kernel's cached form at DDI's (2, 16): one thread
+    per chain with the tables in shared memory keeps 212-232 registers and
+    spills nothing in every variant (220 on the H100; at most 256 keeps two
+    blocks per SM; ptxas -v of the build, kept in the log beside the
+    library)."""
+    import re
+    log = _build.build().with_suffix(".log").read_text()
+    found = []
+    for block in log.split("Compiling entry function '")[1:]:
+        if "fused_sweep_kernelILi2ELi16ELb0EE" not in block.split("'", 1)[0]:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        found.append((int(regs.group(1)), int(spill.group(1)),
+                      int(spill.group(2))))
+    assert len(found) == 4, found             # 4 variants
+    assert all(212 <= r <= 232 and st == ld == 0 for r, st, ld in found), \
+        found
+
+
+@pytest.mark.parametrize("L", [4, 32])
+def test_ddi_cache_kernel_occupancy(cuda, L):
+    """K1e's block (the 84.5 KB cache after the 28.9 KB of shared tables)
+    leaves room for two blocks of 4 warps per SM in every variant, as the
+    cache alone did: a population above one block per SM keeps the
+    warps of the form before the tables moved."""
+    ms = ddi.ddi_set()
+    for perm in (False, True):
+        for tdist in (None, randoms.student_t(5)):
+            assert fused.occupancy(ms, L, cuda, perm=perm, tdist=tdist) \
+                == 8, (perm, tdist)
 
 
 def test_changepoint_segment_log_rule_matches_twin_exactly(cuda):
@@ -787,21 +849,27 @@ def _ulps(a, b):
     return (a - b).abs()
 
 
-@pytest.mark.parametrize("shape", [(131072, 25, 4), (3000, 37, 5)])
+@pytest.mark.parametrize("shape", [
+    (131072, 25, 4), (3000, 37, 5), (1024, 0, 4), (1024, 25, 0), (1, 25, 4),
+    (4096, 6, 1), (64, 500, 7), (4, 20000, 3), (2, 58200, 3)])
 def test_sweep_rng_kernel_matches_twin(cuda, shape):
     """K4 against draw_ref on the card: uniforms bitwise, normals within 2
     ulps (both call the same libdevice log1pf, sqrtf, cosf and sinf), and
-    the block-offset property of the kernel's own rows."""
+    the block-offset property of the kernel's own rows.  The shapes cover
+    the tile's edges: MU = 0, MZ = 0, odd MZ, one row, a ragged last tile
+    (3000 rows), tiles cut to fit 48 KB, a one-row tile above 48 KB, and a
+    row wider than a block's shared memory (one thread per row)."""
     from automix_tpu_torch.kernels import sweep_rng
     S, MU, MZ = shape
     u, z = sweep_rng.draw(7, 12, 0, S, MU, MZ, cuda)
     torch.cuda.synchronize()
     ur, zr = sweep_rng.draw_ref(7, 12, 0, S, MU, MZ, cuda)
     assert torch.equal(u, ur)
-    assert int(_ulps(z, zr).max()) <= 2
+    assert z.shape == zr.shape == (S, MZ)
+    assert MZ == 0 or int(_ulps(z, zr).max()) <= 2
     cb = sweep_rng.choose_block(S)
     half = S // 2
-    if half % cb == 0:
+    if half and half % cb == 0:
         uh, zh = sweep_rng.draw(7, 12, half // cb, half, MU, MZ, cuda)
         assert torch.equal(uh, u[half:]) and torch.equal(zh, z[half:])
 
