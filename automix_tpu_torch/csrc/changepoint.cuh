@@ -8,21 +8,29 @@
 // points sit at run-time offsets ns + 1 + q of theta, so they are selected
 // by compare into the boundary list (0, s_0, ..., s_{ns-1}, T): theta stays
 // in registers.  An out-of-support state returns the reject value before
-// the event loop, as JAX's where does.
+// the search, as JAX's where does.
 //
 // The segment counts: with the change points in order (the support
 // guarantees it), an event x lies in segment q exactly when
 // s_{q-1} < x <= s_q, so the count of segment q is G_q - G_{q-1}, G_q the
 // number of events <= s_q: integers, equal to JAX's searchsorted histogram
-// and to the twin's.  G is counted by comparing every event with the 6
-// boundaries: the events live in __constant__ memory (am_cpt.h, generated
-// from changepoint.py header()), and every thread of a warp reads the same
-// event at the same step, so each load is a broadcast.  The event loop stays
-// rolled, which bounds code size: the density is inlined at every
-// evaluation site of the (6, 13) kernels.
+// and to the twin's.  G_q comes from a fixed-step binary search of the
+// sorted events, 8 steps for the 191 events, where a scan took 191
+// compares per change point at every evaluation (one per coordinate move
+// and one for the jump, every sweep).  The ns searches run in lockstep,
+// so each step issues ns independent loads.
+// The events live in global memory (am_cpt.h, generated from
+// changepoint.py header()) and are read through L1 (__ldg): the threads
+// of a warp search different addresses after the first step, which
+// __constant__ memory would serve one address at a time.
 #pragma once
 
 #include "am_cpt.h"
+
+// floor(log2 n) for n >= 1.
+__host__ __device__ constexpr int am_log2_floor(int n) {
+  return n < 2 ? 0 : 1 + am_log2_floor(n / 2);
+}
 
 template <int D>
 __device__ __forceinline__ float am_density_cpt(int set, const float* c,
@@ -64,16 +72,26 @@ __device__ __forceinline__ float am_density_cpt(int set, const float* c,
   lp = lp + c[2];
   lp = lp - c[3];
 
-  // likelihood: the events of each segment (usercpt.c:115-130)
-  int g[kS + 1];
+  // likelihood: the events of each segment (usercpt.c:115-130).  G_q by
+  // search: with P = 2^floor(log2 N) (so N < 2P), the first step asks
+  // whether event N - P is <= s_q; if it is, so is every event before it
+  // and G_q >= N - P + 1.  The steps P/2, ..., 1 then search the P - 1
+  // events after that start (0 or N - P + 1), which lie within the N, so
+  // G_q takes each value 0..N (tests/test_torch_changepoint.py models it).
+  int g[kS];
+  const float* ev = am_cpt_events + set * AM_CPT_N;
+  constexpr int kB = am_log2_floor(AM_CPT_N), kP = 1 << kB;
+  const float e0 = __ldg(ev + AM_CPT_N - kP);
 #pragma unroll
-  for (int q = 0; q <= kS; ++q) g[q] = 0;
-  const int off = set * AM_CPT_N;
-#pragma unroll 1
-  for (int e = 0; e < AM_CPT_N; ++e) {
-    const float x = am_cpt_events[off + e];
+  for (int q = 0; q < kS; ++q)
+    g[q] = (e0 <= b[q + 1]) ? AM_CPT_N - kP + 1 : 0;
 #pragma unroll
-    for (int q = 0; q < kS; ++q) g[q] += (x <= b[q + 1]) ? 1 : 0;
+  for (int bit = kB - 1; bit >= 0; --bit) {
+    const int step = 1 << bit;
+#pragma unroll
+    for (int q = 0; q < kS; ++q)
+      if (q < ns)
+        g[q] += (__ldg(ev + g[q] + step - 1) <= b[q + 1]) ? step : 0;
   }
   float llh = 0.0f;
 #pragma unroll

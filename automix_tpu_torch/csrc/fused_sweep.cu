@@ -30,7 +30,12 @@
 // entries only (the twin's 0 * theta additions are exact).  At rb9's K*D = 50
 // that takes K1 to 232-250 registers with no spills, 2 blocks per SM; keeping
 // the sums in shared memory instead (56 KB a block, 3 blocks per SM) made a
-// 100-sweep launch on rb9 5 times slower.
+// 100-sweep launch on rb9 5 times slower.  Keeping only the current model's
+// sums in registers and the others in a per-thread local slot, swapped when
+// a jump changes the model, took (6, 13) to 113-115 registers and (10, 5) to
+// 72-80, with 2-3 times the resident warps, and was slower at both shapes
+// (PERF.md section 6): 1.8-3.2 times at 131072 chains, and twice as slow on
+// cptrs, whose chains change model on 22% of chain-sweeps (rb9's 64%).
 //
 // K1c: the JAX kernel keeps the population in one lane block, so its visit
 // histogram is a cross-lane sum.  Here the population spans many blocks, so

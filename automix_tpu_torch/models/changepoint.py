@@ -185,7 +185,8 @@ def family_cols(spec: ChangepointSpec, k, rows):
 def header() -> str:
     """``am_cpt.h``: the family's shape (K, D), which alone compiles the
     density in, the number of events and both sets' float32 events (cpt,
-    then cptrs) for ``am_density_cpt``."""
+    then cptrs), sorted, in global memory for ``am_density_cpt``'s binary
+    search."""
     body = ", ".join(repr(float(x))
                      for spec in (CPT, CPTRS) for x in spec.events)
     return ("// Generated by automix_tpu_torch/kernels/_build.py from "
@@ -193,7 +194,7 @@ def header() -> str:
             f"#define AM_CPT_K {K}\n"
             f"#define AM_CPT_D {D}\n"
             f"#define AM_CPT_N {N_EVENTS}\n"
-            f"static __constant__ float am_cpt_events[{2 * N_EVENTS}] = "
+            f"static __device__ float am_cpt_events[{2 * N_EVENTS}] = "
             f"{{{body}}};\n")
 
 

@@ -186,6 +186,79 @@ def test_header_holds_both_event_sets():
         vals, np.concatenate([cp.CPT.events, cp.CPTRS.events]))
 
 
+def _header_events():
+    """Each set's events as the generated am_cpt.h hands them to the
+    kernels, parsed back into float32."""
+    text = cp.header()
+    n = int(re.search(r"#define AM_CPT_N (\d+)", text).group(1))
+    body = re.search(r"am_cpt_events\[\d+\] = \{(.*)\};", text).group(1)
+    vals = np.array([float(v) for v in body.split(",")], np.float32)
+    return {"cpt": vals[:n], "cptrs": vals[n:]}
+
+
+def _count_le(ev, s):
+    """The kernel's fixed-step search (``am_density_cpt`` in
+    csrc/changepoint.cuh) in numpy: the number of events <= each s, and
+    the number of steps.  Every read lies inside the events (numpy raises
+    on an index past the end; no index is below 0)."""
+    n = len(ev)
+    p = 1 << (n.bit_length() - 1)
+    g = np.where(ev[n - p] <= s, n - p + 1, 0)
+    steps, step = 1, p // 2
+    while step:
+        g = g + np.where(ev[g + step - 1] <= s, step, 0)
+        steps, step = steps + 1, step // 2
+    return g, steps
+
+
+def _around(x):
+    """x and its float32 neighbours on both sides."""
+    x = np.asarray(x, np.float32)
+    return np.concatenate([x, np.nextafter(x, np.float32(-np.inf)),
+                           np.nextafter(x, np.float32(np.inf))])
+
+
+@pytest.mark.parametrize("name", sorted(_SETS))
+def test_header_events_are_sorted_and_finite(name):
+    """The search's precondition: each set's 191 events in am_cpt.h are
+    finite and in order (ties allowed: cpt has 9106 twice)."""
+    ev = _header_events()[name]
+    assert len(ev) == cp.N_EVENTS
+    assert np.isfinite(ev).all()
+    assert (np.diff(ev) >= 0).all()
+
+
+@pytest.mark.parametrize("name", sorted(_SETS))
+def test_segment_count_search_matches_searchsorted(name):
+    """At every event and its float32 neighbours, at 0 and T and their
+    neighbours, and outside (0, T), the kernel's search counts in 8 steps
+    what the twin's ``torch.searchsorted(..., right=True)`` and numpy's
+    ``searchsorted(side="right")`` count."""
+    ev = _header_events()[name]
+    t_end = _SETS[name][2].t_end
+    s = np.concatenate([_around(ev), _around([0.0, t_end]),
+                        np.float32([-1.0, 2.0 * t_end])])
+    g, steps = _count_le(ev, s)
+    assert steps == 8
+    np.testing.assert_array_equal(g, np.searchsorted(ev, s, side="right"))
+    np.testing.assert_array_equal(g, torch.searchsorted(
+        torch.from_numpy(ev), torch.from_numpy(s), right=True).numpy())
+
+
+def test_segment_count_search_at_every_size():
+    """The same search over n = 1..300 sorted float32 values with ties
+    counts the values <= every value and its neighbours, in
+    1 + floor(log2 n) steps."""
+    rng = np.random.default_rng(0)
+    for n in range(1, 301):
+        ev = np.sort(rng.integers(0, n, n)).astype(np.float32)
+        s = _around(np.concatenate([ev, [-1.0, n + 1.0]]))
+        g, steps = _count_le(ev, s)
+        assert steps == n.bit_length(), n
+        np.testing.assert_array_equal(g, np.searchsorted(ev, s,
+                                                         side="right"))
+
+
 def test_stage1_log_rule_moves_sig_to_the_rates_scale():
     """The log rule's twin on cpt, 6 x 64 chains, 150 sweeps (+15 burn-in)
     from sig = 10: every model's rate scales come down below 0.02, to the

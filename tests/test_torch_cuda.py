@@ -843,6 +843,235 @@ def test_changepoint_pooled_capacity(cuda):
 # --- the general engine and K4 (rng="pallas") -------------------------------
 
 
+# --- the large shapes (6, 13) and (10, 5) and D5's search ------------------
+
+def _cpt_edge_states(spec, C, seed=0):
+    """C float32 states per model of the change-point set ``spec``, [K, C,
+    D], whose change points sit where D5's search decides a count: each on
+    an event or on one of its float32 neighbours, and by kind (chain c %
+    10): the first on the first event (1), the last on the last event (2),
+    the first on 0's float32 neighbour (3), the last on T's (4), one on a
+    tied event value (5); or out of support: a change point at 0 (6), at T
+    (7), past T or two swapped (8), a rate of 0 (9)."""
+    rng = np.random.default_rng(seed)
+    ev = spec.events
+    vals, reps = np.unique(ev, return_counts=True)
+    tie = vals[reps > 1][0]
+    T = np.float32(spec.t_end)
+    K, D = changepoint.K, changepoint.D
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    out = np.zeros((K, C, D), np.float32)
+    for m in range(K):
+        ns = m + 1
+        for c in range(C):
+            kind = c % 10
+            pts = np.sort(rng.choice(vals[vals != tie], ns, replace=False))
+            side = rng.integers(-1, 2, ns)
+            pts = np.where(side < 0, np.nextafter(pts, down),
+                           np.where(side > 0, np.nextafter(pts, up), pts))
+            if kind == 1:
+                pts[0] = ev[0]
+            elif kind == 2:
+                pts[-1] = ev[-1]
+            elif kind == 3:
+                pts[0] = np.nextafter(np.float32(0), up)
+            elif kind == 4:
+                pts[-1] = np.nextafter(T, down)
+            elif kind == 5:
+                pts = np.sort(np.append(pts[1:], tie))
+            elif kind == 6:
+                pts[0] = 0.0
+            elif kind == 7:
+                pts[-1] = T
+            elif kind == 8:
+                if ns > 1:
+                    pts[[0, 1]] = pts[[1, 0]]
+                else:
+                    pts[0] = 2 * T
+            rates = np.float32(len(ev) / T) * rng.uniform(0.5, 1.5, ns + 1)
+            if kind == 9:
+                rates[rng.integers(ns + 1)] = 0.0
+            out[m, c, :ns + 1] = rates
+            out[m, c, ns + 1:2 * ns + 1] = pts
+    return out
+
+
+@pytest.mark.parametrize("name", ["cpt", "cptrs"])
+def test_changepoint_density_edges_match_twin(cuda, name):
+    """D5 at change points on an event, on its float32 neighbours, on a
+    tied event, next to 0 and T, and out of support (at 0, at T, past T,
+    swapped, a zero rate), 6 x 250 states of each set, through every
+    kernel that inlines it, each against its twin on the card bit for bit:
+    K3 one sweep with sig = 0 (its logp is D5 at the states); K2-log one
+    segment of 2 sweeps with sig = 0 (the same logp); and K1, 3 sweeps
+    (a componentwise, a block and a componentwise sweep) with sig = 0 from
+    the twin's logp, so that each coordinate move evaluates D5 at the
+    state itself and keeps logp only where the two agree, then the jump."""
+    import dataclasses
+    ms = getattr(changepoint, f"{name}_set")()
+    spec = getattr(changepoint, name.upper())
+    K, D, C = ms.nmodels, ms.dmax, 250
+    states = _cpt_edge_states(spec, C)
+    theta = torch.from_numpy(states.reshape(K * C, D).T.copy()).to(cuda)
+    sig = torch.zeros((K, D), device=cuda)
+    lp0 = torch.zeros(K * C, device=cuda)
+    kw = dict(C=C, t=1, seed=3, nburn=0, seg_start=True)
+    got = fused_stage1.sweep(ms, theta, lp0, sig, **kw)
+    want = fused_stage1.sweep_ref(ms, theta, lp0, sig, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), ("K3", i)
+    lp = got[1].reshape(K, C).cpu()
+    reject = torch.as_tensor(np.arange(C) % 10 >= 6)
+    assert bool((lp[:, reject] == spec.reject_value).all())
+    assert bool((lp[:, ~reject] > spec.reject_value).all())
+    zi = torch.zeros((K, D), dtype=torch.int32, device=cuda)
+    kw = dict(C=C, sweep0=0, seed=777, nburn=1, n_active=2, rule="log",
+              log_gain=3.0)
+    got = fused_stage1.segment(ms, theta, sig, zi, zi, **kw)
+    want = fused_stage1.segment_ref(ms, theta, sig, zi, zi, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), ("K2-log", i)
+    assert torch.equal(got[4].reshape(K, C).cpu(), lp)
+    rate = np.arange(D)[None] < (np.arange(K) + 2)[:, None]
+    tabs = _scaled_state(ms, np.where(rate, 1e-3, 0.05 * spec.t_end), cuda,
+                         16, 2, 0, 9)[2]
+    tabs = dataclasses.replace(tabs, sig=torch.zeros_like(tabs.sig))
+    from automix_tpu_torch.state import Chains
+    k = torch.arange(K, device=cuda, dtype=torch.int32).repeat_interleave(C)
+    S = K * C
+    ch = Chains(k=k, theta=theta.T.contiguous(), logp=lp.reshape(-1).to(cuda),
+                pk=torch.full((S, K), 1.0 / K, device=cuda),
+                pkllim=torch.full((S,), 0.1, device=cuda),
+                nreinit=torch.ones(S, dtype=torch.int32, device=cuda),
+                sweep=9)
+    _assert_sweep_exact(ms, ch, tabs, 3)
+
+
+@pytest.mark.parametrize("variant", ["K1", "K1b", "K1c"])
+@pytest.mark.parametrize("name", ["rb9", "cpt"])
+def test_large_shape_sweep_kernels_hw_match_twin_exactly(cuda, name,
+                                                         variant):
+    """K1f, the hw stream, in the per-chain, perm and pooled forms at
+    rb9's (10, 5) and the change-point (6, 13): 4096 chains x 40 sweeps
+    from sweep 5, equal to the hw twin run on the card in every output."""
+    if name == "rb9":
+        ms, ch, tabs = _rb9_state(cuda, 4096, seed=1)
+    else:
+        ms, ch, tabs = _cpt_state(cuda, 4096, seed=3)
+    _assert_sweep_exact(ms, ch, tabs, 40, perm=variant == "K1b",
+                        pooled=variant == "K1c", rng="hw")
+
+
+@pytest.mark.parametrize("variant", ["K1", "K1b", "K1c"])
+def test_rb9_sweep_kernels_match_twin_exactly(cuda, variant):
+    """K1, K1b (perm) and K1c (pooled) on the hash at rb9's (10, 5): 4096
+    chains x 40 sweeps from sweep 5 equal to the twin run on the card in
+    every output."""
+    ms, ch, tabs = _rb9_state(cuda, 4096, seed=1)
+    _assert_sweep_exact(ms, ch, tabs, 40, perm=variant == "K1b",
+                        pooled=variant == "K1c")
+
+
+def _model_changes(ms, ch, tabs, n):
+    """One-sweep launches of the hash stream (a function of the global
+    sweep, so they run the chains of one n-sweep launch) from ``ch``: the
+    state after n sweeps, the chunk sums accumulated in sweep order, and
+    per chain the model changes and whether it came back to a model it had
+    left."""
+    state = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+             ch.pkllim, ch.nreinit)
+    k = ch.k.long()
+    seen = torch.ones_like(k) << k
+    changes = torch.zeros_like(k)
+    back = torch.zeros_like(k, dtype=torch.bool)
+    sums = None
+    for t in range(n):
+        out = fused.sweep_chunk(ms, *state, tabs, seed=3,
+                                sweep0=ch.sweep + t, n_sweeps=1, adapt=True)
+        kn = out[0].long()
+        moved = kn != k
+        changes += moved
+        back |= moved & ((seen >> kn) & 1).bool()
+        seen |= torch.ones_like(kn) << kn
+        sums = out[6:9] if sums is None else tuple(
+            a + b for a, b in zip(sums, out[6:9]))
+        state, k = out[:6], kn
+    return state, sums, changes, back
+
+
+@pytest.mark.parametrize("name", ["rb9", "cpt"])
+def test_chunk_sums_across_model_changes_match_twin(cuda, name):
+    """The chunk sums under model changes: 4096 chains x 200 sweeps of rb9
+    (10, 5) or cpt (6, 13).  One-sweep launches show that many chains
+    changed model and many came back to a model they had left; the one
+    200-sweep launch equals their state and their sums added in sweep
+    order (each sweep adds to one model), and the twin on the card in
+    every output, ks / ts / tq included, bit for bit."""
+    if name == "rb9":
+        ms, ch, tabs = _rb9_state(cuda, 4096, seed=2)
+    else:
+        ms, ch, tabs = _cpt_state(cuda, 4096, seed=4)
+    n = 200
+    state, sums, changes, back = _model_changes(ms, ch, tabs, n)
+    moved = float((changes > 0).float().mean())
+    came_back = float(back.float().mean())
+    print(f"{name}: model changes per chain-sweep "
+          f"{float(changes.sum()) / (n * ch.n_chains):.4f}, chains that "
+          f"changed {moved:.4f}, came back {came_back:.4f}")
+    assert moved >= 0.25 and came_back >= 0.05, (moved, came_back)
+    got = _assert_sweep_exact(ms, ch, tabs, n)
+    for i in range(6):
+        assert torch.equal(got[i], state[i]), i
+    for i in range(3):
+        assert torch.equal(got[6 + i], sums[i]), 6 + i
+
+
+# The sweep kernel at the change-point (6, 13) and rb9 (10, 5): ptxas -v
+# registers (lo, hi) and the most bytes of spill stores of K1 and K1c in
+# every variant, and the per-chain kernel's resident warps per SM at the L
+# of the fits (cpt 4, rb9 6), as the H100 build gives them.  At (6, 13)
+# the interleaved D5 search spills 120 bytes at the 255-register ceiling.
+_LARGE_SHAPES = {(6, 13): (changepoint.cpt_set, (248, 255), 160, 4, 8),
+                 (10, 5): (rb9.rb9_set, (200, 250), 0, 6, 8)}
+
+
+@pytest.mark.parametrize("shape", list(_LARGE_SHAPES), ids=str)
+def test_large_shape_sweep_kernel_registers(cuda, shape):
+    """The sweep kernel at (6, 13) and (10, 5), every model's chunk sums
+    in registers: K1 and K1c in every variant within the registers and
+    spills the build gave (ptxas -v, kept in the log beside the
+    library)."""
+    import re
+    K, D = shape
+    _, (lo, hi), max_spill, _, _ = _LARGE_SHAPES[shape]
+    log = _build.build().with_suffix(".log").read_text()
+    found = []
+    for block in log.split("Compiling entry function '")[1:]:
+        if f"fused_sweep_kernelILi{K}ELi{D}ELb" not in block.split("'", 1)[0]:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        found.append((int(regs.group(1)), int(spill.group(1)),
+                      int(spill.group(2))))
+    assert len(found) == 8, found             # 4 variants x K1 and K1c
+    assert all(lo <= r <= hi and st <= max_spill and ld <= max_spill
+               for r, st, ld in found), found
+
+
+@pytest.mark.parametrize("shape", list(_LARGE_SHAPES), ids=str)
+def test_large_shape_sweep_kernel_occupancy(cuda, shape):
+    """The per-chain sweep kernel's resident warps per SM at (6, 13) and
+    (10, 5) at the L of their fits in every variant: two blocks of 4
+    warps, bound by the registers."""
+    make, _, _, L, warps = _LARGE_SHAPES[shape]
+    ms = make()
+    for perm in (False, True):
+        for tdist in (None, randoms.student_t(5)):
+            assert fused.occupancy(ms, L, cuda, perm=perm, tdist=tdist) \
+                == warps, (perm, tdist)
+
+
 def _ulps(a, b):
     a = a.cpu().view(torch.int32).to(torch.int64)
     b = b.cpu().view(torch.int32).to(torch.int64)
