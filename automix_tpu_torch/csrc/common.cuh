@@ -402,11 +402,12 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
 // already sanitized), ahead of the switch so that the other shapes' switch
 // stays as it was: as one more case of it, it made the tutorial's stage-1
 // segment kernel 15% slower.  The stage-3 sweep carries the statistics instead
-// (fused_sweep.cu, kCache).
-template <int K, int D>
+// (fused_sweep.cu, kCache), and the segment kernel reads a shared copy of
+// the tables (fused_stage1.cu, which leaves this case out with kDdi false).
+template <int K, int D, bool kDdi = true>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
                                             int dim, const float* th) {
-  if constexpr (K == AM_DDI_K && D == AM_DDI_D) {
+  if constexpr (kDdi && K == AM_DDI_K && D == AM_DDI_D) {
     if (kind == AM_KIND_DDI)
       return (c[0] == 0.0f) ? am_ddi_logpost<0>(th) : am_ddi_logpost<1>(th);
   }

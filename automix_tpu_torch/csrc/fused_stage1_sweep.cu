@@ -1,5 +1,5 @@
-// Stage-1 one-sweep kernel: moves only, for populations one block cannot
-// hold.
+// Stage-1 one-sweep kernel: moves only, for populations the segment kernel
+// cannot hold resident.
 //
 // Replaces the Pallas kernel of automix_tpu/kernels/fused_stage1.py
 // (_sweep_call -> kernel, pallas_call at line 416).  The plain PyTorch

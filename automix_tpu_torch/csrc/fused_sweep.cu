@@ -96,13 +96,14 @@
 // was faster than each thread's local memory at the same registers (PERF.md
 // section 6). The proposal tables are read from device memory through L1
 // instead of being copied to shared memory, which leaves shared memory to the
-// cache at any L.  K1e also copies DDI's coefficient rows and feature indices
-// into shared memory ahead of the cache (csrc/ddi.cuh am_ddi_shared_load,
-// 28.9 KB): read through the __constant__ cache, their 29 KB working set
-// thrashed it, 1.64 times K1e's time on DDI's state (PERF.md section 6).
-// K1e's block takes 111.4 KB, so 2 blocks fit an SM's 228 KB at up to 256
-// registers.  K1c keeps the __constant__ tables and its 84.5 KB block.  K1d,
-// the per-chain launcher with n_sweeps = 1, runs K1e's form.
+// cache at any L.  Both cached forms, K1e and K1c, also copy DDI's
+// coefficient rows and feature indices into shared memory ahead of the cache
+// (csrc/ddi.cuh am_ddi_shared_load, 28.9 KB): read through the __constant__
+// cache, their 29 KB working set thrashed it, 1.64 times K1e's time on DDI's
+// state (PERF.md section 6).  The block takes 111.4 KB, so 2 blocks fit an
+// SM's 228 KB at up to 256 registers, which keeps K1c's capacity at DDI's L
+// at 2 blocks per SM.  K1d, the per-chain launcher with n_sweeps = 1, runs
+// K1e's form.
 //
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
@@ -149,12 +150,12 @@ __host__ __device__ constexpr bool cached_shape() {
 }
 
 // Dynamic shared memory of one block: the tables, or in the cached form
-// the cache (the tables are then read from device memory), after K1e's copy
+// the cache (the tables are then read from device memory), after the copy
 // of DDI's coefficient tables.
 template <int K, int D, bool kPooled>
 size_t sweep_smem(int L) {
   if constexpr (cached_shape<K, D>())
-    return sizeof(float) * ((kPooled ? 0 : (size_t)kAmDdiShared) +
+    return sizeof(float) * ((size_t)kAmDdiShared +
                             (size_t)AM_DDI_NCACHE * kThreads);
   const int KL = K * L;
   return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
@@ -188,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   const int n_tab = K * D + 3 * KL + KL * D + 2 * KL * D * D;
   if constexpr (!kCache)
     for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
-  else if constexpr (!kPooled)
+  else
     am_ddi_shared_load(smem, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < K * AM_N_CONSTS; i += blockDim.x)
     consts_s[i] = consts_g[i];
@@ -235,13 +236,13 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   }
   int cnt[6] = {0, 0, 0, 0, 0, 0};
 
-  // K1e: the chain's cache of both models' statistics, fresh at the chunk's
-  // start state (a chunk boundary refreshes the cache, not logp); DDI's
-  // coefficient tables in shared memory (K1e) or __constant__ memory (K1c)
-  [[maybe_unused]] const auto tab0 = am_ddi_tables<0, !kPooled>(smem);
-  [[maybe_unused]] const auto tab1 = am_ddi_tables<1, !kPooled>(smem);
+  // The cached forms: the chain's cache of both models' statistics, fresh at
+  // the chunk's start state (a chunk boundary refreshes the cache, not
+  // logp), after DDI's coefficient tables in shared memory
+  [[maybe_unused]] const auto tab0 = am_ddi_tables<0, true>(smem);
+  [[maybe_unused]] const auto tab1 = am_ddi_tables<1, true>(smem);
   [[maybe_unused]] const AmDdiCache<kThreads> cache{
-      smem + (kPooled ? 0 : kAmDdiShared) + threadIdx.x};
+      smem + kAmDdiShared + threadIdx.x};
   if constexpr (kCache) {
     am_ddi_cache_full<0>(tab0, th, cache, false);
     am_ddi_cache_full<1>(tab1, th, cache, false);

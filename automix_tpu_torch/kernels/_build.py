@@ -3,7 +3,8 @@
 The kernels in ``automix_tpu_torch/csrc`` are compiled at first use with
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``.  Each compilation unit (a source, and for the stage-3 sweep
-kernel one unit per perm / Student-t variant) is compiled by its own
+kernel one unit per perm / Student-t variant, for the stage-1 segment
+kernel one per Student-t variant) is compiled by its own
 ``nvcc`` process, all started together, then linked.  The (K, D) shapes
 the kernels are instantiated for are :data:`SHAPES`, written for the
 compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
@@ -39,8 +40,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The (K, D) model-set shapes every kernel is instantiated for.
 SHAPES = ((1, 1), (1, 2), (2, 2), (3, 2), (5, 5), (10, 5), (2, 16),
           (6, 13))
-# Shared memory one block may opt in to on the H100 (sm_90): 227 KiB.
-MAX_SMEM = 227 * 1024
 # The DDI family's shape (am_ddi.h's AM_DDI_K, AM_DDI_D): there the stage-3
 # sweep kernel has its cached form (K1e) only, every other shape its
 # stateless form only.
@@ -73,6 +72,14 @@ def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
     return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
 
 
+def stage1_symbol(tdist: bool, kind: str = "") -> str:
+    """Exported name of a stage-1 segment function of one unit (Normal or
+    Student-t): the launcher (``kind=""``) or the capacity query
+    (``"cap"``)."""
+    infix = f"_{kind}" if kind else ""
+    return f"am_fused_stage1{infix}_t{int(tdist)}"
+
+
 # (source, preprocessor definitions) of each compilation unit.
 _UNITS = tuple(
     ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}",
@@ -83,8 +90,11 @@ _UNITS = tuple(
                         f"-DAM_K1_MAXL_SYMBOL={sweep_symbol(p, t, 'max_l')}",
                         "-DAM_K1_OCC_SYMBOL="
                         f"{sweep_symbol(p, t, 'occupancy')}"))
-    for p in (0, 1) for t in (0, 1)) + (
-    ("fused_stage1.cu", ()),
+    for p in (0, 1) for t in (0, 1)) + tuple(
+    ("fused_stage1.cu", (f"-DAM_STAGE1_T={t}",
+                         f"-DAM_STAGE1_SYMBOL={stage1_symbol(t)}",
+                         f"-DAM_STAGE1_CAP_SYMBOL={stage1_symbol(t, 'cap')}"))
+    for t in (0, 1)) + (
     ("fused_stage1_sweep.cu", ()),
     ("sweep_rng.cu", ()),
 )
@@ -106,11 +116,11 @@ _SIGNATURES = {
     **{sweep_symbol(p, t, kind): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)
        for kind in ("pooled_cap", "max_l", "occupancy")},
-    "am_fused_stage1": [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
-    + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P],
+    **{stage1_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
+       + [_P] + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P] for t in (0, 1)},
+    **{stage1_symbol(t, "cap"): [_I, _I, _P] for t in (0, 1)},
     "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
     + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P],
-    "am_fused_stage1_smem": [_I, _I, _I, _P, _P],
     "am_sweep_rng": [_I, _I, _I, _I, _U, _U, _I, _P, _P, _P],
 }
 

@@ -7,17 +7,18 @@ The K*C chains (C per model, lane i in model i // C) run ~100-sweep
 segments.  Telemetry and the thinned-tail stage-2 snapshots are read at
 segment boundaries on the host.
 
-Two runners, one result.  Routing rule (:func:`fits_one_block`): when the
-segment kernel's one CUDA block can hold theta and logp of every chain
-beside its static shared arrays, (D + 1) * K * C * 4 bytes plus
-:func:`static_smem_bound` within ``_MAX_SMEM``, stage 1 runs
-:func:`run_fused_stage1`: one launch of ``csrc/fused_stage1.cu`` (K2) per
-segment, the pooled update inside the kernel.  Otherwise it runs
-:func:`run_fused_stage1_sweeps`: one launch of ``csrc/fused_stage1_sweep.cu``
-(K3) per sweep over as many blocks as the population needs, and the pooled
-update between launches.  The rule is the same on the CPU, where both
-kernels are their plain twins (:func:`segment_ref`, :func:`sweep_ref`);
-there the two runners give bitwise the same sig, samples and logp.
+Two runners, one result.  Routing rule (:func:`runs_segment_kernel`):
+when the card holds every chain resident at once for the segment
+kernel's cooperative launch (:func:`segment_capacity`, one thread per
+chain), stage 1 runs :func:`run_fused_stage1`: one launch of
+``csrc/fused_stage1.cu`` (K2) per segment, the pooled update inside the
+kernel across a grid barrier per sweep.  A larger population runs
+:func:`run_fused_stage1_sweeps`: one launch of
+``csrc/fused_stage1_sweep.cu`` (K3) per sweep, and the pooled update
+between launches.  On the CPU, where both kernels are their plain twins
+(:func:`segment_ref`, :func:`sweep_ref`) and there is no card to hold a
+population, every population takes the segment runner; the two runners
+give bitwise the same sig, samples and logp there.
 
 The pooled update is the rule of ``cfg.stage1_adapt``: AAP,
 ``sig = max(sig + 10 * gamma * err, 0)``, or the log rule,
@@ -43,25 +44,16 @@ and to JAX statistically.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from automix_tpu_torch.config import (EngineConfig, LOG_ACCEPT_CLAMP,
                                       RWM_TARGET_ACCEPT, STAGE1_RULES)
 from automix_tpu_torch.kernels import _build
-from automix_tpu_torch.model import N_DENSITY_CONSTS
 from automix_tpu_torch.ops import randoms
 
 _SEG_DEFAULT = 100
-_MAX_SMEM = _build.MAX_SMEM
-
-
-def static_smem_bound(K: int, D: int) -> int:
-    """Bytes of the segment kernel's static shared arrays, an upper bound:
-    sig, nacc, ntry, cnt [K*D], consts [K*N_DENSITY_CONSTS], kinds and
-    dims [K], 4 bytes each, and 16 bytes of alignment for each of the 7
-    arrays.  The card test holds it against the kernel's own count
-    (``am_fused_stage1_smem``)."""
-    return 4 * (4 * K * D + K * N_DENSITY_CONSTS + 2 * K) + 16 * 7
 
 
 def stage1_eligible(modelset, cfg: EngineConfig):
@@ -86,10 +78,42 @@ def stage1_eligible(modelset, cfg: EngineConfig):
     return ok, why
 
 
-def fits_one_block(K: int, D: int, C: int) -> bool:
-    """True when the segment kernel's one block holds all K*C chains:
-    theta and logp of each, (D + 1) * 4 bytes, beside the static arrays."""
-    return (D + 1) * K * C * 4 + static_smem_bound(K, D) <= _MAX_SMEM
+def segment_capacity(modelset, device, tdist=None) -> int:
+    """Chains the segment kernel (K2) holds resident on the card at once
+    for the model set's (K, D), Normal or Student-t (``tdist``): the CUDA
+    occupancy of its one-warp block times the SM count times 32.  The
+    routing bound of stage 1 (:func:`runs_segment_kernel`)."""
+    K, D = modelset.nmodels, modelset.dmax
+    _build.check_shape(K, D, "segment_capacity")
+    chains = ctypes.c_int()
+    symbol = _build.stage1_symbol(tdist is not None, "cap")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            K, D, ctypes.byref(chains)), symbol)
+    return chains.value
+
+
+def runs_segment_kernel(n_chains: int, capacity: int) -> bool:
+    """The stage-1 routing rule: the segment kernel (K2) for a population
+    of ``n_chains`` that the card holds resident (``capacity``, from
+    :func:`segment_capacity`), the one-sweep kernel (K3) above it.  K2
+    measured faster than K3 on every stage-1 population of the shipped
+    configurations, 2.7-100 times (PERF.md section 6)."""
+    return n_chains <= capacity
+
+
+def stage1_runner(modelset, cfg: EngineConfig, C: int, device):
+    """The runner stage 1 takes for K*C chains on ``device``:
+    :func:`run_fused_stage1` where :func:`runs_segment_kernel` holds or on
+    the CPU, else :func:`run_fused_stage1_sweeps`."""
+    if torch.device(device).type != "cuda":
+        return run_fused_stage1
+    tdist = (randoms.student_t(cfg.student_t_dof)
+             if cfg.student_t_dof > 0 else None)
+    cap = segment_capacity(modelset, device, tdist)
+    return (run_fused_stage1
+            if runs_segment_kernel(modelset.nmodels * C, cap)
+            else run_fused_stage1_sweeps)
 
 
 def schedule(cfg: EngineConfig, nsweeps: int, C: int, D: int):
@@ -227,7 +251,8 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
             rule: str = "aap", log_gain: float = 3.0):
     """One stage-1 segment: the CUDA kernel for tensors on the card, its
     plain twin for tensors on the CPU.  Same arguments and results as
-    :func:`segment_ref`."""
+    :func:`segment_ref`.  The kernel's launcher refuses a population above
+    :func:`segment_capacity` (then this raises; nothing falls back)."""
     if theta.device.type == "cpu":
         return segment_ref(modelset, theta, sig, nacc, ntry, C=C,
                            sweep0=sweep0, seed=seed, nburn=nburn,
@@ -239,8 +264,8 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
     if dev.type != "cuda":
         raise ValueError(f"segment: unsupported device {dev}")
     _build.check_shape(K, D, "segment")
-    if N != K * C or not fits_one_block(K, D, C):
-        raise ValueError(f"segment: {N} chains do not fit one block")
+    if N != K * C:
+        raise ValueError(f"segment: {N} chains are not {K} x {C}")
     if rule not in STAGE1_RULES:
         raise ValueError(f"segment: unknown rule {rule!r}")
     for name, x, dtype, shape in (("theta", theta, torch.float32, (D, N)),
@@ -254,16 +279,17 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
     nacc_o = torch.empty_like(nacc)
     ntry_o = torch.empty_like(ntry)
     lp_o = torch.empty((N,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    status = lib.am_fused_stage1(
+    gcnt = torch.zeros(3 * K * D, dtype=torch.int32, device=dev)
+    symbol = _build.stage1_symbol(tdist is not None)
+    status = getattr(_build.library(), symbol)(
         K, D, N, C, sweep0, seed, nburn, n_active, _build.tconsts(tdist),
-        int(rule == "log"), float(log_gain), kinds.data_ptr(),
-        consts.data_ptr(), dims.data_ptr(),
+        int(rule == "log"), float(log_gain), gcnt.data_ptr(),
+        kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
         theta.data_ptr(), sig.data_ptr(), nacc.data_ptr(), ntry.data_ptr(),
         th_o.data_ptr(), sig_o.data_ptr(), nacc_o.data_ptr(),
         ntry_o.data_ptr(), lp_o.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "am_fused_stage1")
+    _build.check(status, symbol)
     segment.launches += 1
     return th_o, sig_o, nacc_o, ntry_o, lp_o
 
@@ -400,11 +426,11 @@ def run_fused_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
 
 def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
                             C: int, init_theta, device, sweep_fn=None):
-    """Stage 1 for a population one block cannot hold: the one-device
-    form of the JAX ``run_fused_stage1_sharded``.  Each sweep is one
-    launch of the one-sweep kernel, then the pooled update of sig (the
-    rule of ``cfg.stage1_adapt``), nacc and ntry from its exact integer
-    accept counts, in the JAX order, blends included.  Same schedule,
+    """Stage 1 for a population the segment kernel cannot hold resident:
+    the one-device form of the JAX ``run_fused_stage1_sharded``.  Each
+    sweep is one launch of the one-sweep kernel, then the pooled update of
+    sig (the rule of ``cfg.stage1_adapt``), nacc and ntry from its exact
+    integer accept counts, in the JAX order, blends included.  Same schedule,
     arguments and results as :func:`run_fused_stage1`, and bitwise the
     same values in the twins.  ``sweep_fn=sweep_ref`` is the runner's
     plain twin on any device."""

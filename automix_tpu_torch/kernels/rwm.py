@@ -7,8 +7,8 @@ run to the kernels of ``fused_stage1`` or to the general engine's scan
 
 On the kernels, the K*C chains (C per model) run the pooled-adaptation
 segments of ``fused_stage1``: one segment kernel per segment when the
-segment kernel's one block holds the population, else the one-sweep
-kernel per sweep (``fused_stage1.fits_one_block``).
+card holds the population resident for its cooperative launch, else the
+one-sweep kernel per sweep (``fused_stage1.stage1_runner``).
 
 The general engine (:func:`run_general_stage1`) runs the same schedule as
 a plain torch loop over sweeps on the chains' device, for any model set:
@@ -135,10 +135,7 @@ def run_stage1(modelset, cfg: EngineConfig, generator: torch.Generator,
     logging.getLogger("automix_tpu_torch").info(
         "stage 1: %s engine (%s)", "kernel" if kernels else "general", why)
     if kernels:
-        run = (fused_stage1.run_fused_stage1
-               if fused_stage1.fits_one_block(modelset.nmodels,
-                                              modelset.dmax, C)
-               else fused_stage1.run_fused_stage1_sweeps)
+        run = fused_stage1.stage1_runner(modelset, cfg, C, device)
         sig, samples, tele_sig, tele_acc, lp = run(
             modelset, cfg, nsweeps, C, init_theta, device)
     else:

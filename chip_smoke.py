@@ -10,15 +10,15 @@ PyTorch twin on the card, then drives the port's paths at full size:
   1000-sweep chunks, seed 0), p(M) against the published 0.7928 / 0.0239
   / 0.1834;
 * toy2: stages 1-2 through ``AMSampler`` at the CLI's 2048 stage-1
-  chains per model (the one-sweep stage-1 kernel's path) with lmax 10,
+  chains per model (the segment kernel over many SMs) with lmax 10,
   the ported report writers, then the CLI in mode 1 from the
   ``_mix.data`` at its defaults (perm on, traces every 16th sweep), p(M)
   against the exact 0.5 / 0.25 / 0.125 / 0.0625 / 0.0625;
 * the CLI on toy1 with Student-t perturbations (``-t 5``), p(M) against
   the exact 0.3 / 0.7;
 * rb9 (10 models, dmax 5): stages 1-2 through ``AMSampler`` at the bench
-  size (1024 stage-1 chains per model: the one-sweep stage-1 kernel's
-  path, 2000 stage-1 sweeps, seed 0) and the ported writers, then the CLI
+  size (1024 stage-1 chains per model on the segment kernel, 2000
+  stage-1 sweeps, seed 0) and the ported writers, then the CLI
   in mode 1 at its defaults (per-chain pk, perm, traces every 16th sweep)
   at 131072 chains, then pooled pk through ``AMSampler`` from the same
   proposal at 16384 chains (the in-kernel pooled kernel K1c) and 131072
@@ -35,15 +35,16 @@ PyTorch twin on the card, then drives the port's paths at full size:
   mean; K1e, K1e + perm (100 sweeps, crossing six cache refreshes), K1e at
   L = 32, K1d with the cache (the per-sweep pooled runner, forced on the
   run's 16384 chains; with K1e's registers and resident warps per SM),
-  K1c with the cache and the stage-1 kernel with the
-  DDI density each equal to its twin run on the card;
+  K1c with the cache and both stage-1 kernels with the DDI density each equal
+  to its twin run on the card, and DDI's stage 1 on both routes, timed
+  and bitwise equal;
 * change-point (6 models of dims 3-13, D5): the segment kernel with the
   log rule (K2-log) and the one-sweep route with the log update between
   launches, each equal to its twin on the card; stage 1 of cpt at 512
   chains per model (K2-log); ``AMSampler`` on cpt and on cptrs at the JAX
   package's change-point configuration (pooled pk, the log stage-1 rule,
-  1024 stage-1 chains per model on the one-sweep route, 2500 stage-1
-  sweeps; cptrs fitted at lmax 10) with 16384 chains on K1c, 1500 burn-in
+  1024 stage-1 chains per model on K2-log, 2500 stage-1 sweeps; cptrs
+  fitted at lmax 10) with 16384 chains on K1c, 1500 burn-in
   and 10000 timed sweeps; K1, K1 + perm and K1c on cpt's proposal and
   state, each equal to its twin; the CLI in mode 1 at its defaults with
   ``-N 10000`` from each set's ``_mix.data``.  p(M) against the JAX
@@ -115,12 +116,12 @@ CLI_SWEEPS = 20_000
 # Kernel-vs-twin checks (tolerances explained where they are applied).
 K1_CHAINS, K1_SWEEPS = 16_384, 50
 TIME_SWEEPS = 100
-TOY2_C_K2 = 1024          # toy2 chains per model that fit K2's one block
-TOY2_C_K3 = 2048          # the CLI default: the one-sweep kernel's path
+TOY2_C_K2 = 1024          # toy2 chains per model of K2's Student-t check
+TOY2_C_K3 = 2048          # the CLI default: K3's check, and K2's path
 
 # rb9: the JAX package's heavy-model configuration (tests/test_heavy_models
 # .py, bench_suite.py:368) held to the C oracle's p(M) mean.
-RB9_C_STAGE1 = 1024       # bench size: the one-sweep stage-1 kernel's path
+RB9_C_STAGE1 = 1024       # bench size: K2's path, K3's check
 RB9_C_K2 = 512            # rb9 chains per model for K2's twin check
 RB9_POOLED_K1C = 16_384   # bench_suite.py:368, held resident: K1c
 RB9_POOLED_K1D = 131_072  # above the co-residency bound: K1d
@@ -131,7 +132,7 @@ K1D_CHECK_SWEEPS = 20
 
 # DDI: bench_suite.py's configuration (:90-94, :369) held to the C oracle.
 DDI_CHAINS = 16_384
-DDI_C_STAGE1 = 512        # fits K2's one block
+DDI_C_STAGE1 = 512        # bench_suite.py's stage-1 chains per model
 DDI_STAGE1_SWEEPS = 1500
 DDI_CHUNK = 500
 DDI_BURN, DDI_TIMED = 500, 10_000
@@ -159,10 +160,10 @@ DDI_CHECK_SWEEPS = TIME_SWEEPS  # crosses six cache refreshes (t % 16 == 15)
 # :71-76: pooled pk, the log stage-1 rule, 2500 stage-1 sweeps, 500-sweep
 # chunks, 1500 burn-in sweeps) held to the JAX package's own p(M), frozen
 # by tools/cpt_jax_reference.py (the C binaries segfault).  JAX's 1024
-# stage-1 chains per model are too many for K2's one block: stage 1 takes
-# the K3 route with the log update between launches.  Stage 3 at 16384
-# chains, as rb9's and DDI's pooled runs: K1c.  K2-log runs the stage 1 of
-# a population one block holds, 512 chains per model.
+# stage-1 chains per model run on K2-log, the log update in the kernel;
+# the K3 route with the log update between launches is held to its twin
+# at the same population.  Stage 3 at 16384 chains, as rb9's and DDI's
+# pooled runs: K1c.  K2-log also runs a stage 1 at 512 chains per model.
 CPT_CHAINS = 16_384
 CPT_C_STAGE1, CPT_C_K2 = 1024, 512
 CPT_SEEDS = {"cpt": 5, "cptrs": 6}
@@ -442,22 +443,26 @@ def unit_seconds(lib_path):
 def ptxas_summary(lib_path, K, D):
     """The ptxas -v record of every kernel instantiated at (K, D), from the
     build's log beside the library: one (kernel and its bool template
-    argument, registers, stack frame, spill stores, spill loads) per
-    compiled form, in the order of the log (its units and variants)."""
+    argument, or its unit's Student-t flag where it has none, registers,
+    stack frame, spill stores, spill loads) per compiled form, in the order
+    of the log (its units and variants)."""
     import re
     text = lib_path.with_suffix(".log").read_text()
     out = []
-    for block in text.split("Compiling entry function '")[1:]:
-        name = block.split("'", 1)[0]
-        m = re.search(rf"\d(fused_[a-z0-9_]*?_kernel)ILi{K}ELi{D}ELb([01])E",
-                      name)
-        if not m:
-            continue
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        out.append((f"{m.group(1)}<{m.group(2)}>", int(regs.group(1)),
-                    *map(int, frame.groups())))
+    for unit in text.split("$ ")[1:]:
+        t = re.search(r"-DAM_STAGE1_T=(\d)", unit.split("\n", 1)[0])
+        for block in unit.split("Compiling entry function '")[1:]:
+            name = block.split("'", 1)[0]
+            m = re.search(rf"\d(fused_[a-z0-9_]*?_kernel)ILi{K}ELi{D}E"
+                          r"(?:Lb([01])E)?", name)
+            if not m:
+                continue
+            arg = m.group(2) if m.group(2) else f"t{t.group(1) if t else 0}"
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            out.append((f"{m.group(1)}<{arg}>", int(regs.group(1)),
+                        *map(int, frame.groups())))
     return out
 
 
@@ -561,12 +566,13 @@ def stage1_start(ms, C, dev):
     return theta, sig, zi
 
 
-def check_segment(ms, C, dev, tdist=None, label="K2", exact=False,
-                  rule="aap"):
-    """K2 against segment_ref: K models x C chains, one 100-sweep segment
-    (componentwise sweeps 1-50, block-move coins after the burn-in at
-    50), seed 777, the pooled ``rule`` ("aap" or "log", gain 3).
-    ``exact``: theta, sig and the counts must be equal."""
+def check_segment(ms, C, dev, tdist=None, label="K2", rule="aap"):
+    """K2 against segment_ref run on the card: K models x C chains over
+    many one-warp blocks, one 100-sweep segment (componentwise sweeps 1-50,
+    block-move coins after the burn-in at 50), seed 777, the pooled
+    ``rule`` ("aap" or "log", gain 3).  theta, logp, sig and the counts
+    must be bitwise equal: integer accept counts make the pooled update
+    exact, and kernel and twin call the same float32 functions."""
     import torch
     from automix_tpu_torch.kernels import fused_stage1
     theta, sig, zi = stage1_start(ms, C, dev)
@@ -576,22 +582,11 @@ def check_segment(ms, C, dev, tdist=None, label="K2", exact=False,
     want, ms_p = timed(lambda: fused_stage1.segment_ref(ms, theta, sig, zi,
                                                         zi, **kw))
     th_err = (got[0] - want[0]).abs()
-    close = (th_err <= 1e-5 * (1 + want[0].abs())).all(0).float().mean()
-    sig_rel = float(((got[1] - want[1]).abs()
-                     / want[1].abs().clamp(min=1e-30)).max())
-    counts_equal = torch.equal(got[2], want[2]) and torch.equal(got[3],
-                                                                want[3])
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
     log(f"{label} vs segment_ref ({ms.nmodels} x {C} chains): theta max|err| "
-        f"{float(th_err.max()):.3e}, lanes within 1e-5: {float(close):.6f}, "
-        f"sig max rel err {sig_rel:.3e}, counts equal {counts_equal}")
-    # integer accept counts make the pooled sig update exact: 1e-6 relative
-    if sig_rel > 1e-6:
-        fail(f"{label} sig differs from segment_ref by {sig_rel:.3e}")
-    # ulp-level libm differences may flip a marginal accept on a few lanes
-    if float(close) < 0.99:
-        fail(f"{label} theta agrees on only {float(close):.4f} of lanes")
-    if exact and not (torch.equal(got[0], want[0]) and sig_rel == 0.0
-                      and counts_equal):
+        f"{float(th_err.max()):.3e}, theta, sig, counts and logp equal "
+        f"{equal}")
+    if not equal:
         fail(f"{label} is not bitwise equal to segment_ref")
     ms_k = cuda_ms(lambda: fused_stage1.segment(ms, theta, sig, zi, zi,
                                                 **kw), 20)
@@ -649,28 +644,62 @@ def check_sweep_kernel(ms, C, dev, label="K3"):
 
 
 def check_sweep_runner(ms, dev):
-    """The one-sweep runner (K3) against the segment runner (K2) where
-    both fit: toy2 at 5 x 1024 chains, 300 stage-1 sweeps.  sig within
-    1e-6 relative (the runner's gain is a torch op, the segment kernel's
-    an in-kernel one), the stage-2 samples equal on >= 99% of lanes."""
+    """The one-sweep runner (K3), which the routing rule sends only
+    populations above K2's resident capacity, against the segment runner
+    (K2) at toy2's CLI population, 5 x 2048 chains, 300 stage-1 sweeps:
+    sig, samples, telemetry and logp bitwise equal (the runner's gain is a
+    torch op, the segment kernel's the same float32 expression in the
+    kernel).  Returns the K3 runner's launches."""
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
     init = ms.init_points(torch.Generator())
     cfg = EngineConfig(seed=3)
-    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, TOY2_C_K2, init,
+    reset_counts()
+    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, TOY2_C_K3, init,
                                              dev)
-    b = fused_stage1.run_fused_stage1(ms, cfg, 300, TOY2_C_K2, init, dev)
     torch.cuda.synchronize()
-    sig_rel = float(((a[0] - b[0]).abs() / b[0].abs().clamp(min=1e-30))
-                    .max())
-    close = ((a[1] - b[1]).abs() <= 1e-5 * (1 + b[1].abs())).all(-1)
-    frac = float(close.float().mean())
-    log(f"K3 runner vs K2 runner (toy2, 5 x {TOY2_C_K2} chains, 330 "
-        f"sweeps): sig max rel err {sig_rel:.3e}, samples equal on "
-        f"{frac:.6f}")
-    if sig_rel > 1e-6 or frac < 0.99:
+    counts = read_counts()
+    b = fused_stage1.run_fused_stage1(ms, cfg, 300, TOY2_C_K3, init, dev)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"K3 runner (launches {counts}) vs K2 runner (toy2, 5 x "
+        f"{TOY2_C_K3} chains, 330 sweeps): sig, samples, telemetry and "
+        f"logp equal {equal}")
+    if not equal or counts["K3"] != 330 or counts["K2"]:
         fail("the one-sweep runner disagrees with the segment runner")
+    return counts
+
+
+def stage1_routes(ms, C, nsweeps, dev, label):
+    """Stage 1 of K models x C chains on both routes from the same start,
+    ``nsweeps`` sweeps (+10% burn-in) at seed 0: the segment runner (K2)
+    and the one-sweep runner (K3), each timed on the host clock after a
+    synchronize; sig, samples, telemetry and logp must be bitwise equal.
+    Returns the K3 run's launches."""
+    import torch
+    from automix_tpu_torch import EngineConfig
+    from automix_tpu_torch.kernels import fused_stage1
+    cfg = EngineConfig(seed=0)
+    init = ms.init_points(torch.Generator().manual_seed(0))
+    out, secs, counts = [], [], []
+    for run in (fused_stage1.run_fused_stage1,
+                fused_stage1.run_fused_stage1_sweeps):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out.append(run(ms, cfg, nsweeps, C, init, dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+    equal = all(torch.equal(a, b) for a, b in zip(*out))
+    log(f"{label} stage 1 ({ms.nmodels} x {C} chains, {nsweeps * 11 // 10} "
+        f"sweeps): K2 {secs[0]:.3f} s (launches {counts[0]}), K3 "
+        f"{secs[1]:.3f} s (launches {counts[1]}); sig, samples, telemetry "
+        f"and logp equal {equal}")
+    if not equal:
+        fail(f"{label}: the stage-1 routes differ")
+    return counts[1]
 
 
 def k_probs(ms, k):
@@ -1155,7 +1184,8 @@ def check_cache_pooled_runner(ms, prop, chains, dev):
 def check_cache_pooled(ms, prop, chains):
     """K1c with the DDI cache against the pooled twin on the card, every
     chain of a pooled run's state x DDI_CHECK_SWEEPS sweeps: every output
-    bitwise equal.  Timed on the same sweeps (the twin on its check)."""
+    bitwise equal.  Timed on the same sweeps (the twin on its check),
+    beside K1e with per-chain pk."""
     from automix_tpu_torch.kernels import fused
     tabs = fused.prep_tables(prop, ms.dims)
     args = chunk_args(chains)
@@ -1164,6 +1194,8 @@ def check_cache_pooled(ms, prop, chains):
     got, err, ms_p = exact_check(ms, tabs, args, "K1c with the cache",
                                  **kw)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kw), 3)
+    ms_e = cuda_ms(lambda: fused.sweep_chunk(
+        ms, *args, tabs, **dict(kw, pooled=False)), 3)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
     cnt = got[9].sum(1).double().cpu().numpy()
@@ -1172,7 +1204,8 @@ def check_cache_pooled(ms, prop, chains):
                            + 2 * K),
         S * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"K1c with the cache ({S} chains x {TIME_SWEEPS} sweeps): kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"K1e with per-chain pk {ms_e:.4f} ms")
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -1211,7 +1244,7 @@ def ddi_paths(dev):
         counts = read_counts()
         cp = am.cpstats
         prop = am.proposal
-        log(f"ddi: stage 1 {cp.timesecs_stage1:.3f} s ({DDI_C_STAGE1} "
+        log(f"ddi: stage 1 {cp.timesecs_stage1:.3f} s on K2 ({DDI_C_STAGE1} "
             f"chains per model, {DDI_STAGE1_SWEEPS * 11 // 10} sweeps), "
             f"stage 2 {cp.timesecs_stage2:.3f} s (EM iterations "
             f"{cp.em_iters.tolist()}, L={prop.lmax}), burn-in "
@@ -1221,10 +1254,10 @@ def ddi_paths(dev):
             f"chain-sweeps/s; launches {counts}")
         check_probs("ddi AMSampler", stats.model_probs, oracle,
                     what="C oracle mean")
-        if counts["K1f"] == 0 or counts["K2"] + counts["K3"] == 0 \
-                or counts["K1"]:
+        if counts["K1f"] == 0 or counts["K2"] == 0 \
+                or counts["K1"] + counts["K3"]:
             fail("the DDI path did not launch K1e on the hw stream (K1f) "
-                 "alone and a stage-1 kernel")
+                 "alone and K2")
         fresh = dd.logpost_cols(am.chains.k.long(), list(am.chains.theta.T))
         d = (am.chains.logp - fresh).abs()
         drift = float(d.max())
@@ -1258,8 +1291,11 @@ def ddi_paths(dev):
         out["drive"] = hash_drive(dd, prop, am.chains, "ddi K1e")
         out["drive perm"] = hash_drive(dd, prop, am.chains, "ddi K1e perm",
                                        perm=True)
-        out["K2"] = check_segment(dd, DDI_C_STAGE1, dev, label="K2 ddi",
-                                  exact=True)
+        out["K2"] = check_segment(dd, DDI_C_STAGE1, dev, label="K2 ddi")
+        out["K3"] = check_sweep_kernel(dd, DDI_C_STAGE1, dev,
+                                       label="K3 ddi")
+        out["K3 route"] = stage1_routes(dd, DDI_C_STAGE1, DDI_STAGE1_SWEEPS,
+                                        dev, "ddi")
         del am
         log(f"phase ddi kernel checks: {time.perf_counter() - t0:.2f} s")
 
@@ -1318,7 +1354,8 @@ def check_stage1_route(ms, C, dev, label="K3 + log"):
     between launches in torch) against the same runner over the one-sweep
     twin, both on the card: K models x C chains, CPT_ROUTE_SWEEPS stage-1
     sweeps (+10% burn-in), seed 5; sig, samples, telemetry and logp must
-    be bitwise equal.  Timed per sweep."""
+    be bitwise equal.  Timed per sweep.  Returns the kernel's entry and the
+    K3 launches of the checked run."""
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
@@ -1329,7 +1366,11 @@ def check_stage1_route(ms, C, dev, label="K3 + log"):
         return fused_stage1.run_fused_stage1_sweeps(
             ms, cfg, CPT_ROUTE_SWEEPS, C, init, dev, sweep_fn=sweep_fn)
 
-    got, want = run(), run(fused_stage1.sweep_ref)
+    reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    launches = read_counts()["K3"]
+    want = run(fused_stage1.sweep_ref)
     torch.cuda.synchronize()
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     err = float((got[1] - want[1]).abs().max())
@@ -1337,7 +1378,7 @@ def check_stage1_route(ms, C, dev, label="K3 + log"):
     log(f"{label} route vs its twin ({ms.nmodels} x {C} chains x {n} "
         f"sweeps): sig, samples, telemetry and logp equal {equal}, samples "
         f"max|err| {err:.3e}, rate sig {got[0][:, 0].tolist()}")
-    if not equal:
+    if not equal or launches != n:
         fail(f"the {label} route differs from its twin")
     ms_k = cuda_ms(run, 2) / n
     ms_p = cuda_ms(lambda: run(fused_stage1.sweep_ref), 1, warm=False) / n
@@ -1347,7 +1388,7 @@ def check_stage1_route(ms, C, dev, label="K3 + log"):
     log(f"{label} route ({N} chains, per sweep): {ms_k:.4f} ms, plain "
         f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by), launches
 
 
 def check_exact_sweep(ms, prop, chains, label, perm=False, pooled=False):
@@ -1408,7 +1449,7 @@ def cpt_config(name):
 def changepoint_paths(dev):
     """The change-point paths: K2-log and the K3 + log route against their
     twins; stage 1 of cpt at 512 chains per model (K2-log); ``AMSampler``
-    on cpt and on cptrs at JAX's configuration (stage 1 on K3 + log) with
+    on cpt and on cptrs at JAX's configuration (stage 1 on K2-log) with
     16384 chains and pooled pk (K1c), K1 / K1b / K1c on cpt's proposal and
     state; the CLI in mode 1 on each set.  Returns the kernels' entries of
     the JSON record."""
@@ -1427,11 +1468,12 @@ def changepoint_paths(dev):
     # ---- the stage-1 kernels from the start points ------------------------
     t0 = time.perf_counter()
     out["K2-log"] = check_segment(cpt, CPT_C_K2, dev, label="K2-log cpt",
-                                  exact=True, rule="log")
-    out["K3-log"] = check_stage1_route(cpt, CPT_C_STAGE1, dev)
+                                  rule="log")
+    out["K3-log"], out["K3-log launches"] = check_stage1_route(
+        cpt, CPT_C_STAGE1, dev)
     log(f"phase cpt stage-1 kernel checks: {time.perf_counter() - t0:.2f} s")
 
-    # ---- stage 1 of a population K2's one block holds: K2-log ------------
+    # ---- stage 1 at 512 chains per model: K2-log ---------------------------
     t0 = time.perf_counter()
     reset_counts()
     sig, _, tele = rwm.run_stage1(
@@ -1476,7 +1518,7 @@ def changepoint_paths(dev):
             # covariance diagonal, is not scale-free
             sd0 = torch.where(prop.lam > 0, prop.B[:, :, 0, 0], 0.0)
             inflate = (sd0.amax(1) / prop.sig[:, 0]).tolist()
-            log(f"{name}: stage 1 {cp.timesecs_stage1:.3f} s on K3 + log "
+            log(f"{name}: stage 1 {cp.timesecs_stage1:.3f} s on K2-log "
                 f"({CPT_C_STAGE1} chains per model, "
                 f"{CPT_STAGE1_SWEEPS * 11 // 10} sweeps), stage 2 "
                 f"{cp.timesecs_stage2:.3f} s (EM iterations "
@@ -1490,9 +1532,10 @@ def changepoint_paths(dev):
                 f"launches {counts}")
             check_cpt_probs(f"{name} AMSampler", stats.model_probs, ref[name])
             if not (counts["K1f"] > 0 and counts["K1fc"] > 0
-                    and counts["K3"] > 0) or counts["K1"] + counts["K1c"]:
+                    and counts["K2"] > 0) \
+                    or counts["K1"] + counts["K1c"] + counts["K3"]:
                 fail(f"the {name} path did not launch K1 and K1c on the hw "
-                     "stream (K1f) alone, and K3")
+                     "stream (K1f) alone, and K2-log")
             if not bool((am.chains.pk == am.chains.pk[0]).all()):
                 fail(f"the {name} pooled pk rows differ")
             out[name] = counts
@@ -1866,8 +1909,15 @@ def main():
                              nburn=50, n_active=100)
     k2 = check_segment(ms, N_CHAINS_STAGE1, dev)
     check_segment(toy2, TOY2_C_K2, dev, tdist=t5, label="K2 Student-t toy2")
+    k2_toy2 = check_segment(toy2, TOY2_C_K3, dev, label="K2 toy2")
     k3 = check_sweep_kernel(toy2, TOY2_C_K3, dev)
-    check_sweep_runner(toy2, dev)
+    k3_counts = check_sweep_runner(toy2, dev)
+    from automix_tpu_torch.models import changepoint, ddi
+    log("K2's resident capacity (chains; Normal, Student-t): " + "; ".join(
+        f"{s.nmodels, s.dmax} {fused_stage1.segment_capacity(s, dev)}, "
+        f"{fused_stage1.segment_capacity(s, dev, t5)}"
+        for s in (ms, toy2, rb9.rb9_set(), ddi.ddi_set(),
+                  changepoint.cpt_set())))
     log(f"phase stage-1 kernel checks: {time.perf_counter() - t0:.2f} s")
 
     # ---- 4. tutorial main path -----------------------------------------------
@@ -1973,7 +2023,7 @@ def main():
         am.estimate_conditional_probs()
         reports.report_cond_prob_estimation(stem, am)
         cp = am.cpstats
-        log(f"toy2 stages 1-2: stage 1 {cp.timesecs_stage1:.3f} s "
+        log(f"toy2 stages 1-2: stage 1 {cp.timesecs_stage1:.3f} s on K2 "
             f"({TOY2_C_K3} chains per model, 11000 sweeps), stage 2 "
             f"{cp.timesecs_stage2:.3f} s (EM iterations "
             f"{cp.em_iters.tolist()}, L={am.proposal.lmax})")
@@ -1985,9 +2035,9 @@ def main():
         toy2_counts = read_counts()
         log(f"launches on the toy2 path: {toy2_counts}")
         check_probs("toy2 CLI mode 1", probs_of(out), TOY2_EXACT)
-        if toy2_counts["K1f"] == 0 or toy2_counts["K3"] == 0 \
-                or toy2_counts["K1"]:
-            fail("the toy2 path did not launch K1f (perm) alone and K3")
+        if toy2_counts["K1f"] == 0 or toy2_counts["K2"] == 0 \
+                or toy2_counts["K1"] + toy2_counts["K3"]:
+            fail("the toy2 path did not launch K1f (perm) alone and K2")
         files = [f"{stem}_{s}.data" for s in
                  ("mix", "log", "adapt", "cf", "k", "lp", "pk", "ac")] + [
             f"{stem}_theta{k}.data" for k in range(1, 6)]
@@ -2047,7 +2097,7 @@ def main():
         reports.report_cond_prob_estimation(stem, am)
         cp = am.cpstats
         rb_prop = am.proposal
-        log(f"rb9 stages 1-2: stage 1 {cp.timesecs_stage1:.3f} s "
+        log(f"rb9 stages 1-2: stage 1 {cp.timesecs_stage1:.3f} s on K2 "
             f"({RB9_C_STAGE1} chains per model, {STAGE1_SWEEPS * 11 // 10} "
             f"sweeps), stage 2 {cp.timesecs_stage2:.3f} s (lmax "
             f"{RB9_MAX_MIX}, EM iterations {cp.em_iters.tolist()}, "
@@ -2063,13 +2113,14 @@ def main():
         log(f"launches on the rb9 path (stages 1-2 + CLI): {rb_counts}")
         check_probs("rb9 CLI mode 1", probs_of(out), oracle,
                     what="C oracle mean")
-        if rb_counts["K1f"] == 0 or rb_counts["K3"] == 0 or rb_counts["K1"]:
-            fail("the rb9 path did not launch K1f (perm) alone and K3")
+        if rb_counts["K1f"] == 0 or rb_counts["K2"] == 0 \
+                or rb_counts["K1"] + rb_counts["K3"]:
+            fail("the rb9 path did not launch K1f (perm) alone and K2")
         log(f"phase rb9 CLI mode 1: {secs:.2f} s")
 
         # ---- 11. rb9 kernel checks at (10, 5) --------------------------------
         t0 = time.perf_counter()
-        check_segment(rb, RB9_C_K2, dev, label="K2 rb9")
+        k2_rb9 = check_segment(rb, RB9_C_K2, dev, label="K2 rb9")
         check_sweep_kernel(rb, RB9_C_STAGE1, dev, label="K3 rb9")
         # the burn-in pinned to the hash with perm: the path of K1b on rb9
         am = AMSampler(rb, EngineConfig(n_chains=N_CHAINS, seed=7, perm=True,
@@ -2199,8 +2250,14 @@ def main():
         entry("fused_stage1_segment", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696", main_counts["K2"],
               k2),
+        entry("fused_stage1_segment_toy2", "fused_stage1.cu",
+              "automix_tpu/kernels/fused_stage1.py:696", toy2_counts["K2"],
+              k2_toy2),
+        entry("fused_stage1_segment_rb9", "fused_stage1.cu",
+              "automix_tpu/kernels/fused_stage1.py:696", rb_counts["K2"],
+              k2_rb9),
         entry("fused_stage1_sweep", "fused_stage1_sweep.cu",
-              "automix_tpu/kernels/fused_stage1.py:416", toy2_counts["K3"],
+              "automix_tpu/kernels/fused_stage1.py:416", k3_counts["K3"],
               k3),
         entry("fused_sweep_cache_ddi", k1_src, k1_at,
               ddi_out["drive"]["K1"], ddi_out["K1e"]),
@@ -2211,15 +2268,18 @@ def main():
         entry("fused_stage1_segment_ddi", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696",
               ddi_out["main"]["K2"], ddi_out["K2"]),
+        entry("fused_stage1_sweep_ddi", "fused_stage1_sweep.cu",
+              "automix_tpu/kernels/fused_stage1.py:416",
+              ddi_out["K3 route"]["K3"], ddi_out["K3"]),
     ] + ([entry("fused_sweep_cache_pooled_ddi", k1_src, k1_at,
                 ddi_out["drive pooled"]["K1c"], ddi_out["K1c"])]
          if "K1c" in ddi_out else []) + [
         entry("fused_stage1_segment_log_cpt", "fused_stage1.cu",
               "automix_tpu/kernels/fused_stage1.py:696",
-              cpt_out["stage1"]["K2"], cpt_out["K2-log"]),
+              cpt_out["cpt"]["K2"], cpt_out["K2-log"]),
         entry("fused_stage1_sweep_log_cpt", "fused_stage1_sweep.cu",
               "automix_tpu/kernels/fused_stage1.py:416",
-              cpt_out["cpt"]["K3"], cpt_out["K3-log"]),
+              cpt_out["K3-log launches"], cpt_out["K3-log"]),
         entry("fused_sweep_cpt", k1_src, k1_at, cpt_out["drive"]["K1"],
               cpt_out["K1"]),
         entry("fused_sweep_perm_cpt", k1_src, k1_at,

@@ -24,6 +24,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from automix_tpu.config import EngineConfig as JaxConfig
@@ -240,3 +241,74 @@ def test_cache_refresh_and_chunk_start():
     assert same.float().mean() >= 0.99
     torch.testing.assert_close(one[1][:, same], two[1][:, same], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["K1d", "K1c"])
+def test_pooled_runner_with_the_cache_matches_jax_interpret(route,
+                                                            monkeypatch):
+    """Pooled pk with the cached density against the JAX package in
+    interpret mode, 1024 chains x 6 sweeps from sweep 12 (a cache refresh
+    after 15): ``route="K1d"`` is the port's per-sweep runner
+    (``fused.pooled_sweeps``, one cache rebuild a sweep) against JAX's
+    ``_compiled_pooled`` (forced by its test hook
+    ``_FORCE_POOLED_SCAN``), ``"K1c"`` the port's chunk runner with its
+    in-kernel pooled update (K1c's twin) against JAX's in-kernel pooled
+    branch (its one lane block holds the 1024 chains).  Both start from
+    one shared pk.  Tolerances as the per-chain test's: k equal on >= 99%
+    of chains (ulp-level exp and log between CPU torch and XLA:CPU can
+    flip a marginal accept), theta and logp within 1e-4 relative on those;
+    the shared pk, from integer histograms that differ only by those
+    flips, within 1e-4 (within 1e-6 where every chain agrees: the gain
+    is one float32 exp-log expression in both), pkllim and nreinit equal;
+    the visit counts within 1%."""
+    n_sweeps, sweep0 = 6, 12
+    rng = np.random.default_rng(SEED + 2)
+    p = _proposal(rng)
+    c = _chains(rng)
+    c["pk"][:] = (0.45, 0.55)
+    c["sweep"] = sweep0
+    jms, ms = _model_sets()
+
+    monkeypatch.setattr(jfused, "_FORCE_POOLED_SCAN", route == "K1d")
+    jcfg = JaxConfig(seed=SEED, n_chains=S, fused="on", fused_rng="hash",
+                     pk_mode="pooled")
+    jrun = jfused.build_fused_chunk_runner(jms, jcfg, burning=False)
+    jprop = JaxProposal(**{n: jnp.asarray(v) for n, v in p.items()})
+    jch = JaxChains(key=jax.random.split(jax.random.PRNGKey(0), S),
+                    k=jnp.asarray(c["k"]), theta=jnp.asarray(c["theta"]),
+                    logp=jnp.asarray(c["logp"]), pk=jnp.asarray(c["pk"]),
+                    pkllim=jnp.asarray(c["pkllim"]),
+                    nreinit=jnp.asarray(c["nreinit"]),
+                    sweep=jnp.asarray(sweep0, jnp.int32))
+    jch2, jchunk = jax.device_get(jrun(jch, jprop, n_sweeps))
+
+    chains, prop = chains_from_numpy(**c), proposal_from_numpy(**p)
+    if route == "K1d":
+        ch2, chunk = fused.pooled_sweeps(
+            ms, chains, fused.prep_tables(prop, ms.dims), n_sweeps,
+            seed=SEED)
+    else:
+        run = fused.build_fused_chunk_runner(
+            ms, EngineConfig(seed=SEED, pk_mode="pooled"), burning=False)
+        ch2, chunk = run(chains, prop, n_sweeps)
+
+    k, jk = ch2.k.numpy(), np.asarray(jch2.k)
+    same = k == jk
+    assert same.mean() >= 0.99, same.mean()
+    assert (k != c["k"]).mean() > 0.02                 # jumps happened
+    np.testing.assert_allclose(ch2.theta.numpy()[same],
+                               np.asarray(jch2.theta)[same], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(ch2.logp.numpy()[same],
+                               np.asarray(jch2.logp)[same], rtol=1e-4,
+                               atol=1e-4)
+    pk, jpk = ch2.pk.numpy(), np.asarray(jch2.pk)
+    assert np.all(pk == pk[:1]) and np.all(jpk == jpk[:1])   # one shared pk
+    np.testing.assert_allclose(pk, jpk, atol=1e-6 if same.all() else 1e-4)
+    np.testing.assert_array_equal(ch2.pkllim.numpy(),
+                                  np.asarray(jch2.pkllim))
+    np.testing.assert_array_equal(ch2.nreinit.numpy(),
+                                  np.asarray(jch2.nreinit))
+    ks, jks = chunk["ksummary"].numpy(), np.asarray(jchunk["ksummary"])
+    assert ks.sum() == jks.sum() == S * n_sweeps
+    np.testing.assert_allclose(ks, jks, rtol=0.01)

@@ -8,8 +8,6 @@ machine with a card (``--noconftest`` skips the JAX-side test settings):
         -o addopts= --noconftest
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
@@ -97,18 +95,26 @@ def _toy2_proposal(L=3):
                     sig=t(1.5 * mask))
 
 
-def test_sweep_runner_matches_segment_runner(cuda):
-    """The K3 runner against the K2 runner where both fit (toy2, 5 x 512
-    chains, 300 sweeps): sig within 1e-6 relative, samples equal on
-    >= 99% of lanes."""
-    ms = toy.toy2_set()
+@pytest.mark.parametrize("name,C,rule", [("toy2", 2048, "aap"),
+                                         ("cpt", 1024, "log")])
+def test_sweep_runner_matches_segment_runner(cuda, name, C, rule):
+    """The K3 runner against the K2 runner, both on the card, at the
+    populations the CLI and JAX's configuration give stage 1 (toy2 at 5 x
+    2048 chains, cpt at 6 x 1024 with the log rule), 300 sweeps (+30
+    burn-in): sig, samples, telemetry and logp bitwise equal, with one K2
+    launch per segment and one K3 launch per sweep."""
+    ms = _SHAPE_SETS[name]()
     init = ms.init_points(torch.Generator())
-    cfg = EngineConfig(seed=3)
-    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, 512, init, cuda)
-    b = fused_stage1.run_fused_stage1(ms, cfg, 300, 512, init, cuda)
-    torch.testing.assert_close(a[0], b[0], rtol=1e-6, atol=0)
-    close = ((a[1] - b[1]).abs() <= 1e-5 * (1 + b[1].abs())).all(-1)
-    assert close.float().mean() >= 0.99
+    cfg = EngineConfig(seed=3, stage1_adapt=rule)
+    before = (fused_stage1.segment.launches, fused_stage1.sweep.launches)
+    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, C, init, cuda)
+    b = fused_stage1.run_fused_stage1(ms, cfg, 300, C, init, cuda)
+    n_seg = fused_stage1.schedule(cfg, 300, C, ms.dmax)[3]
+    assert (fused_stage1.segment.launches,
+            fused_stage1.sweep.launches) == (before[0] + n_seg,
+                                             before[1] + 330)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
 
 
 @pytest.mark.parametrize("variant", [dict(perm=True),
@@ -322,31 +328,84 @@ def test_sweep_kernel_matches_twin_at_every_shape(cuda, name, dof, perm):
         assert torch.equal(got[9].sum(1), want[9].sum(1))
 
 
-def test_segment_static_smem_within_the_routing_bound(cuda):
-    """The routing rule's static shared-memory bound covers the segment
-    kernel's own count at every instantiation and variant, and the card
-    opts in to the shared memory the rule assumes."""
-    lib = _build.library()
-    for K, D in _build.SHAPES:
-        for use_t in (0, 1):
-            static, optin = ctypes.c_int(), ctypes.c_int()
-            _build.check(lib.am_fused_stage1_smem(
-                K, D, use_t, ctypes.byref(static), ctypes.byref(optin)),
-                "am_fused_stage1_smem")
-            assert 0 < static.value <= fused_stage1.static_smem_bound(K, D)
-            assert optin.value >= fused_stage1._MAX_SMEM
-
-
+@pytest.mark.parametrize("C", [256, 77])
 @pytest.mark.parametrize("dof", [0, 5])
-def test_segment_kernel_at_the_block_bound(cuda, dof):
-    """K2 launches and matches its twin at the largest toy2 population
-    the routing rule gives it (1929 chains per model)."""
-    ms = toy.toy2_set()
-    C = max(c for c in range(1024, 2048)
-            if fused_stage1.fits_one_block(5, 5, c))
-    assert not fused_stage1.fits_one_block(5, 5, C + 1)
-    _assert_segment_matches(ms, C, cuda,
-                            randoms.student_t(dof) if dof else None)
+@pytest.mark.parametrize("name", list(_SHAPE_SETS))
+def test_segment_kernel_matches_twin_exactly(cuda, name, dof, C):
+    """K2 against segment_ref run on the card at every instantiated
+    (K, D), Normal and Student-t, the AAP rule (the log rule's own tests
+    are below): K x C chains over several one-warp blocks, C = 256 (every
+    warp in one model) and C = 77 (warps spanning two models, the last
+    block part-filled), one 100-sweep segment (block moves after sweep
+    50): one launch and every output bit for bit."""
+    ms = _SHAPE_SETS[name]()
+    theta, sig = _stage1_state(ms, C, cuda, 10.0)
+    zi = torch.zeros(sig.shape, dtype=torch.int32, device=cuda)
+    kw = dict(C=C, sweep0=0, seed=777, nburn=50, n_active=100,
+              tdist=randoms.student_t(dof) if dof else None)
+    before = fused_stage1.segment.launches
+    got = fused_stage1.segment(ms, theta, sig, zi, zi, **kw)
+    assert fused_stage1.segment.launches == before + 1
+    want = fused_stage1.segment_ref(ms, theta, sig, zi, zi, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert int(got[2].sum()) > 0                       # accepts counted
+
+
+def test_segment_capacity(cuda):
+    """segment_capacity counts whole one-warp blocks on every SM, at least
+    6 a SM at every instantiation (8 at K2's 255 registers at most, 7 at
+    DDI's with its 28.9 KB of shared tables), so toy2's 5 x 2048 and
+    rb9's 10 x 1024 stage-1 chains fit.  One chain above the capacity, K2
+    raises without a launch; the rule sends a toy2 population to K2 up to
+    the capacity and to K3 above it."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name, f in _SHAPE_SETS.items():
+        for tdist in (None, randoms.student_t(5)):
+            cap = fused_stage1.segment_capacity(f(), cuda, tdist)
+            assert cap % (32 * sms) == 0 and cap >= 6 * 32 * sms, (name, cap)
+    ms = ddi.ddi_set()
+    cap = fused_stage1.segment_capacity(ms, cuda)
+    C = cap // 2 + 1
+    theta, sig = _stage1_state(ms, C, cuda, 1.0)
+    zi = torch.zeros(sig.shape, dtype=torch.int32, device=cuda)
+    before = fused_stage1.segment.launches
+    with pytest.raises(ValueError, match="resident"):
+        fused_stage1.segment(ms, theta, sig, zi, zi, C=C, sweep0=0, seed=1,
+                             nburn=0, n_active=2)
+    assert fused_stage1.segment.launches == before
+    toy2 = toy.toy2_set()
+    cap = fused_stage1.segment_capacity(toy2, cuda)
+    for C, run in ((cap // 5, fused_stage1.run_fused_stage1),
+                   (cap // 5 + 1, fused_stage1.run_fused_stage1_sweeps)):
+        assert fused_stage1.stage1_runner(toy2, EngineConfig(), C, cuda) \
+            is run
+
+
+def test_segment_kernel_registers(cuda):
+    """K2 at rb9's (10, 5) and DDI's (2, 16), in its Normal and Student-t
+    units, spills nothing (ptxas -v of the build, kept in the log beside
+    the library): its one-warp block lets the compiler use up to 255
+    registers."""
+    import re
+    log = _build.build().with_suffix(".log").read_text()
+    found = {}
+    for unit in log.split("$ ")[1:]:
+        t = re.search(r"-DAM_STAGE1_T=(\d)", unit.split("\n", 1)[0])
+        for block in unit.split("Compiling entry function '")[1:]:
+            m = re.search(r"\dfused_stage1_kernelILi(\d+)ELi(\d+)E",
+                          block.split("'", 1)[0])
+            if not (m and t):
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            found[(*map(int, m.groups()), int(t.group(1)))] = (
+                int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+    for K, D in ((10, 5), (2, 16)):
+        for t in (0, 1):
+            regs, st, ld = found[(K, D, t)]
+            assert regs <= 255 and st == ld == 0, (K, D, t, found[(K, D, t)])
 
 
 def _rb9_state(dev, S, seed=0):
@@ -646,6 +705,31 @@ def test_ddi_pooled_cache_kernel_matches_twin(cuda):
     assert bool((got[3] == got[3][:, :1]).all())
 
 
+@pytest.mark.parametrize("n_sweeps", [11, 27])
+def test_ddi_pooled_cache_kernel_across_a_refresh(cuda, n_sweeps):
+    """K1c with the DDI cache, 8192 chains from sweep 5: every output bit
+    for bit the twin's, over 11 sweeps (a block move at 10, the launch
+    ending on t = 15, a cache refresh) and 27 (refreshes after 15 and 31,
+    the last)."""
+    ms, ch, tabs = _ddi_state(cuda, 8192, seed=4)
+    got = _assert_sweep_exact(ms, ch, tabs, n_sweeps, pooled=True)
+    assert bool((got[3] == got[3][:, :1]).all())
+
+
+@pytest.mark.parametrize("L", [4, 32])
+def test_ddi_pooled_capacity(cuda, L):
+    """K1c with the cache at DDI's (2, 16): the shared copy of the tables
+    beside the cache keeps two blocks of 128 chains per SM, 33792 chains
+    on an H100's 132 SMs, above the 16384 of DDI's pooled run, in every
+    variant."""
+    ms = ddi.ddi_set()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for perm in (False, True):
+        for tdist in (None, randoms.student_t(5)):
+            assert fused.pooled_capacity(ms, L, cuda, perm=perm,
+                                         tdist=tdist) == 2 * 128 * sms
+
+
 def test_ddi_pooled_runner_with_the_cache_matches_twin(cuda):
     """K1d with the DDI cache: the per-sweep pooled runner (one K1e launch
     a sweep, which rebuilds the cache; the route of a population above
@@ -762,12 +846,11 @@ def test_changepoint_segment_log_rule_matches_twin_exactly(cuda):
 
 def test_changepoint_sweep_runner_log_rule_matches_twin(cuda):
     """The K3 route with the log rule at (6, 13): 6 x 1024 cpt chains
-    (more than K2's one block holds), 30 stage-1 sweeps (+3 burn-in) of
+    (JAX's stage-1 population), 30 stage-1 sweeps (+3 burn-in) of
     ``run_fused_stage1_sweeps``, one K3 launch per sweep and the log
     update between launches, against the same runner over the one-sweep
     twin on the card: sig, samples, telemetry and logp bitwise equal."""
     ms = changepoint.cpt_set()
-    assert not fused_stage1.fits_one_block(6, 13, 1024)
     cfg = EngineConfig(seed=5, stage1_adapt="log")
     init = ms.init_points(torch.Generator())
     before = fused_stage1.sweep.launches

@@ -180,21 +180,29 @@ def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof,
     _agree_with_jax([x.numpy() for x in got], want)
 
 
-def test_stage1_routes_by_one_block_capacity():
-    """K2's one block holds (D + 1) * K * C floats of 4 bytes beside its
-    static shared arrays within 227 KiB: toy2 at the CLI's 2048 chains per
-    model does not fit (K3), the tutorial at 1024 does (K2).  At toy2's
-    bound the static arrays decide: 1930 chains per model would fit the
-    dynamic part alone."""
-    assert not fused_stage1.fits_one_block(5, 5, 2048)
-    assert fused_stage1.fits_one_block(5, 5, 1024)
-    assert fused_stage1.fits_one_block(3, 2, 1024)
-    assert fused_stage1.fits_one_block(5, 5, 1929)
-    assert 6 * 5 * 1930 * 4 <= fused_stage1._MAX_SMEM
-    assert not fused_stage1.fits_one_block(5, 5, 1930)
+@pytest.mark.parametrize("n,cap,segment", [
+    (3 * 1024, 135168, True), (5 * 2048, 135168, True),
+    (2 * 512, 29568, True), (29568, 29568, True), (29569, 29568, False),
+    (1024, 0, False)])
+def test_stage1_routing_rule(n, cap, segment):
+    """The stage-1 rule is a function of the population and the segment
+    kernel's resident capacity alone: K2 up to the capacity, inclusive
+    (the H100's at the tutorial's and toy2's shapes, 135168, and at DDI's,
+    29568), K3 above it, and K3 for everything where the card has no
+    cooperative launch (capacity 0)."""
+    assert fused_stage1.runs_segment_kernel(n, cap) is segment
+
+
+def test_stage1_cpu_path_runs_the_twins():
+    """On the CPU every population takes the segment runner, whose kernel
+    is its plain twin there (toy2 at the CLI's 2048 chains per model,
+    which K3 took while K2 was one block), and stage 1 counts no launch of
+    either kernel."""
+    cfg = EngineConfig(seed=1)
+    assert fused_stage1.stage1_runner(toy.toy2_set(), cfg, 2048, "cpu") \
+        is fused_stage1.run_fused_stage1
     before = (fused_stage1.segment.launches, fused_stage1.sweep.launches)
-    cfg = dataclasses.replace(EngineConfig(seed=1), n_chains_stage1=16)
+    cfg = dataclasses.replace(cfg, n_chains_stage1=16)
     rwm.run_stage1(toy.toy2_set(), cfg, torch.Generator(), 20, "cpu")
-    # the CPU path runs the twins and counts no launch
     assert (fused_stage1.segment.launches,
             fused_stage1.sweep.launches) == before

@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Time every form of the stage-3 sweep kernel at the change-point (6, 13)
-and rb9 (10, 5) shapes on one NVIDIA GPU, beside the main path's (3, 2),
-DDI's cached form K1e at (2, 16) and the change-point stage-1 kernels, to
-compare two versions of the kernel sources.
+"""Time the sweep and stage-1 kernels on one NVIDIA GPU, to compare two
+versions of the kernel sources.  Each part is chosen with ``--parts``
+(a comma list, every part by default):
 
-Makes the states of ``chip_smoke.py``'s checks with its own functions and
-configurations: cpt's and cptrs' ``AMSampler`` runs (JAX's change-point
-configuration, 16384 chains on K1c, 1500 burn-in and 10000 sweeps, cptrs
-fitted at lmax 10), rb9's fit with
-131072 chains after 200 burn-in sweeps (as ``tools/time_rb9_sweeps.py``),
-the tutorial main path's fit with 131072 chains after 1000 burn-in sweeps,
-DDI's run as ``tools/time_k1e_k4.py``, and the proposals (``_mix.data``)
-of cpt and cptrs that the CLI reads.  Then it times, in milliseconds per
-launch of 100 sweeps with pk adapting (CUDA events):
+* ``sweep``: every form of the stage-3 sweep kernel at the change-point
+  (6, 13) and rb9 (10, 5) shapes, beside the main path's (3, 2), DDI's
+  cached form K1e at (2, 16) and the change-point stage-1 kernels;
+* ``k1c``: K1c with DDI's cache on every chain of DDI's state and on the
+  state repeated to 33792 chains (two blocks of 128 on each of an H100's
+  132 SMs), against K1e (the same sweeps with per-chain pk) on the same
+  chains, ms per launch of 100 sweeps on the hash and the hw stream;
+* ``k2``: K2, ms per 100-sweep segment from the start points at the
+  tutorial (3 x 1024), toy2 (5 x 2048), rb9 (10 x 512), DDI (2 x 512) and
+  cpt (6 x 512, the log rule), and the stage-1 kernels' registers;
+* ``stage1``: stage 1 of each ``AMSampler`` path of ``chip_smoke.py``
+  (its populations, sweeps and rules) on the segment runner (K2) where
+  the population fits and on the one-sweep runner (K3), host seconds with
+  a synchronize, after a short warm-up run of the same shape.
+
+The ``sweep`` part makes the states of ``chip_smoke.py``'s checks with
+its own functions and configurations: cpt's and cptrs' ``AMSampler`` runs
+(JAX's change-point configuration, 16384 chains on K1c, 1500 burn-in and
+10000 sweeps, cptrs fitted at lmax 10), rb9's fit with 131072 chains
+after 200 burn-in sweeps (as ``tools/time_rb9_sweeps.py``), the tutorial
+main path's fit with 131072 chains after 1000 burn-in sweeps, DDI's run
+as ``tools/time_k1e_k4.py`` (the ``k1c`` part's state too), and the
+proposals (``_mix.data``) of cpt and cptrs that the CLI reads.  Then it
+times, in milliseconds per launch of 100 sweeps with pk adapting (CUDA
+events):
 
 * at (6, 13) (cpt, cptrs) and (10, 5) (rb9), at 16384 and 131072 chains
-  (a state of 16384 repeated): K1 and K1 + perm on the hash, K1f and K1f + perm (hw), K1c
-  and K1f pooled where the population is resident (``pooled_capacity``),
-  and the K1d runner (one launch a sweep, ms per sweep) on both streams;
+  (a state of 16384 repeated): K1 and K1 + perm on the hash, K1f and
+  K1f + perm (hw), K1c and K1f pooled where the population is resident
+  (``pooled_capacity``), and the K1d runner (one launch a sweep, ms per sweep) on both streams;
 * the tutorial's K1f and K1 at 131072 chains, DDI's K1e at 16384 on both
   streams with and without perm;
 * K2-log (one 100-sweep segment of 6 x 512 cpt chains) and the K3 + log
@@ -36,7 +51,7 @@ in turn on one machine (parent, change, change, parent); ``--state DIR``
 keeps the states and proposals there, made by the first run, so that
 every copy times the same chains:
 
-    python3 tools/time_sweep_shapes.py --state DIR
+    python3 tools/time_sweep_shapes.py --state DIR [--parts k1c,k2]
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -59,6 +74,27 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 
 SIZES = (16_384, 131_072)
+PARTS = ("sweep", "k1c", "k2", "stage1")
+# (name, set, chains per model, rule) of the K2 segment timings
+SEGMENTS = (("tutorial", "tutorial", 1024, "aap"),
+            ("toy2", "toy2", 2048, "aap"), ("rb9", "rb9", 512, "aap"),
+            ("ddi", "ddi", 512, "aap"), ("cpt", "cpt", 512, "log"))
+# (name, set, chains per model, stage-1 sweeps, rule) of the AMSampler
+# paths of chip_smoke.py
+STAGE1_PATHS = (("tutorial", "tutorial", 1024, 2000, "aap"),
+                ("toy2", "toy2", 2048, 10000, "aap"),
+                ("rb9", "rb9", 1024, 2000, "aap"),
+                ("ddi", "ddi", 512, 1500, "aap"),
+                ("cpt", "cpt", 1024, 2500, "log"),
+                ("cptrs", "cptrs", 1024, 2500, "log"))
+
+
+def model_set(name):
+    from automix_tpu_torch.models import changepoint, ddi, rb9, toy
+    from automix_tpu_torch.models.tutorial import tutorial_set
+    return {"tutorial": tutorial_set, "toy2": toy.toy2_set,
+            "rb9": rb9.rb9_set, "ddi": ddi.ddi_set,
+            "cpt": changepoint.cpt_set, "cptrs": changepoint.cptrs_set}[name]()
 
 
 def saved(path, make):
@@ -172,6 +208,70 @@ def cli_seconds(name, mix_stem):
     return secs
 
 
+def k1c_part(ms, ch, prop, dev):
+    """K1c with DDI's cache and K1e on DDI's chains and on them repeated to
+    33792, ms per 100-sweep launch on each stream."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    out = {"L": prop.lmax,
+           "k1c_capacity": fused.pooled_capacity(ms, prop.lmax, dev)}
+    for S in (ch.n_chains, 33792):
+        big = grown(ch, S)
+        args = cs.chunk_args(big)
+        for rng in ("hash", "hw"):
+            for pooled, form in ((True, "K1c"), (False, "K1e")):
+                out[f"{S} {form} {rng}"] = cs.cuda_ms(
+                    lambda: fused.sweep_chunk(
+                        ms, *args, tabs, seed=11, sweep0=big.sweep,
+                        n_sweeps=cs.TIME_SWEEPS, adapt=True, pooled=pooled,
+                        rng=rng), 3)
+    return out
+
+
+def k2_part(lib, dev):
+    """K2's ms per 100-sweep segment at each of SEGMENTS, and the stage-1
+    kernels' registers at their shapes."""
+    from automix_tpu_torch.kernels import fused_stage1
+    out = {"ms": {}, "registers": {}}
+    for name, setname, C, rule in SEGMENTS:
+        ms = model_set(setname)
+        theta, sig, zi = cs.stage1_start(ms, C, dev)
+        out["ms"][f"{name} {ms.nmodels} x {C}"] = cs.cuda_ms(
+            lambda: fused_stage1.segment(
+                ms, theta, sig, zi, zi, C=C, sweep0=0, seed=777, nburn=50,
+                n_active=100, rule=rule, log_gain=3.0), 10)
+        out["registers"][f"({ms.nmodels}, {ms.dmax})"] = [
+            f"{n} {r}, frame {f}, spills {st}/{ld}"
+            for n, r, f, st, ld in cs.ptxas_summary(lib, ms.nmodels, ms.dmax)
+            if n.startswith("fused_stage1_kernel")]
+    return out
+
+
+def stage1_part(dev):
+    """Seconds of stage 1 of each of STAGE1_PATHS on each route it fits."""
+    import torch
+    from automix_tpu_torch import EngineConfig
+    from automix_tpu_torch.kernels import fused_stage1
+    out = {}
+    for name, setname, C, nsweeps, rule in STAGE1_PATHS:
+        ms = model_set(setname)
+        cfg = EngineConfig(seed=0, n_chains_stage1=C, stage1_sweeps=nsweeps,
+                           stage1_adapt=rule)
+        init = ms.init_points(torch.Generator().manual_seed(0))
+        routes = [("K3", fused_stage1.run_fused_stage1_sweeps)]
+        if ms.nmodels * C <= fused_stage1.segment_capacity(ms, dev):
+            routes.insert(0, ("K2", fused_stage1.run_fused_stage1))
+        for route, run in routes:
+            run(ms, cfg, 20, C, init, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(ms, cfg, nsweeps, C, init, dev)
+            torch.cuda.synchronize()
+            out[f"{name} {ms.nmodels} x {C} {route}"] = \
+                time.perf_counter() - t0
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -184,7 +284,11 @@ def main():
     from automix_tpu_torch.models.tutorial import tutorial_set
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", required=True)
+    ap.add_argument("--parts", default=",".join(PARTS))
     opts = ap.parse_args()
+    parts = opts.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        sys.exit(f"time_sweep_shapes: --parts takes some of {PARTS}")
     os.makedirs(opts.state, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -232,6 +336,18 @@ def main():
         am.burn_samples(cs.DDI_BURN)
         return am
 
+    out = {}
+    if "k1c" in parts:
+        out["k1c_ms"] = k1c_part(ddi.ddi_set(),
+                                 *saved(path("ddi.pt"), ddi_run), dev)
+    if "k2" in parts:
+        out["k2"] = k2_part(lib, dev)
+    if "stage1" in parts:
+        out["stage1_s"] = stage1_part(dev)
+    if "sweep" not in parts:
+        print(json.dumps(out), flush=True)
+        return
+
     t0 = time.perf_counter()
     states = {name: (getattr(changepoint, f"{name}_set")(),
                      *saved(path(f"{name}.pt"), lambda: cpt_run(name)))
@@ -243,8 +359,8 @@ def main():
         "ddi": (ddi.ddi_set(), *saved(path("ddi.pt"), ddi_run))})
     made = time.perf_counter() - t0
 
-    out = {"registers": {}, "warps_per_sm": {}, "k1c_capacity": {},
-           "L": {}, "ms": {}}
+    out.update({"registers": {}, "warps_per_sm": {}, "k1c_capacity": {},
+                "L": {}, "ms": {}})
     for name, (ms, ch, prop) in states.items():
         K, D = ms.nmodels, ms.dmax
         out["registers"][f"({K}, {D})"] = [
