@@ -251,6 +251,41 @@ __device__ __forceinline__ float am_density_gamma(const float* c, float a,
   return ok ? lp : AM_NEG_INF;
 }
 
+// The three densities above for a warp of the tutorial, which holds chains
+// of all three kinds, without running each kind's code in turn: every lane
+// takes one logf (Normal: of sigma; Gamma: of b) and one am_pal_gammaln (of
+// a; Normal: of 1, unused), and the two that only Beta needs run where some
+// lane of the warp holds a Beta chain (a vote).  Each kind then combines
+// its values in the expression of its function above, so each density
+// stays bit for bit what it was.
+__device__ __forceinline__ float am_density_builtin(int kind, const float* c,
+                                                    float t0, float t1) {
+  const float n = c[0], s1 = c[1], s2 = c[2], sl = c[3], sl1 = c[4];
+  const bool normal = kind == AM_KIND_NORMAL_PARAMS;
+  const bool beta = kind == AM_KIND_BETA_PARAMS;
+  const bool ok = (t0 > 0.0f) && (normal || t1 > 0.0f);
+  const float as = ok ? t0 : 1.0f;     // Normal: sigma, sanitized
+  const float bs = ok ? t1 : 1.0f;
+  const float lx = logf(normal ? as : bs);
+  const float ga = am_pal_gammaln(normal ? 1.0f : as);
+  float gab = 0.0f, gb = 0.0f;
+  if (__any_sync(__activemask(), beta)) {
+    gab = am_pal_gammaln(as + bs);
+    gb = am_pal_gammaln(bs);
+  }
+  float lp;
+  if (normal) {
+    const float x0 = t1;
+    float ss = -(s2 - 2.0f * x0 * s1 + n * x0 * x0);
+    lp = -n * lx + ss / (2.0f * as * as);
+  } else if (beta) {
+    lp = (as - 1.0f) * sl + (bs - 1.0f) * sl1 + n * (gab - ga - gb);
+  } else {
+    lp = (as - 1.0f) * sl - bs * s1 + n * (as * lx - ga);
+  }
+  return ok ? lp : AM_NEG_INF;
+}
+
 // 1-D direct samplers; c[0] of the Beta(2, 2) sampler is log 6.
 __device__ __forceinline__ float am_density_normal_sampler(float x) {
   float d = x - 0.5f;
@@ -404,7 +439,12 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
 // segment kernel 15% slower.  The stage-3 sweep carries the statistics instead
 // (fused_sweep.cu, kCache), and the segment kernel reads a shared copy of
 // the tables (fused_stage1.cu, which leaves this case out with kDdi false).
-template <int K, int D, bool kDdi = true>
+// With kBuiltin (the stage-3 sweep kernel at its small shapes) kinds 1-3
+// take am_density_builtin: in the sweep kernel at the change-point shape
+// its warp vote made cptrs' per-chain forms twice as slow (PERF.md section
+// 6), and the stage-1 kernels at the tutorial's shape took 80 registers
+// with it instead of 64.
+template <int K, int D, bool kDdi = true, bool kBuiltin = false>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
                                             int dim, const float* th) {
   if constexpr (kDdi && K == AM_DDI_K && D == AM_DDI_D) {
@@ -412,31 +452,44 @@ __device__ __forceinline__ float am_logpost(int kind, const float* c,
       return (c[0] == 0.0f) ? am_ddi_logpost<0>(th) : am_ddi_logpost<1>(th);
   }
   float lp;
-  switch (kind) {
-    case AM_KIND_NORMAL_PARAMS: lp = am_density_normal(c, th[0], th[1]); break;
-    case AM_KIND_BETA_PARAMS: lp = am_density_beta(c, th[0], th[1]); break;
-    case AM_KIND_GAMMA_PARAMS: lp = am_density_gamma(c, th[0], th[1]); break;
-    case AM_KIND_NORMAL_SAMPLER: lp = am_density_normal_sampler(th[0]); break;
-    case AM_KIND_TRUNCNORMAL_SAMPLER:
-      lp = am_density_truncnormal_sampler(th[0]);
-      break;
-    case AM_KIND_BETA_SAMPLER: lp = am_density_beta_sampler(c, th[0]); break;
-    case AM_KIND_MIXTURE: lp = am_density_mixture<D>(c, dim, th); break;
-    case AM_KIND_TOY2: lp = am_density_toy2<D>(c, dim, th); break;
-    case AM_KIND_RB9:
-      if constexpr (K == AM_RB9_K && D == AM_RB9_D)
-        lp = am_density_rb9<D>(c, dim, th);
-      else
-        lp = AM_NEG_INF;
-      break;
-    case AM_KIND_CPT:
-    case AM_KIND_CPTRS:
-      if constexpr (K == AM_CPT_K && D == AM_CPT_D)
-        lp = am_density_cpt<D>(kind - AM_KIND_CPT, c, th);
-      else
-        lp = AM_NEG_INF;
-      break;
-    default: lp = AM_NEG_INF; break;
+  if (kBuiltin && kind >= AM_KIND_NORMAL_PARAMS
+      && kind <= AM_KIND_GAMMA_PARAMS) {
+    lp = am_density_builtin(kind, c, th[0], th[1]);
+  } else {
+    switch (kind) {
+      case AM_KIND_NORMAL_PARAMS:
+        lp = am_density_normal(c, th[0], th[1]);
+        break;
+      case AM_KIND_BETA_PARAMS: lp = am_density_beta(c, th[0], th[1]); break;
+      case AM_KIND_GAMMA_PARAMS:
+        lp = am_density_gamma(c, th[0], th[1]);
+        break;
+      case AM_KIND_NORMAL_SAMPLER:
+        lp = am_density_normal_sampler(th[0]);
+        break;
+      case AM_KIND_TRUNCNORMAL_SAMPLER:
+        lp = am_density_truncnormal_sampler(th[0]);
+        break;
+      case AM_KIND_BETA_SAMPLER:
+        lp = am_density_beta_sampler(c, th[0]);
+        break;
+      case AM_KIND_MIXTURE: lp = am_density_mixture<D>(c, dim, th); break;
+      case AM_KIND_TOY2: lp = am_density_toy2<D>(c, dim, th); break;
+      case AM_KIND_RB9:
+        if constexpr (K == AM_RB9_K && D == AM_RB9_D)
+          lp = am_density_rb9<D>(c, dim, th);
+        else
+          lp = AM_NEG_INF;
+        break;
+      case AM_KIND_CPT:
+      case AM_KIND_CPTRS:
+        if constexpr (K == AM_CPT_K && D == AM_CPT_D)
+          lp = am_density_cpt<D>(kind - AM_KIND_CPT, c, th);
+        else
+          lp = AM_NEG_INF;
+        break;
+      default: lp = AM_NEG_INF; break;
+    }
   }
   return fminf(fmaxf(lp, AM_NEG_INF), -AM_NEG_INF);
 }

@@ -37,6 +37,20 @@
 // (PERF.md section 6): 1.8-3.2 times at 131072 chains, and twice as slow on
 // cptrs, whose chains change model on 22% of chain-sweeps (rb9's 64%).
 //
+// At the small shapes (K * D <= 6, the main path's (3, 2)) the kernel is
+// latency-bound, and what pays is the tutorial's three densities without
+// divergence (common.cuh am_density_builtin) at 32 resident warps: the
+// kernel is built for 8 blocks per SM, so within 64 registers, which it
+// reaches with the chunk sums and the allocation logits in the thread's
+// column of shared memory and without carrying the counters that follow
+// from the launch (block tries, sweeps, the last model's visits).  That
+// leaves no local memory but libdevice's trig reduction (a 32-byte stack
+// frame; a 128-byte local array of logits before).  Keeping the first 4 or
+// 8 logits in registers instead, unrolled so that the components' chains
+// interleave, took 72-79 registers (24 warps) and was slower, and spilled
+// within 64; 10 or 12 blocks per SM spilled and were slower (PERF.md
+// section 6).
+//
 // K1c: the JAX kernel keeps the population in one lane block, so its visit
 // histogram is a cross-lane sum.  Here the population spans many blocks, so
 // K1c is a cooperative launch over blocks that the card holds resident at once
@@ -66,7 +80,9 @@
 // thread branches: it loops over its own model's L components for the forward
 // allocation and the destination model's for the reverse one, recomputes the
 // selected component's residual instead of keeping K*L*D of them, evaluates
-// only its own model's density, and computes each random word when it is used
+// only its own model's density (the tutorial's three kinds without running
+// each kind's code in turn: common.cuh am_density_builtin), and computes
+// each random word when it is used
 // (the stream's per-chain state is one 64-bit register pair: the hash's
 // counter base, or the hw stream's PCG state, so the stream is a run-time
 // argument and not a template one, which would double the instantiations and
@@ -142,6 +158,21 @@ constexpr bool kPerm = AM_PERM != 0;
 constexpr bool kTdist = AM_TDIST != 0;
 // Sweeps between full refreshes of the cache (the JAX _REFRESH).
 constexpr int kRefresh = 16;
+// The small shapes (K * D <= 6: the tutorial's (3, 2) and below; header
+// note): a chain's allocation logits and chunk sums in the thread's column
+// of shared memory ([slot][thread]: a warp's 32 accesses to a slot hit 32
+// banks), 8 blocks of kThreads per SM.  The larger shapes, whose kernels
+// hold 206-255 registers, keep the sums in registers and the logits in a
+// local array.
+template <int K, int D>
+__host__ __device__ constexpr bool small_shape() {
+  return K * D <= 6;
+}
+
+template <int K, int D>
+__host__ __device__ constexpr int min_blocks() {
+  return small_shape<K, D>() ? 8 : 1;
+}
 
 // The shape whose model set carries a cache: only its cached form exists.
 template <int K, int D>
@@ -149,20 +180,83 @@ __host__ __device__ constexpr bool cached_shape() {
   return K == AM_DDI_K && D == AM_DDI_D;
 }
 
-// Dynamic shared memory of one block: the tables, or in the cached form
-// the cache (the tables are then read from device memory), after the copy
-// of DDI's coefficient tables.
+// Dynamic shared memory of one block: the tables (and at the small shapes
+// the threads' chunk sums and logits), or in the cached form the cache (the
+// tables are then read from device memory), after the copy of DDI's
+// coefficient tables.
 template <int K, int D, bool kPooled>
 size_t sweep_smem(int L) {
   if constexpr (cached_shape<K, D>())
     return sizeof(float) * ((size_t)kAmDdiShared +
                             (size_t)AM_DDI_NCACHE * kThreads);
   const int KL = K * L;
-  return sizeof(float) * (size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D);
+  return sizeof(float) * ((size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D)
+                          + (small_shape<K, D>() ? (2 * K * D + L) * kThreads
+                                                 : 0));
+}
+
+// Allocation logit of component li of model m at x (dm active rows):
+// abase - quad / 2, with quad summed over the rows in row order.
+template <int K, int D>
+__device__ __forceinline__ float am_logit(int m, int li, const float (&x)[D],
+                                          int dm, int L,
+                                          const float* abase,
+                                          const float* mu,
+                                          const float* binv) {
+  const int ml = m * L + li;
+  float quad = 0.0f;
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    if (r >= dm) break;
+    float w = binv[ml * D * D + r * D] * (x[0] - mu[ml * D]);
+#pragma unroll
+    for (int c = 1; c <= r; ++c)
+      w = w + binv[ml * D * D + r * D + c] * (x[c] - mu[ml * D + c]);
+    quad = (r == 0) ? w * w : quad + w * w;
+  }
+  return abase[ml] - 0.5f * quad;
+}
+
+// Log-probability of component ``idx`` in the allocation of model m at x;
+// with ``draw`` (the forward move) idx is first set to the Gumbel argmax
+// over the words from slot ``s_g``.  The logits are kept in ``lg`` (the
+// thread's shared column at the small shapes, else a local array), then
+// folded in component order, as the twin's torch.argmax, _lse and gather:
+// the argmax with strict > (the first maximum), mx left to right, then the
+// exp-sum left to right.  Folding the Gumbel draws into the pass that
+// computes the logits was up to 4% slower at (3, 2) (PERF.md section 6).
+template <int K, int D>
+__device__ __forceinline__ float am_alloc(int m, const float (&x)[D], int dm,
+                                          int L, const float* abase,
+                                          const float* mu, const float* binv,
+                                          const AmWords& wd, int s_g,
+                                          bool draw, int& idx, float* lg) {
+  constexpr int kStride = small_shape<K, D>() ? kThreads : 1;
+  for (int li = 0; li < L; ++li)
+    lg[li * kStride] = am_logit<K, D>(m, li, x, dm, L, abase, mu, binv);
+  float mx = lg[0];
+  if (draw) {
+    idx = 0;
+    float best = lg[0] + am_gumbel(am_u01(wd(s_g)));
+    for (int li = 1; li < L; ++li) {
+      const float v = lg[li * kStride] + am_gumbel(am_u01(wd(s_g + li)));
+      if (v > best) {
+        best = v;
+        idx = li;
+      }
+      mx = fmaxf(mx, lg[li * kStride]);
+    }
+  } else {
+    for (int li = 1; li < L; ++li) mx = fmaxf(mx, lg[li * kStride]);
+  }
+  float se = expf(lg[0] - mx);
+  for (int li = 1; li < L; ++li) se = se + expf(lg[li * kStride] - mx);
+  return lg[idx * kStride] - (mx + logf(se));
 }
 
 template <int K, int D, bool kPooled>
-__global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
+__global__ void __launch_bounds__(kThreads, min_blocks<K, D>())
+fused_sweep_kernel(
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,
     int rng, AmT tc,
     int* __restrict__ ghist, float inv_S,
@@ -223,18 +317,30 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int m = 0; m < K; ++m) pk[m] = pk_in[m * S + ci];
   float pkl = pkl_in[ci];
   int nri = nri_in[ci];
+  // visit counts of every model but the last (the last's is n_sweeps less
+  // the others'), theta sums of every model: in registers, or at the small
+  // shapes in this thread's column of shared memory
   int ks[K];
-  float ts[K * D], tq[K * D];
+  constexpr bool kSS = small_shape<K, D>();
+  float ts[kSS ? 1 : K * D], tq[kSS ? 1 : K * D];
+  float* sums_s = smem + n_tab + threadIdx.x;
 #pragma unroll
   for (int m = 0; m < K; ++m) {
     ks[m] = 0;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      ts[m * D + d] = 0.0f;
-      tq[m * D + d] = 0.0f;
+      if constexpr (kSS) {
+        sums_s[(m * D + d) * kThreads] = 0.0f;
+        sums_s[(K * D + m * D + d) * kThreads] = 0.0f;
+      } else {
+        ts[m * D + d] = 0.0f;
+        tq[m * D + d] = 0.0f;
+      }
     }
   }
-  int cnt[6] = {0, 0, 0, 0, 0, 0};
+  // accepts and tries: block accepts, componentwise accepts and tries, RJ
+  // accepts (block tries and sweeps follow from sweep0 and n_sweeps)
+  int acc_blk = 0, acc_cw = 0, try_cw = 0, acc_rj = 0;
 
   // The cached forms: the chain's cache of both models' statistics, fresh at
   // the chunk's start state (a chunk boundary refreshes the cache, not
@@ -280,7 +386,10 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     return kTdist ? am_t_latent(w, tc) : am_normal_latent(w);
   };
 
-  float logits[kLMax];
+  // the allocation logits (am_alloc): after the chunk sums in the thread's
+  // shared column at the small shapes, else a local array
+  float lg_local[kSS ? 1 : kLMax];
+  float* lg = kSS ? sums_s + 2 * K * D * kThreads : lg_local;
 
   for (int tr = 0; tr < n_sweeps; ++tr) {
     const int t = sweep0 + tr;
@@ -298,8 +407,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         lpn = (kk == 0) ? am_ddi_logpost<0>(prop, tab0)
                         : am_ddi_logpost<1>(prop, tab1);
       else
-        lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk,
-                               prop);
+        lpn = am_logpost<K, D, true, small_shape<K, D>()>(
+            kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
       float acc = (am_u01(wd(0)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
       if constexpr (kCache) {
         if (acc != 0.0f) {
@@ -310,8 +419,7 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
       for (int d = 0; d < D; ++d) th[d] = th[d] + acc * (prop[d] - th[d]);
       lp = lp + acc * (lpn - lp);
-      cnt[0] += (int)acc;
-      cnt[1] += 1;
+      acc_blk += (int)acc;
     } else if constexpr (kCache) {
       // K1e: coordinates at run time; theta's entries by compare
 #pragma unroll 1
@@ -337,8 +445,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
         for (int d = 0; d < D; ++d)
           if (d == j) th[d] = th[d] + acc * (pj - th[d]);
         lp = lp + acc * (lpn - lp);
-        cnt[2] += (int)acc;
-        cnt[3] += 1;
+        acc_cw += (int)acc;
+        try_cw += 1;
       }
     } else {
 #pragma unroll
@@ -348,46 +456,21 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
         prop[j] = th[j] + sig[kk * D + j] * z_rwm(wd, j);
-        float lpn = am_logpost<K, D>(kinds_s[kk], consts_s + kk * AM_N_CONSTS,
-                                     dk, prop);
+        float lpn = am_logpost<K, D, true, small_shape<K, D>()>(
+            kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
         float acc = (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
         th[j] = th[j] + acc * (prop[j] - th[j]);
         lp = lp + acc * (lpn - lp);
-        cnt[2] += (int)acc;
-        cnt[3] += 1;
+        acc_cw += (int)acc;
+        try_cw += 1;
       }
     }
 
     // ---- (b) reversible jump ---------------------------------------------
     // forward allocation over the chain's own model's components
-    for (int li = 0; li < L; ++li) {
-      const int ml = kk * L + li;
-      float quad = 0.0f;
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        if (r >= dk) break;
-        float w = binv[ml * D * D + r * D] * (th[0] - mu[ml * D]);
-#pragma unroll
-        for (int c = 1; c <= r; ++c)
-          w = w + binv[ml * D * D + r * D + c] * (th[c] - mu[ml * D + c]);
-        quad = (r == 0) ? w * w : quad + w * w;
-      }
-      logits[li] = abase[ml] - 0.5f * quad;
-    }
     int l_idx = 0;
-    float best = logits[0] + am_gumbel(am_u01(wd(s_gall)));
-    float mx = logits[0];
-    for (int li = 1; li < L; ++li) {
-      float v = logits[li] + am_gumbel(am_u01(wd(s_gall + li)));
-      if (v > best) {
-        best = v;
-        l_idx = li;
-      }
-      mx = fmaxf(mx, logits[li]);
-    }
-    float se = expf(logits[0] - mx);
-    for (int li = 1; li < L; ++li) se = se + expf(logits[li] - mx);
-    const float log_palloc = logits[l_idx] - (mx + logf(se));
+    const float log_palloc = am_alloc<K, D>(kk, th, dk, L, abase, mu, binv,
+                                            wd, s_gall, true, l_idx, lg);
 
     // standardized residual of the selected component (recomputed)
     float work[D];
@@ -503,25 +586,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
     }
 
     // reverse allocation over the destination model's components
-    for (int li = 0; li < L; ++li) {
-      const int ml = kn * L + li;
-      float quad = 0.0f;
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        if (r >= dkn) break;
-        float w = binv[ml * D * D + r * D] * (thn[0] - mu[ml * D]);
-#pragma unroll
-        for (int c = 1; c <= r; ++c)
-          w = w + binv[ml * D * D + r * D + c] * (thn[c] - mu[ml * D + c]);
-        quad = (r == 0) ? w * w : quad + w * w;
-      }
-      logits[li] = abase[ml] - 0.5f * quad;
-    }
-    float mxn = logits[0];
-    for (int li = 1; li < L; ++li) mxn = fmaxf(mxn, logits[li]);
-    float sen = expf(logits[0] - mxn);
-    for (int li = 1; li < L; ++li) sen = sen + expf(logits[li] - mxn);
-    const float log_pallocn = logits[ln] - (mxn + logf(sen));
+    const float log_pallocn = am_alloc<K, D>(kn, thn, dkn, L, abase, mu,
+                                             binv, wd, 0, false, ln, lg);
 
     // MH accept
     float lpn;
@@ -529,8 +595,8 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
       lpn = (kn == 0) ? am_ddi_logpost<0>(thn, tab0)
                       : am_ddi_logpost<1>(thn, tab1);
     else
-      lpn = am_logpost<K, D>(kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn,
-                             thn);
+      lpn = am_logpost<K, D, true, small_shape<K, D>()>(
+          kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
     logratio = logratio + (lpn - lp);
     logratio = logratio + (log_pallocn - log_palloc);
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
@@ -605,17 +671,27 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
 
     // ---- chunk statistics -------------------------------------------------
 #pragma unroll
-    for (int m = 0; m < K; ++m) {
-      if (m != kk) continue;
-      ks[m] += 1;
+    for (int m = 0; m < K - 1; ++m) ks[m] += (m == kk) ? 1 : 0;
+    if constexpr (kSS) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        ts[m * D + d] = ts[m * D + d] + th[d];
-        tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
+        float* s1 = sums_s + (kk * D + d) * kThreads;
+        float* s2 = sums_s + (K * D + kk * D + d) * kThreads;
+        *s1 = *s1 + th[d];
+        *s2 = *s2 + th[d] * th[d];
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        if (m != kk) continue;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          ts[m * D + d] = ts[m * D + d] + th[d];
+          tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
+        }
       }
     }
-    cnt[4] += acci;
-    cnt[5] += 1;
+    acc_rj += acci;
   }
 
   // ---- state and per-chain statistics out -----------------------------------
@@ -628,13 +704,26 @@ __global__ void __launch_bounds__(kThreads) fused_sweep_kernel(
   for (int m = 0; m < K; ++m) pk_out[m * S + i] = pk[m];
   pkl_out[i] = pkl;
   nri_out[i] = nri;
+  int ks_last = n_sweeps;
 #pragma unroll
-  for (int m = 0; m < K; ++m) ks_out[m * S + i] = ks[m];
+  for (int m = 0; m < K - 1; ++m) {
+    ks_out[m * S + i] = ks[m];
+    ks_last -= ks[m];
+  }
+  ks_out[(K - 1) * S + i] = ks_last;
 #pragma unroll
   for (int j = 0; j < K * D; ++j) {
-    ts_out[j * S + i] = ts[j];
-    tq_out[j * S + i] = tq[j];
+    if constexpr (kSS) {
+      ts_out[j * S + i] = sums_s[j * kThreads];
+      tq_out[j * S + i] = sums_s[(K * D + j) * kThreads];
+    } else {
+      ts_out[j * S + i] = ts[j];
+      tq_out[j * S + i] = tq[j];
+    }
   }
+  // sweeps t in [sweep0, sweep0 + n_sweeps) with t % 10 == 0 (block moves)
+  const int n_blk = (sweep0 + n_sweeps + 9) / 10 - (sweep0 + 9) / 10;
+  const int cnt[6] = {acc_blk, n_blk, acc_cw, try_cw, acc_rj, n_sweeps};
 #pragma unroll
   for (int c = 0; c < 6; ++c) cnt_out[c * S + i] = cnt[c];
 }

@@ -776,18 +776,56 @@ def test_ddi_stateless_forms_refused_at_the_cached_shape(cuda):
             fused.sweep_chunk.pooled_launches) == before
 
 
-def test_tutorial_sweep_kernel_registers(cuda):
-    """DDI's density stays out of the other shapes: the tutorial's K1 at
-    (3, 2) keeps 56-64 registers in every variant (ptxas -v of the build,
-    kept in the log beside the library)."""
+# The sweep kernel at the tutorial's (3, 2): ptxas -v registers (lo, hi) of
+# every form, and the per-chain kernel's resident warps per SM at L = 8.  It
+# is built for 8 blocks of 128 per SM (at most 64 registers), its chunk sums
+# and allocation logits in the threads' columns of shared memory.
+TUTORIAL_REGS = (58, 64)
+TUTORIAL_WARPS = 32
+
+
+def _tutorial_ptxas():
+    """(registers, stack frame, spill stores, spill loads) of every form
+    of the sweep kernel at the tutorial's (3, 2): ptxas -v of the build,
+    kept in the log beside the library."""
     import re
     log = _build.build().with_suffix(".log").read_text()
-    regs = [int(m.group(1)) for m in re.finditer(
-        r"Compiling entry function '\S*fused_sweep_kernelILi3ELi2ELb[01]"
-        r"EE[^\n]*\n(?:[^\n]*\n)*?ptxas info\s*: Used (\d+) "
-        r"registers", log)]
-    assert len(regs) == 8, regs             # 4 variants x K1 and K1c
-    assert all(56 <= r <= 64 for r in regs), regs
+    found = []
+    for block in log.split("Compiling entry function '")[1:]:
+        if "fused_sweep_kernelILi3ELi2ELb" not in block.split("'", 1)[0]:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        found.append((int(regs.group(1)), *map(int, frame.groups())))
+    assert len(found) == 8, found             # 4 variants x K1 and K1c
+    return found
+
+
+def test_tutorial_sweep_kernel_registers(cuda):
+    """DDI's density stays out of the other shapes: the tutorial's K1 at
+    (3, 2) keeps TUTORIAL_REGS registers in every variant and form."""
+    lo, hi = TUTORIAL_REGS
+    assert all(lo <= r <= hi for r, *_ in _tutorial_ptxas())
+
+
+def test_tutorial_sweep_kernel_stack_frame(cuda):
+    """The main path's sweep kernel keeps its allocation logits out of
+    local memory: at (3, 2) every form has a stack frame of at most 32
+    bytes (libdevice's sinf / cosf range reduction) and spills nothing."""
+    found = _tutorial_ptxas()
+    assert all(f <= 32 and st == ld == 0 for _, f, st, ld in found), found
+
+
+def test_tutorial_sweep_kernel_occupancy(cuda):
+    """The per-chain sweep kernel at (3, 2) at the tutorial's L = 8 in
+    every variant: TUTORIAL_WARPS resident warps per SM, the blocks its
+    launch bounds ask for."""
+    ms = tutorial_set()
+    for perm in (False, True):
+        for tdist in (None, randoms.student_t(5)):
+            assert fused.occupancy(ms, 8, cuda, perm=perm, tdist=tdist) \
+                == TUTORIAL_WARPS, (perm, tdist)
 
 
 def test_ddi_cache_kernel_registers(cuda):
@@ -1113,9 +1151,11 @@ def test_chunk_sums_across_model_changes_match_twin(cuda, name):
 # registers (lo, hi) and the most bytes of spill stores of K1 and K1c in
 # every variant, and the per-chain kernel's resident warps per SM at the L
 # of the fits (cpt 4, rb9 6), as the H100 build gives them.  At (6, 13)
-# the interleaved D5 search spills 120 bytes at the 255-register ceiling.
+# the interleaved D5 search spills 120-128 bytes at the 255-register
+# ceiling; at (10, 5) the pooled form holds 199-248 since the sweep kernel
+# no longer carries the counters that follow from the launch.
 _LARGE_SHAPES = {(6, 13): (changepoint.cpt_set, (248, 255), 160, 4, 8),
-                 (10, 5): (rb9.rb9_set, (200, 250), 0, 6, 8)}
+                 (10, 5): (rb9.rb9_set, (190, 250), 0, 6, 8)}
 
 
 @pytest.mark.parametrize("shape", list(_LARGE_SHAPES), ids=str)

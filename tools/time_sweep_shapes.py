@@ -6,6 +6,11 @@ versions of the kernel sources.  Each part is chosen with ``--parts``
 * ``sweep``: every form of the stage-3 sweep kernel at the change-point
   (6, 13) and rb9 (10, 5) shapes, beside the main path's (3, 2), DDI's
   cached form K1e at (2, 16) and the change-point stage-1 kernels;
+* ``tutorial``: the main path's sweep kernel at (3, 2) alone, on the
+  tutorial's state: its ptxas records, warps per SM and SASS instructions
+  by class, K1 and K1f held bitwise to their twins on the card, ms per
+  100-sweep launch of K1f and K1, and the main path's chain-sweeps/s
+  (``AMSampler`` on the state, as ``chip_smoke.py`` times it);
 * ``k1c``: K1c with DDI's cache on every chain of DDI's state and on the
   state repeated to 33792 chains (two blocks of 128 on each of an H100's
   132 SMs), against K1e (the same sweeps with per-chain pk) on the same
@@ -18,8 +23,9 @@ versions of the kernel sources.  Each part is chosen with ``--parts``
   the population fits and on the one-sweep runner (K3), host seconds with
   a synchronize, after a short warm-up run of the same shape.
 
-The ``sweep`` part makes the states of ``chip_smoke.py``'s checks with
-its own functions and configurations: cpt's and cptrs' ``AMSampler`` runs
+The ``sweep`` part (the ``tutorial`` part the tutorial's alone) makes the
+states of ``chip_smoke.py``'s checks with its own functions and
+configurations: cpt's and cptrs' ``AMSampler`` runs
 (JAX's change-point configuration, 16384 chains on K1c, 1500 burn-in and
 10000 sweeps, cptrs fitted at lmax 10), rb9's fit with 131072 chains
 after 200 burn-in sweeps (as ``tools/time_rb9_sweeps.py``), the tutorial
@@ -41,7 +47,8 @@ events):
   chains, burn-in 10000 and 10000 sweeps), in seconds;
 
 and reads each shape's registers (``ptxas -v``), the sweep kernel's SASS
-instructions per form (``cuobjdump -sass``), the per-chain kernel's
+instructions per form (``cuobjdump -sass``; at (3, 2) also by class:
+``SASS_CLASSES``), the per-chain kernel's
 resident warps per SM, K1c's capacity, and how often a chain's model
 changes per sweep on cpt, cptrs and rb9 (100 one-sweep launches on the
 hash).
@@ -52,6 +59,11 @@ keeps the states and proposals there, made by the first run, so that
 every copy times the same chains:
 
     python3 tools/time_sweep_shapes.py --state DIR [--parts k1c,k2]
+        [--sets cpt,cptrs]
+
+``--sets`` limits the ``sweep`` part to some of the model sets (a comma
+list of SETS, every set by default), so that a build cut to their shapes
+times them.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -74,7 +86,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 
 SIZES = (16_384, 131_072)
-PARTS = ("sweep", "k1c", "k2", "stage1")
+PARTS = ("sweep", "tutorial", "k1c", "k2", "stage1")
+# the model sets whose states the sweep part makes and times
+SETS = ("cpt", "cptrs", "rb9", "tutorial", "ddi")
 # (name, set, chains per model, rule) of the K2 segment timings
 SEGMENTS = (("tutorial", "tutorial", 1024, "aap"),
             ("toy2", "toy2", 2048, "aap"), ("rb9", "rb9", 512, "aap"),
@@ -166,11 +180,27 @@ def model_changes(ms, prop, ch, n=100):
     return changed / (n * ch.n_chains)
 
 
-def sass_sizes(lib_path):
+# SASS opcodes by class, for the instruction mix of the sweep kernel at the
+# tutorial's (3, 2): local memory, shared loads, the special-function unit,
+# conversions, float and integer arithmetic; anything else is "other".
+SASS_CLASSES = {
+    "LDL": ("LDL",), "STL": ("STL",), "LDS": ("LDS",), "MUFU": ("MUFU",),
+    "conversions": ("I2F", "F2I", "I2FP", "F2IP", "F2F", "I2I"),
+    "float ALU": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+                  "FCHK", "FRND"),
+    "integer ALU": ("IADD3", "IADD", "IMAD", "IMUL", "LOP3", "LOP", "SHF",
+                    "SHL", "SHR", "LEA", "ISETP", "IMNMX", "SEL", "PRMT",
+                    "POPC", "FLO", "BREV", "IABS", "VIADD", "VIMNMX",
+                    "BMSK", "SGXT")}
+
+
+def sass_sizes(lib_path, classes_at=(3, 2)):
     """Instructions of each compiled form of the sweep kernel in the
     library's SASS (one ``cuobjdump -sass``), by "(K, D)": a list of
     (kernel and its bool template argument, instructions) in the
-    library's order; empty where the toolkit has no cuobjdump."""
+    library's order, and under "classes (K, D)" the forms at
+    ``classes_at`` with their instructions counted by SASS_CLASSES; empty
+    where the toolkit has no cuobjdump."""
     import re
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -178,14 +208,25 @@ def sass_sizes(lib_path):
         return {}
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True).stdout
+    of = {op: name for name, ops in SASS_CLASSES.items() for op in ops}
+    at = "({}, {})".format(*classes_at)
     out = {}
     for block in text.split("Function : ")[1:]:
         m = re.search(r"fused_sweep_kernelILi(\d+)ELi(\d+)ELb([01])E",
                       block.split("\n", 1)[0])
-        if m:
-            out.setdefault(f"({m.group(1)}, {m.group(2)})", []).append(
-                (f"fused_sweep_kernel<{m.group(3)}>", len(re.findall(
-                    r"^\s+/\*[0-9a-f]{4,}\*/", block, re.M))))
+        if not m:
+            continue
+        shape, form = f"({m.group(1)}, {m.group(2)})", \
+            f"fused_sweep_kernel<{m.group(3)}>"
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", block, re.M)
+        out.setdefault(shape, []).append((form, len(ops)))
+        if shape == at:
+            counts = dict.fromkeys(SASS_CLASSES, 0)
+            counts["other"] = 0
+            for op in ops:
+                counts[of.get(op, "other")] += 1
+            out.setdefault(f"classes {at}", []).append((form, counts))
     return out
 
 
@@ -206,6 +247,47 @@ def cli_seconds(name, mix_stem):
     if rc != 0:
         sys.exit(f"time_sweep_shapes: the {name} CLI returned {rc}")
     return secs
+
+
+def tutorial_part(lib, ch, prop, dev):
+    """The main path's sweep kernel at (3, 2) on the tutorial's state: its
+    ptxas records, resident warps per SM and SASS by class, K1 and K1f
+    against their twins run on the card (every output bitwise, 16384
+    chains x 20 sweeps), ms per 100-sweep launch of K1f and K1 at the
+    state's 131072 chains, and the main path's rate: ``AMSampler`` on the
+    state, fused_rng "auto" (K1f), WARMUP then TIMED sweeps as
+    ``chip_smoke.py``, chain-sweeps per second."""
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.models.tutorial import tutorial_set
+    ms = tutorial_set()
+    out = {"ptxas": [f"{n} {r}, frame {f}, spills {st}/{ld}"
+                     for n, r, f, st, ld in cs.ptxas_summary(lib, 3, 2)],
+           "L": prop.lmax,
+           "warps_per_sm": fused.occupancy(ms, prop.lmax, dev)}
+    tabs = fused.prep_tables(prop, ms.dims)
+    small = grown(ch, cs.K1_CHAINS)
+    for rng in ("hash", "hw"):
+        cs.exact_check(ms, tabs, cs.chunk_args(small), f"tutorial {rng}",
+                       seed=5, sweep0=small.sweep, n_sweeps=20, adapt=True,
+                       rng=rng)
+    out["bitwise"] = True
+    out["ms"] = sweep_forms(ms, prop, ch, dev, perm=False, pooled=False)
+    am = AMSampler(ms, EngineConfig(
+        n_chains=ch.n_chains, sweep_chunk=cs.SWEEP_CHUNK, seed=0,
+        trace_chain0=False, n_trace_chains=1), device="cuda")
+    am.set_proposal(prop)
+    am.chains = ch
+    am.rjmcmc_samples(cs.WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    am.rjmcmc_samples(cs.TIMED)
+    torch.cuda.synchronize()
+    out["main_path_chain_sweeps_per_s"] = \
+        ch.n_chains * cs.TIMED / (time.perf_counter() - t0)
+    out["sass"] = sass_sizes(lib).get("classes (3, 2)", [])
+    return out
 
 
 def k1c_part(ms, ch, prop, dev):
@@ -285,10 +367,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", required=True)
     ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--sets", default=",".join(SETS))
     opts = ap.parse_args()
-    parts = opts.parts.split(",")
+    parts, sets = opts.parts.split(","), opts.sets.split(",")
     if not set(parts) <= set(PARTS):
         sys.exit(f"time_sweep_shapes: --parts takes some of {PARTS}")
+    if not set(sets) <= set(SETS):
+        sys.exit(f"time_sweep_shapes: --sets takes some of {SETS}")
     os.makedirs(opts.state, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -337,6 +422,9 @@ def main():
         return am
 
     out = {}
+    if "tutorial" in parts:
+        out["tutorial"] = tutorial_part(
+            lib, *saved(path("tutorial.pt"), tutorial_run), dev)
     if "k1c" in parts:
         out["k1c_ms"] = k1c_part(ddi.ddi_set(),
                                  *saved(path("ddi.pt"), ddi_run), dev)
@@ -349,14 +437,11 @@ def main():
         return
 
     t0 = time.perf_counter()
-    states = {name: (getattr(changepoint, f"{name}_set")(),
-                     *saved(path(f"{name}.pt"), lambda: cpt_run(name)))
-              for name in ("cpt", "cptrs")}
-    states.update({
-        "rb9": (rb9_set(), *saved(path("rb9.pt"), rb9_run)),
-        "tutorial": (tutorial_set(),
-                     *saved(path("tutorial.pt"), tutorial_run)),
-        "ddi": (ddi.ddi_set(), *saved(path("ddi.pt"), ddi_run))})
+    makers = {"cpt": lambda: cpt_run("cpt"), "cptrs": lambda: cpt_run("cptrs"),
+              "rb9": rb9_run, "tutorial": tutorial_run, "ddi": ddi_run}
+    states = {name: (model_set(name),
+                     *saved(path(f"{name}.pt"), makers[name]))
+              for name in SETS if name in sets}
     made = time.perf_counter() - t0
 
     out.update({"registers": {}, "warps_per_sm": {}, "k1c_capacity": {},
@@ -371,40 +456,44 @@ def main():
         if name in ("cpt", "cptrs", "rb9"):
             out["k1c_capacity"][name] = fused.pooled_capacity(
                 ms, prop.lmax, dev)
-    for name in ("cpt", "cptrs", "rb9"):
+    large = [name for name in ("cpt", "cptrs", "rb9") if name in states]
+    for name in large:
         ms, ch, prop = states[name]
         for S in SIZES:
             for form, ms_ in sweep_forms(ms, prop, grown(ch, S),
                                          dev).items():
                 out["ms"][f"{name} {S} {form}"] = ms_
-    ms, ch, prop = states["tutorial"]
-    for form, ms_ in sweep_forms(ms, prop, ch, dev, perm=False,
-                                 pooled=False).items():
-        out["ms"][f"tutorial {ch.n_chains} {form}"] = ms_
-    ms, ch, prop = states["ddi"]
-    for form, ms_ in sweep_forms(ms, prop, ch, dev, pooled=False).items():
-        out["ms"][f"ddi {ch.n_chains} K1e {form}"] = ms_
+    if "tutorial" in states:
+        ms, ch, prop = states["tutorial"]
+        for form, ms_ in sweep_forms(ms, prop, ch, dev, perm=False,
+                                     pooled=False).items():
+            out["ms"][f"tutorial {ch.n_chains} {form}"] = ms_
+    if "ddi" in states:
+        ms, ch, prop = states["ddi"]
+        for form, ms_ in sweep_forms(ms, prop, ch, dev,
+                                     pooled=False).items():
+            out["ms"][f"ddi {ch.n_chains} K1e {form}"] = ms_
 
-    cpt = states["cpt"][0]
-    theta, sig, zi = cs.stage1_start(cpt, cs.CPT_C_K2, dev)
-    out["ms"]["cpt K2-log 6 x 512 x 100 sweeps"] = cs.cuda_ms(
-        lambda: fused_stage1.segment(cpt, theta, sig, zi, zi, C=cs.CPT_C_K2,
-                                     sweep0=0, seed=777, nburn=50,
-                                     n_active=100, rule="log", log_gain=3.0),
-        10)
-    init = cpt.init_points(torch.Generator())
-    n = cs.CPT_ROUTE_SWEEPS + cs.CPT_ROUTE_SWEEPS // 10
-    out["ms"]["cpt K3 + log route 6 x 1024, per sweep"] = cs.cuda_ms(
-        lambda: fused_stage1.run_fused_stage1_sweeps(
-            cpt, EngineConfig(seed=5, stage1_adapt="log"),
-            cs.CPT_ROUTE_SWEEPS, cs.CPT_C_STAGE1, init, dev), 3) / n
+    if "cpt" in states:
+        cpt = states["cpt"][0]
+        theta, sig, zi = cs.stage1_start(cpt, cs.CPT_C_K2, dev)
+        out["ms"]["cpt K2-log 6 x 512 x 100 sweeps"] = cs.cuda_ms(
+            lambda: fused_stage1.segment(
+                cpt, theta, sig, zi, zi, C=cs.CPT_C_K2, sweep0=0, seed=777,
+                nburn=50, n_active=100, rule="log", log_gain=3.0), 10)
+        init = cpt.init_points(torch.Generator())
+        n = cs.CPT_ROUTE_SWEEPS + cs.CPT_ROUTE_SWEEPS // 10
+        out["ms"]["cpt K3 + log route 6 x 1024, per sweep"] = cs.cuda_ms(
+            lambda: fused_stage1.run_fused_stage1_sweeps(
+                cpt, EngineConfig(seed=5, stage1_adapt="log"),
+                cs.CPT_ROUTE_SWEEPS, cs.CPT_C_STAGE1, init, dev), 3) / n
 
     out["model_changes_per_chain_sweep"] = {
         name: model_changes(states[name][0], states[name][2],
                             grown(states[name][1], SIZES[0]))
-        for name in ("cpt", "cptrs", "rb9")}
+        for name in large}
     out["cli_s"] = {name: cli_seconds(name, path(name))
-                    for name in ("cpt", "cptrs")}
+                    for name in ("cpt", "cptrs") if name in states}
     out["sass_instructions"] = sass_sizes(lib)
     out["states_made_s"] = made
     print(json.dumps(out), flush=True)
