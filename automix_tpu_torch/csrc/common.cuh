@@ -361,19 +361,18 @@ __device__ __forceinline__ float am_density_toy2(const float* c, int d,
   return am_logaddexp(c1, c2) + c[4];
 }
 
-// rb9 model of dimension d (models/rb9.py family_cols), evaluated for the
-// chain's own model only: the one-hot mask sums of the family form equal
-// this select bit for bit, and every term of another model is an exact
-// zero there.  c = (ql, qk, the 4 groups' rate indices, their dispersion
-// indices, their NB flags, the prior constant).  Every thread of a warp
-// walks the same group and distinct-count loops, so the am_rb9.h tables
-// read as broadcasts.  Out of support: -1e6, as in the family form.
+// The rb9 density's support substitution and prior (models/rb9.py
+// family_cols): ths and lth hold theta's first d coordinates and their
+// logs (1 and 0 past d and where a coordinate is not positive), lp the
+// prior; false out of support.  c = (ql, qk, the 4 groups' rate indices,
+// their dispersion indices, their NB flags, the prior constant).
 template <int D>
-__device__ __forceinline__ float am_density_rb9(const float* c, int d,
-                                                const float* th) {
+__device__ __forceinline__ bool am_rb9_support_prior(const float* c, int d,
+                                                     const float* th,
+                                                     float* ths, float* lth,
+                                                     float& lp) {
   const int ql = (int)c[0];
   bool ok = true;
-  float ths[D], lth[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     const bool in = i < d;
@@ -382,7 +381,7 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
     ths[i] = (pos && in) ? th[i] : 1.0f;
     lth[i] = in ? logf(ths[i]) : 0.0f;
   }
-  float lp = c[14];
+  lp = c[14];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     if (i >= d) break;
@@ -391,32 +390,233 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
     lp = lp + (a - 1.0f) * lth[i];
     lp = lp - b * ths[i];
   }
+  return ok;
+}
+
+// km1 = 1 / max(kappa, 1e-30) and the bracket km1 log km1 -
+// pal_gammaln(km1) of an over-dispersion kappa.
+__device__ __forceinline__ void am_rb9_kappa(float kap, float& km1,
+                                             float& br) {
+  km1 = 1.0f / fmaxf(kap, 1e-30f);
+  br = km1 * logf(km1) - am_pal_gammaln(km1);
+}
+
+// lp plus group g's term at (ths, lth): Poisson in its rate, or where the
+// model makes the group Negative-Binomial, the term of its rate and its
+// over-dispersion kappa.  ``kappa(kap, km1, br)`` gives its km1 and
+// bracket (am_rb9_kappa); ``counts(nb, km1)`` adds the group's
+// pal_gammaln(v + km1) weighted by multiplicity, in its ascending order of
+// distinct counts v.
+template <int D, typename Kappa, typename Counts>
+__device__ __forceinline__ float am_rb9_group(float lp, const float* c, int g,
+                                              const float* ths,
+                                              const float* lth, Kappa kappa,
+                                              Counts counts) {
+  const int li = (int)c[2 + g], ki = (int)c[6 + g];
+  float lam = 1.0f, llam = 0.0f, kap = 1.0f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i == li) {
+      lam = ths[i];
+      llam = lth[i];
+    }
+    if (i == ki) kap = ths[i];
+  }
+  const float n = am_rb9_n[g], sx = am_rb9_sx[g];
+  const float base = sx * llam - am_rb9_clg[g];
+  if (c[10 + g] != 0.0f) {
+    float km1, br;
+    kappa(kap, km1, br);
+    float nb = base + n * br;
+    nb = nb - (sx + n * km1) * logf(lam + km1);
+    return lp + counts(nb, km1);
+  }
+  return lp + (base - n * lam);
+}
+
+// rb9 model of dimension d (models/rb9.py family_cols), evaluated for the
+// chain's own model only: the one-hot mask sums of the family form equal
+// this select bit for bit, and every term of another model is an exact
+// zero there.  Every thread of a warp walks the same group and
+// distinct-count loops, so the am_rb9.h tables read as broadcasts.  Out of
+// support: -1e6, as in the family form.
+template <int D>
+__device__ __forceinline__ float am_density_rb9(const float* c, int d,
+                                                const float* th) {
+  float ths[D], lth[D], lp;
+  const bool ok = am_rb9_support_prior<D>(c, d, th, ths, lth, lp);
 #pragma unroll
   for (int g = 0; g < AM_RB9_G; ++g) {
-    const int li = (int)c[2 + g], ki = (int)c[6 + g];
-    float lam = 1.0f, llam = 0.0f, kap = 1.0f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      if (i == li) {
-        lam = ths[i];
-        llam = lth[i];
-      }
-      if (i == ki) kap = ths[i];
-    }
-    const float n = am_rb9_n[g], sx = am_rb9_sx[g];
-    const float base = sx * llam - am_rb9_clg[g];
-    if (c[10 + g] != 0.0f) {
-      const float km1 = 1.0f / fmaxf(kap, 1e-30f);
-      float nb = base + n * (km1 * logf(km1) - am_pal_gammaln(km1));
-      nb = nb - (sx + n * km1) * logf(lam + km1);
-      for (int j = am_rb9_off[g]; j < am_rb9_off[g + 1]; ++j)
-        nb = nb + am_rb9_cnt[j] * am_pal_gammaln(am_rb9_val[j] + km1);
-      lp = lp + nb;
-    } else {
-      lp = lp + (base - n * lam);
-    }
+    lp = am_rb9_group<D>(
+        lp, c, g, ths, lth,
+        [](float kap, float& km1, float& br) { am_rb9_kappa(kap, km1, br); },
+        [g](float nb, float km1) {
+          for (int j = am_rb9_off[g]; j < am_rb9_off[g + 1]; ++j)
+            nb = nb + am_rb9_cnt[j] * am_pal_gammaln(am_rb9_val[j] + km1);
+          return nb;
+        });
   }
   return ok ? lp : -1e6f;
+}
+
+// The rb9 density in the stage-3 sweep kernel at rb9's shape, with the
+// chain's table of what depends on an over-dispersion kappa alone: for
+// km1 = 1 / max(kappa, 1e-30), km1, km1 log km1 - pal_gammaln(km1) and
+// pal_gammaln(v + km1) for the AM_RB9_NV distinct counts v of all groups
+// (am_rb9_tv, models/rb9.py table_layout), keyed by kappa's bits.  A
+// coordinate move of a rate leaves kappa as it was, so most evaluations
+// read the table instead of running every Negative-Binomial group's
+// pal_gammaln loop; a miss fills all of it once for every group, whatever
+// groups the lane's model reads, so a warp of mixed models runs one fill.
+//
+// The table lives in the thread's column of shared memory ([slot][thread]
+// with stride S: a warp's 32 accesses to one slot hit 32 banks), as two
+// full tables A0, A1 for the kappa that group 0 reads (every group but
+// AM_RB9_G2 reads it in every model) and two tables B0, B1 of the first
+// AM_RB9_NV2 values (group AM_RB9_G2's counts come first) for the second
+// kappa that group AM_RB9_G2 reads in one model (model 6).  A table is
+// [key, km1, the bracket, values].  A lookup compares the key's bits with
+// both tables'; on a miss it fills the table that does not hold the current
+// state's kappa, so the current one survives a rejected candidate.  The key
+// is compared at every evaluation: the accept blend th + acc (prop - th)
+// need not equal prop bit for bit.  Every value is what am_density_rb9
+// computes for the same kappa, and each group adds its terms in the same
+// order, so the density is am_density_rb9's bit for bit.  Keys start as NaN
+// bits, which match nothing.
+#define AM_RB9_TAB_A (3 + AM_RB9_NV)
+#define AM_RB9_TAB_B (3 + AM_RB9_NV2)
+#define AM_RB9_TAB (2 * AM_RB9_TAB_A + 2 * AM_RB9_TAB_B)
+// A fill computes AM_RB9_FILL_STEP values at once (models/rb9.py
+// FILL_STEP, independent pal_gammaln chains), which divides both tables.
+static_assert(AM_RB9_NV % AM_RB9_FILL_STEP == 0 &&
+              AM_RB9_NV2 % AM_RB9_FILL_STEP == 0, "fill step");
+
+// Empty tables: every key NaN.
+template <int S>
+__device__ __forceinline__ void am_rb9_tab_clear(float* col) {
+  const float nan = __uint_as_float(0x7fffffffu);
+  col[0] = nan;
+  col[AM_RB9_TAB_A * S] = nan;
+  col[2 * AM_RB9_TAB_A * S] = nan;
+  col[(2 * AM_RB9_TAB_A + AM_RB9_TAB_B) * S] = nan;
+}
+
+// The bits of the two kappas of rb9 model consts ``c`` at theta ``th``,
+// after the density's positivity substitution.
+template <int D>
+__device__ __forceinline__ void am_rb9_keys(const float* c, const float* th,
+                                            uint32_t& ka, uint32_t& kb) {
+  const int ia = (int)c[6], ib = (int)c[6 + AM_RB9_G2];
+  float a = 1.0f, b = 1.0f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const float v = th[i] > 0.0f ? th[i] : 1.0f;
+    if (i == ia) a = v;
+    if (i == ib) b = v;
+  }
+  ka = __float_as_uint(a);
+  kb = __float_as_uint(b);
+}
+
+// The table of t0 and t1 that holds ``key``; on a miss (``miss``) the one
+// to fill, which is not the one holding ``cur``.
+__device__ __forceinline__ float* am_rb9_pick(float* t0, float* t1,
+                                              uint32_t key, uint32_t cur,
+                                              bool& miss) {
+  const uint32_t k0 = __float_as_uint(t0[0]), k1 = __float_as_uint(t1[0]);
+  miss = k0 != key && k1 != key;
+  if (k0 == key) return t0;
+  if (k1 == key) return t1;
+  return k0 == cur ? t1 : t0;
+}
+
+// Fill table ``t`` for kappa ``kap``: its key, km1, the bracket and the
+// first ``n`` values, AM_RB9_FILL_STEP at a time.
+template <int S>
+__device__ __forceinline__ void am_rb9_fill(float* t, float kap, int n) {
+  float km1, br;
+  am_rb9_kappa(kap, km1, br);
+  t[0] = kap;
+  t[S] = km1;
+  t[2 * S] = br;
+#pragma unroll 1
+  for (int j0 = 0; j0 < n; j0 += AM_RB9_FILL_STEP) {
+    float g[AM_RB9_FILL_STEP];
+#pragma unroll
+    for (int p = 0; p < AM_RB9_FILL_STEP; ++p)
+      g[p] = am_pal_gammaln(am_rb9_tv[j0 + p] + km1);
+#pragma unroll
+    for (int p = 0; p < AM_RB9_FILL_STEP; ++p) t[(3 + j0 + p) * S] = g[p];
+  }
+}
+
+// nb plus group g's multiplicity-weighted values of table values ``v``, in
+// the group's ascending order of counts (AM_RB9_READS).
+template <int g, int S>
+__device__ __forceinline__ float am_rb9_counts(float nb, const float* v) {
+#define AM_RB9_READ(gg, slot, cnt) \
+  if constexpr ((gg) == g) nb = nb + (cnt) * v[(slot) * S];
+  AM_RB9_READS(AM_RB9_READ)
+#undef AM_RB9_READ
+  return nb;
+}
+
+// am_rb9_group with its kappa's km1, bracket and values read from table
+// ``t``.
+template <int g, int D, int S>
+__device__ __forceinline__ float am_rb9_group_tab(float lp, const float* c,
+                                                  const float* ths,
+                                                  const float* lth,
+                                                  const float* t) {
+  return am_rb9_group<D>(
+      lp, c, g, ths, lth,
+      [t](float, float& km1, float& br) {
+        km1 = t[S];
+        br = t[2 * S];
+      },
+      [t](float nb, float) { return am_rb9_counts<g, S>(nb, t + 3 * S); });
+}
+
+// am_density_rb9 of the model with consts ``c`` and dimension d at ``th``
+// through the chain's table (its column ``col``, stride S); ``cur_a`` and
+// ``cur_b`` are the current state's kappa keys (am_rb9_keys).
+template <int D, int S>
+__device__ __forceinline__ float am_density_rb9_tab(const float* c, int d,
+                                                    const float* th,
+                                                    float* col,
+                                                    uint32_t cur_a,
+                                                    uint32_t cur_b) {
+  static_assert(AM_RB9_G == 4, "am_density_rb9_tab adds four groups");
+  float ths[D], lth[D], lp;
+  if (!am_rb9_support_prior<D>(c, d, th, ths, lth, lp)) return -1e6f;
+  uint32_t ka, kb;
+  am_rb9_keys<D>(c, ths, ka, kb);
+  const bool two = (int)c[6 + AM_RB9_G2] != (int)c[6];
+  bool ma, mb;
+  float* ta = am_rb9_pick(col, col + AM_RB9_TAB_A * S, ka, cur_a, ma);
+  float* tb = ta;
+  if (two) {
+    tb = am_rb9_pick(col + 2 * AM_RB9_TAB_A * S,
+                     col + (2 * AM_RB9_TAB_A + AM_RB9_TAB_B) * S, kb, cur_b,
+                     mb);
+  } else {
+    mb = false;
+  }
+  // one fill for a lane with one miss, two for a lane with both: a warp
+  // whose lanes miss different tables fills them together
+#pragma unroll 1
+  while (ma || mb) {
+    const bool a = ma;
+    am_rb9_fill<S>(a ? ta : tb, __uint_as_float(a ? ka : kb),
+                   a ? AM_RB9_NV : AM_RB9_NV2);
+    if (a) ma = false;
+    else mb = false;
+  }
+  lp = am_rb9_group_tab<0, D, S>(lp, c, ths, lth, AM_RB9_G2 == 0 ? tb : ta);
+  lp = am_rb9_group_tab<1, D, S>(lp, c, ths, lth, AM_RB9_G2 == 1 ? tb : ta);
+  lp = am_rb9_group_tab<2, D, S>(lp, c, ths, lth, AM_RB9_G2 == 2 ? tb : ta);
+  lp = am_rb9_group_tab<3, D, S>(lp, c, ths, lth, AM_RB9_G2 == 3 ? tb : ta);
+  return lp;
 }
 
 // The DDI family's statistics and log-posterior (models/ddi_cols.py), fed
@@ -443,8 +643,11 @@ __device__ __forceinline__ float am_density_rb9(const float* c, int d,
 // take am_density_builtin: in the sweep kernel at the change-point shape
 // its warp vote made cptrs' per-chain forms twice as slow (PERF.md section
 // 6), and the stage-1 kernels at the tutorial's shape took 80 registers
-// with it instead of 64.
-template <int K, int D, bool kDdi = true, bool kBuiltin = false>
+// with it instead of 64.  Without kRb9 (the stage-3 sweep kernel at rb9's
+// shape, which evaluates rb9 through its kappa tables, am_density_rb9_tab)
+// the rb9 case is left out.
+template <int K, int D, bool kDdi = true, bool kBuiltin = false,
+          bool kRb9 = true>
 __device__ __forceinline__ float am_logpost(int kind, const float* c,
                                             int dim, const float* th) {
   if constexpr (kDdi && K == AM_DDI_K && D == AM_DDI_D) {
@@ -476,7 +679,7 @@ __device__ __forceinline__ float am_logpost(int kind, const float* c,
       case AM_KIND_MIXTURE: lp = am_density_mixture<D>(c, dim, th); break;
       case AM_KIND_TOY2: lp = am_density_toy2<D>(c, dim, th); break;
       case AM_KIND_RB9:
-        if constexpr (K == AM_RB9_K && D == AM_RB9_D)
+        if constexpr (kRb9 && K == AM_RB9_K && D == AM_RB9_D)
           lp = am_density_rb9<D>(c, dim, th);
         else
           lp = AM_NEG_INF;

@@ -28,7 +28,7 @@
 // (kernels/fused.py check_tables).  The chunk sums (K visit counts, 2*K*D
 // theta sums) stay in registers too, and a sweep adds to its own model's
 // entries only (the twin's 0 * theta additions are exact).  At rb9's K*D = 50
-// that takes K1 to 232-250 registers with no spills, 2 blocks per SM; keeping
+// that takes K1 to 201-210 registers with no spills, 2 blocks per SM; keeping
 // the sums in shared memory instead (56 KB a block, 3 blocks per SM) made a
 // 100-sweep launch on rb9 5 times slower.  Keeping only the current model's
 // sums in registers and the others in a per-thread local slot, swapped when
@@ -36,6 +36,23 @@
 // 72-80, with 2-3 times the resident warps, and was slower at both shapes
 // (PERF.md section 6): 1.8-3.2 times at 131072 chains, and twice as slow on
 // cptrs, whose chains change model on 22% of chain-sweeps (rb9's 64%).
+//
+// At rb9's shape the work, not the registers, was what to cut: every
+// evaluation ran each Negative-Binomial group's pal_gammaln loop, though a
+// rate's coordinate move leaves the over-dispersions as they were.  There
+// the rb9 density reads the chain's kappa tables (common.cuh
+// am_density_rb9_tab): per kappa its key, km1, the bracket and the 28
+// distinct counts' pal_gammaln values, in the thread's column of shared
+// memory after the proposal tables (47 KB a block), filled on a miss by
+// the lane, two values at a time, and read by every group.  On rb9's
+// state a warp fills at 3.8 of its 5.6 evaluations a sweep, and 100 sweeps
+// of 131072 chains take 16.2 ms instead of 26.0 (PERF.md section 6).  Not
+// shipped, each slower at 131072 chains: the warp filling its lanes'
+// tables together (lanes that hit compute values of lanes that missed;
+// 17.0 ms), the coordinate loop rolled (one copy of the density: 20.9 ms,
+// though 3.6 against 4.1 at 16384 chains), one or four values at a time
+// (16.6-19.5), and 3 blocks per SM (168 registers, 152 bytes of spills;
+// 28.5).
 //
 // At the small shapes (K * D <= 6, the main path's (3, 2)) the kernel is
 // latency-bound, and what pays is the tutorial's three densities without
@@ -180,10 +197,17 @@ __host__ __device__ constexpr bool cached_shape() {
   return K == AM_DDI_K && D == AM_DDI_D;
 }
 
+// rb9's shape: the rb9 density reads the chain's kappa tables (common.cuh
+// am_density_rb9_tab) in the thread's column of shared memory.
+template <int K, int D>
+__host__ __device__ constexpr bool rb9_shape() {
+  return K == AM_RB9_K && D == AM_RB9_D;
+}
+
 // Dynamic shared memory of one block: the tables (and at the small shapes
-// the threads' chunk sums and logits), or in the cached form the cache (the
-// tables are then read from device memory), after the copy of DDI's
-// coefficient tables.
+// the threads' chunk sums and logits, at rb9's shape the threads' kappa
+// tables), or in the cached form the cache (the tables are then read from
+// device memory), after the copy of DDI's coefficient tables.
 template <int K, int D, bool kPooled>
 size_t sweep_smem(int L) {
   if constexpr (cached_shape<K, D>())
@@ -192,7 +216,8 @@ size_t sweep_smem(int L) {
   const int KL = K * L;
   return sizeof(float) * ((size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D)
                           + (small_shape<K, D>() ? (2 * K * D + L) * kThreads
-                                                 : 0));
+                                                 : 0)
+                          + (rb9_shape<K, D>() ? AM_RB9_TAB * kThreads : 0));
 }
 
 // Allocation logit of component li of model m at x (dm active rows):
@@ -391,6 +416,28 @@ fused_sweep_kernel(
   float lg_local[kSS ? 1 : kLMax];
   float* lg = kSS ? sums_s + 2 * K * D * kThreads : lg_local;
 
+  // Log-posterior of model m (dimension dm) at x, a candidate of the
+  // current state (kk, th).  At rb9's shape the rb9 density goes through
+  // the chain's kappa tables, empty at the launch's start, which follow the
+  // current state's kappas; sanitized as am_logpost.
+  constexpr bool kRb9 = rb9_shape<K, D>();
+  [[maybe_unused]] float* rb9_col = smem + n_tab + threadIdx.x;
+  if constexpr (kRb9) am_rb9_tab_clear<kThreads>(rb9_col);
+  auto logpost = [&](int m, int dm, const float (&x)[D]) {
+    if constexpr (kRb9) {
+      if (kinds_s[m] == AM_KIND_RB9) {
+        uint32_t ca = 0xffffffffu, cb = 0xffffffffu;
+        if (kinds_s[kk] == AM_KIND_RB9)
+          am_rb9_keys<D>(consts_s + kk * AM_N_CONSTS, th, ca, cb);
+        const float v = am_density_rb9_tab<D, kThreads>(
+            consts_s + m * AM_N_CONSTS, dm, x, rb9_col, ca, cb);
+        return fminf(fmaxf(v, AM_NEG_INF), -AM_NEG_INF);
+      }
+    }
+    return am_logpost<K, D, true, small_shape<K, D>(), !kRb9>(
+        kinds_s[m], consts_s + m * AM_N_CONSTS, dm, x);
+  };
+
   for (int tr = 0; tr < n_sweeps; ++tr) {
     const int t = sweep0 + tr;
     const AmWords wd = am_stream_sweep(rng, seed, t, st);
@@ -407,8 +454,7 @@ fused_sweep_kernel(
         lpn = (kk == 0) ? am_ddi_logpost<0>(prop, tab0)
                         : am_ddi_logpost<1>(prop, tab1);
       else
-        lpn = am_logpost<K, D, true, small_shape<K, D>()>(
-            kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
+        lpn = logpost(kk, dk, prop);
       float acc = (am_u01(wd(0)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
       if constexpr (kCache) {
         if (acc != 0.0f) {
@@ -456,8 +502,7 @@ fused_sweep_kernel(
 #pragma unroll
         for (int d = 0; d < D; ++d) prop[d] = th[d];
         prop[j] = th[j] + sig[kk * D + j] * z_rwm(wd, j);
-        float lpn = am_logpost<K, D, true, small_shape<K, D>()>(
-            kinds_s[kk], consts_s + kk * AM_N_CONSTS, dk, prop);
+        float lpn = logpost(kk, dk, prop);
         float acc = (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
         th[j] = th[j] + acc * (prop[j] - th[j]);
         lp = lp + acc * (lpn - lp);
@@ -595,8 +640,7 @@ fused_sweep_kernel(
       lpn = (kn == 0) ? am_ddi_logpost<0>(thn, tab0)
                       : am_ddi_logpost<1>(thn, tab1);
     else
-      lpn = am_logpost<K, D, true, small_shape<K, D>()>(
-          kinds_s[kn], consts_s + kn * AM_N_CONSTS, dkn, thn);
+      lpn = logpost(kn, dkn, thn);
     logratio = logratio + (lpn - lp);
     logratio = logratio + (log_pallocn - log_palloc);
     logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);

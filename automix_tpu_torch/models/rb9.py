@@ -195,12 +195,56 @@ def model_consts(k):
             *map(float, pindic(k)), prior_const(k))
 
 
+def second_kappa_group() -> int:
+    """The one group whose over-dispersion may differ from group 0's in a
+    model (model 6's group 3, :func:`kappa_map`); in every other group
+    each model reads group 0's."""
+    groups = {g for k in range(K) for g in range(G)
+              if kappa_map(k)[g] != kappa_map(k)[0]}
+    if len(groups) != 1:
+        raise ValueError(f"rb9: second dispersions in groups {groups}")
+    return groups.pop()
+
+
+# Values a fill of the sweep kernel's kappa table computes at once
+# (AM_RB9_FILL_STEP; independent pal_gammaln chains): 2 was faster than 1
+# and level with 4 on the H100.
+FILL_STEP = 2
+
+
+def _n_second() -> int:
+    """Values of a second-dispersion table: the group's distinct counts,
+    padded to a multiple of the fill's step (the padding holds values of
+    the next slots, never read)."""
+    n = len(group_stats()[second_kappa_group()][3])
+    return -(-n // FILL_STEP) * FILL_STEP
+
+
+def table_layout():
+    """The sweep kernel's per-chain table of what depends on kappa alone
+    (``am_density_rb9_tab`` in ``csrc/common.cuh``): (the distinct counts
+    of all groups in the table's order, per group the table slot of each
+    of its distinct counts in ascending order).  The second-dispersion
+    group's counts come first, so that a table of its counts alone keeps
+    their slots."""
+    stats = group_stats()
+    g2 = second_kappa_group()
+    rest = sorted({v for s in stats for v in s[3]} - set(stats[g2][3]))
+    order = list(stats[g2][3]) + rest
+    return order, [[order.index(v) for v in s[3]] for s in stats]
+
+
 def header() -> str:
     """``am_rb9.h``: the family's shape (K, D), which alone compiles the
     density in, and its data as float32 constants for ``am_density_rb9``
     (hyperparameters; per group n, sum x, sum lgamma(x + 1), the offset
     of its distinct counts; the distinct counts and their
-    multiplicities)."""
+    multiplicities), and for the sweep kernel's kappa table
+    (:func:`table_layout`): the group that may read a second dispersion,
+    the fill's step, the values of a full and of a second-dispersion
+    table, the distinct counts in table order, and each group's reads as
+    the compile-time X-macro ``AM_RB9_READS`` of (group, slot,
+    multiplicity) in the group's ascending order of counts."""
     def arr(name, xs):
         body = ", ".join(repr(_f32(x)) for x in xs)
         return f"static __constant__ float {name}[{len(xs)}] = {{{body}}};\n"
@@ -228,6 +272,16 @@ def header() -> str:
              % (G + 1, ", ".join(str(o) for o in offs + [off])))
     text += arr("am_rb9_val", vals)
     text += arr("am_rb9_cnt", cnts)
+    order, slots = table_layout()
+    reads = " ".join(f"X({g}, {j}, {_f32(c)!r}f)"
+                     for g, (s, js) in enumerate(zip(stats, slots))
+                     for j, c in zip(js, s[4]))
+    text += (f"#define AM_RB9_G2 {second_kappa_group()}\n"
+             f"#define AM_RB9_FILL_STEP {FILL_STEP}\n"
+             f"#define AM_RB9_NV {len(order)}\n"
+             f"#define AM_RB9_NV2 {_n_second()}\n")
+    text += arr("am_rb9_tv", order)
+    text += f"#define AM_RB9_READS(X) {reads}\n"
     return text
 
 

@@ -264,68 +264,106 @@ def ddi_lp_ops(part):
     return prior + part.n_cls * per_class
 
 
+def model_ops(m):
+    """Operations of one log-posterior evaluation of model ``m``, counted
+    from the density's code, every term in full."""
+    from automix_tpu_torch.models import changepoint, ddi, rb9
+    kind, c, d = m.cuda.kind, m.cuda.consts, m.dim
+    if kind == 1:          # Normal params
+        ops = OPS["log"] + OPS["div"] + 12
+    elif kind == 2:        # Beta params
+        ops = 3 * OPS["gammaln"] + 12
+    elif kind == 3:        # Gamma params
+        ops = OPS["log"] + OPS["gammaln"] + 10
+    elif kind in (4, 5):   # Normal and truncated-Normal samplers
+        ops = 5
+    elif kind == 6:        # Beta sampler
+        ops = OPS["log"] + OPS["log1p"] + 5
+    elif kind == 7:        # Normal mixture of c[0] components
+        L = int(c[0])
+        ops = L * (d * (d + 1) + 2 * d + 3) \
+            + (L - 1) * (OPS["exp"] + OPS["log1p"] + 4)
+    elif kind == 8:        # toy2
+        ops = 6 * d + 8 + OPS["exp"] + OPS["log1p"] + 4
+    elif kind == rb9.KIND_RB9:
+        ops = d * (OPS["log"] + 6) + 2
+        for g, stats in enumerate(rb9.group_stats()):
+            if c[10 + g]:
+                nv = len(stats[3])
+                ops += (OPS["div"] + 2 * OPS["log"] + OPS["gammaln"]
+                        + nv * (OPS["gammaln"] + 3) + 12)
+            else:
+                ops += 5
+    elif kind == ddi.KIND_DDI:
+        part = ddi.ddi_density().parts[int(c[0])]
+        nnz = ddi.ddi_density().nonzeros()[int(c[0])][0]
+        ops = ddi_stats_ops(part, nnz) + ddi_lp_ops(part)
+    elif kind in (changepoint.KIND_CPT, changepoint.KIND_CPTRS):
+        # csrc/changepoint.cuh: per segment its length, the support
+        # test, two logs, the prior and likelihood terms and its count's
+        # subtraction; the counts need a binary search of each of the
+        # model's ns change points in the sorted events, one compare a
+        # step.  The kernel's scan of every event against every change
+        # point (2 * 191 * ns operations) is its own cost, not the
+        # function's.
+        ns = int(c[0])
+        steps = math.ceil(math.log2(changepoint.N_EVENTS + 1))
+        ops = (ns + 1) * (2 * OPS["log"] + 12) + ns * steps + 4
+    else:
+        raise ValueError(f"no operation count for density kind {kind}")
+    return ops + 2         # the sanitizing clamp
+
+
 def density_ops(ms, probs):
     """Operations of one log-posterior evaluation, averaged over the
-    models with weights ``probs``, counted from the density's code."""
+    models with weights ``probs``, every term in full."""
     import numpy as np
-    from automix_tpu_torch.models import changepoint, ddi, rb9
+    return float(np.dot(probs, [model_ops(m) for m in ms.models]))
+
+
+def evals_ops(ms, probs, n_eval, n_kappa, full=False):
+    """Operations of ``n_eval`` log-posterior evaluations of a chain,
+    averaged over the models with weights ``probs``.  An rb9 model's terms
+    of one over-dispersion kappa alone (km1, the bracket and the
+    pal_gammaln of the distinct counts that its Negative-Binomial groups
+    read, each once) are counted ``n_kappa`` times per kappa coordinate:
+    only a move of that coordinate, a block move or a jump changes them,
+    and the function needs them only then.  ``full`` counts every term of
+    every evaluation (``density_ops``)."""
+    import numpy as np
+    from automix_tpu_torch.models import rb9
     per = []
     for m in ms.models:
-        kind, c, d = m.cuda.kind, m.cuda.consts, m.dim
-        if kind == 1:          # Normal params
-            ops = OPS["log"] + OPS["div"] + 12
-        elif kind == 2:        # Beta params
-            ops = 3 * OPS["gammaln"] + 12
-        elif kind == 3:        # Gamma params
-            ops = OPS["log"] + OPS["gammaln"] + 10
-        elif kind in (4, 5):   # Normal and truncated-Normal samplers
-            ops = 5
-        elif kind == 6:        # Beta sampler
-            ops = OPS["log"] + OPS["log1p"] + 5
-        elif kind == 7:        # Normal mixture of c[0] components
-            L = int(c[0])
-            ops = L * (d * (d + 1) + 2 * d + 3) \
-                + (L - 1) * (OPS["exp"] + OPS["log1p"] + 4)
-        elif kind == 8:        # toy2
-            ops = 6 * d + 8 + OPS["exp"] + OPS["log1p"] + 4
-        elif kind == rb9.KIND_RB9:
-            ops = d * (OPS["log"] + 6) + 2
-            for g, stats in enumerate(rb9.group_stats()):
-                if c[10 + g]:
-                    nv = len(stats[3])
-                    ops += (OPS["div"] + 2 * OPS["log"] + OPS["gammaln"]
-                            + nv * (OPS["gammaln"] + 3) + 12)
-                else:
-                    ops += 5
-        elif kind == ddi.KIND_DDI:
-            part = ddi.ddi_density().parts[int(c[0])]
-            nnz = ddi.ddi_density().nonzeros()[int(c[0])][0]
-            ops = ddi_stats_ops(part, nnz) + ddi_lp_ops(part)
-        elif kind in (changepoint.KIND_CPT, changepoint.KIND_CPTRS):
-            # csrc/changepoint.cuh: per segment its length, the support
-            # test, two logs, the prior and likelihood terms and its count's
-            # subtraction; the counts need a binary search of each of the
-            # model's ns change points in the sorted events, one compare a
-            # step.  The kernel's scan of every event against every change
-            # point (2 * 191 * ns operations) is its own cost, not the
-            # function's.
-            ns = int(c[0])
-            steps = math.ceil(math.log2(changepoint.N_EVENTS + 1))
-            ops = (ns + 1) * (2 * OPS["log"] + 12) + ns * steps + 4
-        else:
-            raise ValueError(f"no operation count for density kind {kind}")
-        per.append(ops + 2)    # the sanitizing clamp
+        c, d = m.cuda.consts, m.dim
+        if full or m.cuda.kind != rb9.KIND_RB9:
+            per.append(n_eval * model_ops(m))
+            continue
+        each = d * (OPS["log"] + 6) + 2 + 2      # with the clamp
+        counts = {}
+        for g, stats in enumerate(rb9.group_stats()):
+            if c[10 + g]:
+                each += OPS["log"] + 2 * len(stats[3]) + 10
+                counts.setdefault(int(c[6 + g]), set()).update(stats[3])
+            else:
+                each += 5
+        kappa = sum(OPS["div"] + OPS["log"] + OPS["gammaln"] + 2
+                    + len(v) * (OPS["gammaln"] + 1) for v in counts.values())
+        per.append(n_eval * each + n_kappa * kappa)
     return float(np.dot(probs, per))
 
 
 def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None,
-              rng="hash"):
+              rng="hash", full=False):
     """Operations of one stage-3 chain-sweep (K1): random words, the
     within-model move, both allocations (L triangular matvecs each), the
     destination draws, the latent fill, the accept, the pk update and the
     chunk sums, at the mean model dimension under ``probs``; ``density``
     replaces the operations of one density evaluation.  ``rng="hw"``
-    counts K1f's words and its state's step in place of the hash's."""
+    counts K1f's words and its state's step in place of the hash's.  An
+    rb9 kappa's own terms count at two evaluations of the chain-sweep
+    (``evals_ops``): a componentwise move of it (0.9), the block move
+    (0.1) and the jump's destination (1); ``full`` counts them at every
+    evaluation."""
     import numpy as np
     K, D = ms.nmodels, ms.dmax
     dk = float(np.dot(probs, ms.dims))
@@ -343,8 +381,8 @@ def sweep_ops(ms, L, probs, perm=False, tdist=False, density=None,
            + dk * (dk + 1) + OPS["exp"] + 20
            + K * (OPS["log"] + 6) + OPS["exp"] + OPS["log"]
            + 3 * D + 2
-           + (moves + 1) * (density_ops(ms, probs) if density is None
-                            else density))
+           + (evals_ops(ms, probs, moves + 1, 2.0, full) if density is None
+              else (moves + 1) * density))
     return ops
 
 
@@ -395,13 +433,15 @@ def cache_sweep_ops(ms, L, probs, cnt, perm=False, rng="hash"):
     return ops
 
 
-def stage1_ops(ms, probs):
+def stage1_ops(ms, probs, full=False):
     """Operations of one stage-1 chain-sweep (K2, K3): 3 words and one
-    perturbation per active coordinate, componentwise accepts."""
+    perturbation per active coordinate, componentwise accepts; an rb9
+    kappa's own terms at its one move of the sweep (``evals_ops``), or with
+    ``full`` at every evaluation."""
     import numpy as np
     dk = float(np.dot(probs, ms.dims))
     return (3 * dk * OPS["word"] + dk * (OPS["normal"] + OPS["exp"] + 10)
-            + dk * density_ops(ms, probs))
+            + evals_ops(ms, probs, dk, 1.0, full))
 
 
 def state_bytes(K, D):
@@ -420,6 +460,26 @@ def bound(ops, nbytes):
     bytes over the memory rate."""
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bounds(ops_of, nbytes):
+    """A check's bound keys: ``bound_ms`` and ``bound_by`` of the
+    operations ``ops_of(False)``; where the full count ``ops_of(True)``
+    differs (rb9's kappa terms at every evaluation), its bound as
+    ``bound_full_ms``, comparable with the bounds of older readings."""
+    b_ms, b_by = bound(ops_of(False), nbytes)
+    out = dict(bound_ms=b_ms, bound_by=b_by)
+    b_full = bound(ops_of(True), nbytes)[0]
+    if b_full != b_ms:
+        out["bound_full_ms"] = b_full
+    return out
+
+
+def bound_text(b):
+    """``b`` (``bounds``) for a log line."""
+    full = (f", {b['bound_full_ms']:.4f} ms counted in full"
+            if "bound_full_ms" in b else "")
+    return f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}){full}"
 
 
 def unit_seconds(lib_path):
@@ -591,12 +651,12 @@ def check_segment(ms, C, dev, tdist=None, label="K2", rule="aap"):
     ms_k = cuda_ms(lambda: fused_stage1.segment(ms, theta, sig, zi, zi,
                                                 **kw), 20)
     N = ms.nmodels * C
-    b_ms, b_by = bound(100 * N * stage1_ops(ms, uniform(ms)),
-                       N * 4 * 2 * (ms.dmax + 1))
+    b = bounds(lambda full: 100 * N * stage1_ops(ms, uniform(ms), full),
+               N * 4 * 2 * (ms.dmax + 1))
     log(f"{label} segment ({N} chains x 100 sweeps): kernel {ms_k:.4f} ms, "
-        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"plain {ms_p:.4f} ms, {bound_text(b)}")
     return dict(max_abs_err=float(th_err.max()), ms=ms_k, plain_ms=ms_p,
-                bound_ms=b_ms, bound_by=b_by)
+                **b)
 
 
 def check_sweep_kernel(ms, C, dev, label="K3"):
@@ -635,12 +695,12 @@ def check_sweep_kernel(ms, C, dev, label="K3"):
     ms_p = cuda_ms(lambda: fused_stage1.sweep_ref(
         ms, theta, lp_k, sig, t=60, seg_start=False, **kw), 5)
     N = ms.nmodels * C
-    b_ms, b_by = bound(N * stage1_ops(ms, uniform(ms)),
-                       N * 4 * 2 * (ms.dmax + 1))
+    b = bounds(lambda full: N * stage1_ops(ms, uniform(ms), full),
+               N * 4 * 2 * (ms.dmax + 1))
     log(f"{label} sweep ({N} chains x 1 sweep): kernel {ms_k:.4f} ms, plain "
-        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms_p:.4f} ms, {bound_text(b)}")
     return dict(max_abs_err=float(th_err.max()), ms=ms_k, plain_ms=ms_p,
-                bound_ms=b_ms, bound_by=b_by)
+                **b)
 
 
 def check_sweep_runner(ms, dev):
@@ -711,8 +771,9 @@ def k_probs(ms, k):
 
 def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
     """K1 against sweep_chunk_ref: 16384 chains taken from a run's state,
-    50 production sweeps under its fitted proposal.  Timed on every chain
-    of the state x 100 sweeps."""
+    50 production sweeps under its fitted proposal.  The kernel is timed
+    on every chain of the state x 100 sweeps, the twin on its check run
+    (16384 chains x 50 sweeps)."""
     import torch
     from automix_tpu_torch.kernels import fused
     tabs = fused.prep_tables(prop, ms.dims)
@@ -724,8 +785,7 @@ def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
     kw = dict(seed=11, sweep0=ch.sweep, n_sweeps=K1_SWEEPS, adapt=True,
               perm=perm, tdist=tdist)
     got = fused.sweep_chunk(ms, *args, tabs, **kw)
-    want = fused.sweep_chunk_ref(ms, *args, tabs, **kw)
-    torch.cuda.synchronize()
+    want, ms_p = timed(lambda: fused.sweep_chunk_ref(ms, *args, tabs, **kw))
     same = got[0] == want[0]
     frac = float(same.float().mean())
     th_err = float((got[1] - want[1]).abs()[:, same].max())
@@ -754,19 +814,16 @@ def check_sweep(ms, prop, chains, dev, perm=False, tdist=None, label="K1"):
             ch.pkllim, ch.nreinit)
     kw = dict(kw, n_sweeps=TIME_SWEEPS)
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *full, tabs, **kw), 5)
-    ms_p = cuda_ms(lambda: fused.sweep_chunk_ref(ms, *full, tabs, **kw), 1,
-                   warm=False)
     L = tabs.loglam.shape[1]
     K, D = ms.nmodels, ms.dmax
-    b_ms, b_by = bound(
-        ch.n_chains * TIME_SWEEPS * sweep_ops(ms, L, k_probs(ms, ch.k), perm,
-                                              tdist is not None),
+    b = bounds(
+        lambda full: ch.n_chains * TIME_SWEEPS * sweep_ops(
+            ms, L, k_probs(ms, ch.k), perm, tdist is not None, full=full),
         ch.n_chains * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"{label} sweep chunk ({ch.n_chains} chains x {TIME_SWEEPS} sweeps): "
-        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"kernel {ms_k:.4f} ms, {bound_text(b)}; plain "
+        f"{ms_p:.4f} ms ({n} chains x {K1_SWEEPS} sweeps, its check)")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
 
 
 def launch_lengths(ms, prop, chains):
@@ -827,15 +884,13 @@ def check_pooled(ms, prop, chains, dev):
         fail("K1c shared pk differs on identical trajectories")
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kt), 5)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
-    b_ms, b_by = bound(
-        ch.n_chains * TIME_SWEEPS * (sweep_ops(ms, L, k_probs(ms, ch.k))
-                                     + 2 * K),
+    b = bounds(
+        lambda full: ch.n_chains * TIME_SWEEPS * (
+            sweep_ops(ms, L, k_probs(ms, ch.k), full=full) + 2 * K),
         ch.n_chains * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"K1c pooled chunk ({ch.n_chains} chains x {TIME_SWEEPS} sweeps): "
-        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, {bound_text(b)}")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
 
 
 def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
@@ -880,14 +935,14 @@ def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
         rng=rng), 1, warm=False) / 2
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
-    b_ms, b_by = bound(
-        S * (sweep_ops(ms, L, k_probs(ms, chains.k), rng=rng) + K) + 20 * K,
+    b = bounds(
+        lambda full: S * (sweep_ops(ms, L, k_probs(ms, chains.k), rng=rng,
+                                    full=full) + K) + 20 * K,
         S * state_bytes(K, D) + 4 * S * (K + 2 * K * D + 6)
         + tables_bytes(K, D, L))
     log(f"K1d runner, {rng} ({S} chains, per sweep): {ms_k:.4f} ms, plain "
-        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"{ms_p:.4f} ms, {bound_text(b)}")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
 
 
 def check_hw(ms, prop, chains, label, perm=False, tdist=None, pooled=False,
@@ -937,18 +992,22 @@ def check_hw(ms, prop, chains, label, perm=False, tdist=None, pooled=False,
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kw), 5)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     probs = k_probs(ms, sub.k)
-    if make_density(ms).n_cache:
-        ops = cache_sweep_ops(ms, L, probs, got[9].sum(1).double().cpu()
-                              .numpy(), perm, rng="hw")
-    else:
-        ops = sweep_ops(ms, L, probs, perm, tdist is not None, rng="hw")
-    b_ms, b_by = bound(n * K1_SWEEPS * (ops + (2 * K if pooled else 0)),
-                       n * state_bytes(K, D) + tables_bytes(K, D, L))
+    cached = make_density(ms).n_cache
+    cnt = got[9].sum(1).double().cpu().numpy() if cached else None
+
+    def ops(full):
+        if cached:
+            return cache_sweep_ops(ms, L, probs, cnt, perm, rng="hw")
+        return sweep_ops(ms, L, probs, perm, tdist is not None, rng="hw",
+                         full=full)
+
+    b = bounds(lambda full: n * K1_SWEEPS * (ops(full)
+                                             + (2 * K if pooled else 0)),
+               n * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"{label} ({n} chains x {K1_SWEEPS} sweeps): kernel {ms_k:.4f} ms, "
-        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
-        f"{b_ms / ms_k:.2%}")
-    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"plain {ms_p:.4f} ms, {bound_text(b)}, share "
+        f"{b['bound_ms'] / ms_k:.2%}")
+    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
 
 
 def stream_times(ms, prop, chains):
@@ -1404,14 +1463,14 @@ def check_exact_sweep(ms, prop, chains, label, perm=False, pooled=False):
     ms_k = cuda_ms(lambda: fused.sweep_chunk(ms, *args, tabs, **kw), 3)
     L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
     S = chains.n_chains
-    b_ms, b_by = bound(
-        S * TIME_SWEEPS * (sweep_ops(ms, L, k_probs(ms, chains.k), perm)
-                           + (2 * K if pooled else 0)),
+    b = bounds(
+        lambda full: S * TIME_SWEEPS * (
+            sweep_ops(ms, L, k_probs(ms, chains.k), perm, full=full)
+            + (2 * K if pooled else 0)),
         S * state_bytes(K, D) + tables_bytes(K, D, L))
     log(f"{label} sweep chunk ({S} chains x {TIME_SWEEPS} sweeps): kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, {bound_text(b)}")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **b)
 
 
 def check_cpt_probs(name, probs, ref, assertions=True):

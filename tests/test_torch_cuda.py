@@ -1093,6 +1093,124 @@ def test_rb9_sweep_kernels_match_twin_exactly(cuda, variant):
                         pooled=variant == "K1c")
 
 
+def _rb9_table_state(dev, S, seed=0, L=2):
+    """rb9 chains near the posterior, a quarter of them in model 6 (the
+    one with a second dispersion), the rest spread over the other models:
+    each rate at the mean of the counts of the groups it serves, each
+    dispersion ~0.1, under an L-component proposal around those points
+    (rates 10%, dispersions 0.05) from a numpy seed; pk uniform.  The
+    sweeps then accept and reject many dispersion moves and jump into and
+    out of model 6."""
+    ms = rb9.rb9_set()
+    K, D = ms.nmodels, ms.dmax
+    rng = np.random.default_rng(seed)
+    means = [np.mean(rb9.X_DATA[rb9.GROUPS == g]) for g in range(rb9.G)]
+    point = np.ones((K, D))
+    scale = np.zeros((K, D))
+    for m in range(K):
+        lmap = rb9.lambda_map(m)
+        for d in range(rb9.N_LAMBDA[m]):
+            point[m, d] = np.mean([means[g] for g in range(rb9.G)
+                                   if lmap[g] == d])
+            scale[m, d] = 0.1 * point[m, d]
+        for d in set(rb9.kappa_map(m)):
+            point[m, d], scale[m, d] = 0.1, 0.05
+    dm = np.arange(D)[None] < ms.dims[:, None]
+    mu = (point[:, None] + scale[:, None] * rng.standard_normal((K, L, D))
+          ) * dm[:, None]
+    B = np.where(dm[:, None, :, None] & dm[:, None, None, :],
+                 np.eye(D) * scale[:, None, None, :], np.eye(D))
+    B = np.repeat(B, L, axis=1)
+    logdet = (np.log(np.diagonal(B, axis1=-2, axis2=-1)) * dm[:, None]).sum(-1)
+    t = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    prop = Proposal(lam=t(rng.dirichlet(np.ones(L), K)), mu=t(mu), B=t(B),
+                    logdetB=t(logdet),
+                    nmix=torch.full((K,), L, dtype=torch.int32),
+                    sig=t(0.5 * scale))
+    tabs = fused.prep_tables(prop, ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(dev)
+                         for f in tabs.__dataclass_fields__})
+    other = rng.integers(0, K - 1, S)
+    other = other + (other >= 6)               # models 0-5 and 7-9
+    k = np.where(rng.uniform(size=S) < 0.25, 6, other)
+    theta = point[k] * (1.0 + 0.1 * rng.standard_normal((S, D))) * dm[k]
+    theta = torch.tensor(theta, dtype=torch.float32)
+    k = torch.as_tensor(k, dtype=torch.int32)
+    logp = ms.logpost_cols(k.long(), list(theta.T))
+    from automix_tpu_torch.state import Chains
+    chains = Chains(k=k.to(dev), theta=theta.to(dev), logp=logp.to(dev),
+                    pk=torch.full((S, K), 1.0 / K, device=dev),
+                    pkllim=torch.full((S,), 0.1, device=dev),
+                    nreinit=torch.ones(S, dtype=torch.int32, device=dev),
+                    sweep=5)
+    return ms, chains, tabs
+
+
+def test_rb9_table_state_moves_dispersions_and_model_6(cuda):
+    """The state of the kappa-table tests does what they need: over 40
+    one-sweep launches of the twin on the card (hash), many chains keep
+    their model and change a dispersion (an accepted move) or keep it
+    (a rejected one), and many jump into and out of model 6."""
+    ms, ch, tabs = _rb9_table_state(cuda, 4096)
+    state = (ch.k, ch.theta.T.contiguous(), ch.logp, ch.pk.T.contiguous(),
+             ch.pkllim, ch.nreinit)
+    kap = torch.tensor([rb9.kappa_map(m)[0] for m in range(ms.nmodels)],
+                       device=cuda)
+    moved = kept = into6 = outof6 = 0
+    for t in range(40):
+        out = fused.sweep_chunk_ref(ms, *state, tabs, seed=3,
+                                    sweep0=ch.sweep + t, n_sweeps=1,
+                                    adapt=True)
+        k0, k1 = state[0].long(), out[0].long()
+        same = k0 == k1
+        kd = kap[k0]
+        before = state[1].gather(0, kd[None])[0]
+        after = out[1].gather(0, kd[None])[0]
+        moved += int((same & (before != after)).sum())
+        kept += int((same & (before == after)).sum())
+        into6 += int(((k0 != 6) & (k1 == 6)).sum())
+        outof6 += int(((k0 == 6) & (k1 != 6)).sum())
+        state = out[:6]
+    n = 40 * ch.n_chains
+    print(f"dispersion changed {moved / n:.3f}, kept {kept / n:.3f}; "
+          f"jumps into model 6 {into6}, out of it {outof6}")
+    assert moved > 0.1 * n and kept > 0.1 * n, (moved, kept)
+    assert into6 > 500 and outof6 > 500, (into6, outof6)
+
+
+@pytest.mark.parametrize("rng", ["hash", "hw"])
+@pytest.mark.parametrize("variant", ["K1", "K1b", "K1c"])
+def test_rb9_kappa_table_forms_match_twin_exactly(cuda, variant, rng):
+    """Every form of the sweep kernel at rb9's (10, 5), which reads rb9's
+    dispersion terms from the chain's kappa tables: K1, K1b (perm) and
+    K1c (pooled) on the hash and on hw (K1f), 4096 chains x 40 sweeps of
+    the table state from sweep 5 (block moves at 10, 20, 30, 40), equal
+    to the unchanged twin run on the card in every output, bit for
+    bit."""
+    ms, ch, tabs = _rb9_table_state(cuda, 4096, seed=1)
+    _assert_sweep_exact(ms, ch, tabs, 40, perm=variant == "K1b",
+                        pooled=variant == "K1c", rng=rng)
+
+
+def test_rb9_kappa_table_pooled_runner_matches_twin_exactly(cuda):
+    """The K1d runner (one-sweep launches of the per-chain kernel, whose
+    kappa tables start empty at every launch) on the table state, 4096
+    chains x 30 sweeps on the hash: 30 launches, and every field of the
+    chains and the chunk equal to the same runner over the twin on the
+    card, bit for bit."""
+    ms, ch, tabs = _rb9_table_state(cuda, 4096, seed=2)
+    before = fused.sweep_chunk.launches
+    a, ca = fused.pooled_sweeps(ms, ch, tabs, 30, seed=4)
+    assert fused.sweep_chunk.launches == before + 30
+    b, cb = fused.pooled_sweeps(ms, ch, tabs, 30, seed=4,
+                                sweep_fn=fused.sweep_chunk_ref)
+    for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert (a.k != ch.k).any()
+    for name in ca:
+        assert torch.equal(ca[name], cb[name]), name
+
+
 def _model_changes(ms, ch, tabs, n):
     """One-sweep launches of the hash stream (a function of the global
     sweep, so they run the chains of one n-sweep launch) from ``ch``: the
@@ -1152,10 +1270,10 @@ def test_chunk_sums_across_model_changes_match_twin(cuda, name):
 # every variant, and the per-chain kernel's resident warps per SM at the L
 # of the fits (cpt 4, rb9 6), as the H100 build gives them.  At (6, 13)
 # the interleaved D5 search spills 120-128 bytes at the 255-register
-# ceiling; at (10, 5) the pooled form holds 199-248 since the sweep kernel
-# no longer carries the counters that follow from the launch.
+# ceiling; at (10, 5), with rb9's kappa tables, every form holds 204-210
+# and spills nothing.
 _LARGE_SHAPES = {(6, 13): (changepoint.cpt_set, (248, 255), 160, 4, 8),
-                 (10, 5): (rb9.rb9_set, (190, 250), 0, 6, 8)}
+                 (10, 5): (rb9.rb9_set, (200, 214), 0, 6, 8)}
 
 
 @pytest.mark.parametrize("shape", list(_LARGE_SHAPES), ids=str)

@@ -31,7 +31,7 @@ configurations: cpt's and cptrs' ``AMSampler`` runs
 after 200 burn-in sweeps (as ``tools/time_rb9_sweeps.py``), the tutorial
 main path's fit with 131072 chains after 1000 burn-in sweeps, DDI's run
 as ``tools/time_k1e_k4.py`` (the ``k1c`` part's state too), and the
-proposals (``_mix.data``) of cpt and cptrs that the CLI reads.  Then it
+proposals (``_mix.data``) of cpt, cptrs and rb9 that the CLI reads.  Then it
 times, in milliseconds per launch of 100 sweeps with pk adapting (CUDA
 events):
 
@@ -43,12 +43,13 @@ events):
   streams with and without perm;
 * K2-log (one 100-sweep segment of 6 x 512 cpt chains) and the K3 + log
   route (6 x 1024, ms per stage-1 sweep) from cpt's start points;
-* the CLI in mode 1 on cpt and cptrs at ``chip_smoke.py``'s size (131072
-  chains, burn-in 10000 and 10000 sweeps), in seconds;
+* the CLI in mode 1 at ``chip_smoke.py``'s size (131072 chains): on cpt
+  and cptrs (burn-in 10000 and 10000 sweeps) and on rb9 (10000 and
+  20000), in seconds;
 
 and reads each shape's registers (``ptxas -v``), the sweep kernel's SASS
-instructions per form (``cuobjdump -sass``; at (3, 2) also by class:
-``SASS_CLASSES``), the per-chain kernel's
+instructions per form (``cuobjdump -sass``; at (3, 2) and (10, 5) also
+by class: ``SASS_CLASSES``), the per-chain kernel's
 resident warps per SM, K1c's capacity, and how often a chain's model
 changes per sweep on cpt, cptrs and rb9 (100 one-sweep launches on the
 hash).
@@ -181,8 +182,9 @@ def model_changes(ms, prop, ch, n=100):
 
 
 # SASS opcodes by class, for the instruction mix of the sweep kernel at the
-# tutorial's (3, 2): local memory, shared loads, the special-function unit,
-# conversions, float and integer arithmetic; anything else is "other".
+# tutorial's (3, 2) and rb9's (10, 5): local memory, shared loads, the
+# special-function unit, conversions, float and integer arithmetic; anything
+# else is "other".
 SASS_CLASSES = {
     "LDL": ("LDL",), "STL": ("STL",), "LDS": ("LDS",), "MUFU": ("MUFU",),
     "conversions": ("I2F", "F2I", "I2FP", "F2IP", "F2F", "I2I"),
@@ -194,13 +196,13 @@ SASS_CLASSES = {
                     "BMSK", "SGXT")}
 
 
-def sass_sizes(lib_path, classes_at=(3, 2)):
+def sass_sizes(lib_path, classes_at=((3, 2), (10, 5))):
     """Instructions of each compiled form of the sweep kernel in the
     library's SASS (one ``cuobjdump -sass``), by "(K, D)": a list of
     (kernel and its bool template argument, instructions) in the
-    library's order, and under "classes (K, D)" the forms at
-    ``classes_at`` with their instructions counted by SASS_CLASSES; empty
-    where the toolkit has no cuobjdump."""
+    library's order, and under "classes (K, D)" the forms at each shape
+    of ``classes_at`` with their instructions counted by SASS_CLASSES;
+    empty where the toolkit has no cuobjdump."""
     import re
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -209,7 +211,7 @@ def sass_sizes(lib_path, classes_at=(3, 2)):
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True).stdout
     of = {op: name for name, ops in SASS_CLASSES.items() for op in ops}
-    at = "({}, {})".format(*classes_at)
+    at = {"({}, {})".format(*kd) for kd in classes_at}
     out = {}
     for block in text.split("Function : ")[1:]:
         m = re.search(r"fused_sweep_kernelILi(\d+)ELi(\d+)ELb([01])E",
@@ -221,18 +223,19 @@ def sass_sizes(lib_path, classes_at=(3, 2)):
         ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)", block, re.M)
         out.setdefault(shape, []).append((form, len(ops)))
-        if shape == at:
+        if shape in at:
             counts = dict.fromkeys(SASS_CLASSES, 0)
             counts["other"] = 0
             for op in ops:
                 counts[of.get(op, "other")] += 1
-            out.setdefault(f"classes {at}", []).append((form, counts))
+            out.setdefault(f"classes {shape}", []).append((form, counts))
     return out
 
 
-def cli_seconds(name, mix_stem):
+def cli_seconds(name, mix_stem, sweeps=cs.CPT_CLI_SWEEPS):
     """Seconds of the CLI in mode 1 on ``name`` from the proposal at
-    ``mix_stem``_mix.data, at chip_smoke.py's size."""
+    ``mix_stem``_mix.data, at chip_smoke.py's size (131072 chains,
+    ``-N sweeps``)."""
     from automix_tpu_torch import cli
     with tempfile.TemporaryDirectory() as tmp:
         stem = os.path.join(tmp, name)
@@ -241,8 +244,7 @@ def cli_seconds(name, mix_stem):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main([name, "-m", "1", "--chains", str(cs.N_CHAINS),
-                           "-N", str(cs.CPT_CLI_SWEEPS), "-s", "1", "-f",
-                           stem])
+                           "-N", str(sweeps), "-s", "1", "-f", stem])
         secs = time.perf_counter() - t0
     if rc != 0:
         sys.exit(f"time_sweep_shapes: the {name} CLI returned {rc}")
@@ -396,9 +398,11 @@ def main():
         return am
 
     def rb9_run():
-        prop = fit(rb9_set(), n_chains_stage1=cs.RB9_C_STAGE1,
-                   stage1_sweeps=cs.STAGE1_SWEEPS,
-                   max_mix_comps=cs.RB9_MAX_MIX, seed=0).proposal
+        fitted = fit(rb9_set(), n_chains_stage1=cs.RB9_C_STAGE1,
+                     stage1_sweeps=cs.STAGE1_SWEEPS,
+                     max_mix_comps=cs.RB9_MAX_MIX, seed=0)
+        reports.report_cond_prob_estimation(path("rb9"), fitted)
+        prop = fitted.proposal
         am = AMSampler(rb9_set(), EngineConfig(
             n_chains=cs.N_CHAINS, seed=7, trace_chain0=False), device="cuda")
         am.set_proposal(prop)
@@ -494,6 +498,8 @@ def main():
         for name in large}
     out["cli_s"] = {name: cli_seconds(name, path(name))
                     for name in ("cpt", "cptrs") if name in states}
+    if "rb9" in states:
+        out["cli_s"]["rb9"] = cli_seconds("rb9", path("rb9"), cs.CLI_SWEEPS)
     out["sass_instructions"] = sass_sizes(lib)
     out["states_made_s"] = made
     print(json.dumps(out), flush=True)
