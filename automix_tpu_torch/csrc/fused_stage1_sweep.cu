@@ -18,7 +18,9 @@
 // integers reduced with warp shuffles and shared/global atomics, so they
 // are exact and independent of order: the role of the JAX runner's psum.
 // Box-Muller or Bailey t perturbations are chosen at compile time (kT), as
-// in the segment kernel.
+// in the segment kernel, and each is a compilation unit of its own
+// (AM_K3_T, exporting AM_K3_SYMBOL), which keeps either off the build's
+// critical path.
 //
 // What bounds it on the H100: launch latency.  A sweep is a few hundred
 // instructions per chain, so at the 10240 chains of toy2's default stage
@@ -33,6 +35,13 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+
+#ifndef AM_K3_T
+#define AM_K3_T 0
+#endif
+#ifndef AM_K3_SYMBOL
+#define AM_K3_SYMBOL am_fused_stage1_sweep_t0
+#endif
 
 namespace {
 
@@ -158,15 +167,16 @@ int launch_sweep(int N, int C, int t, unsigned int seed, int nburn,
 #ifdef __CUDACC__
 // Launch sweep ``t`` on ``stream``; returns cudaGetLastError() after the
 // launch, or -1 for a (K, D) pair without an instantiation.  ``tconsts``
-// is a host array of the five Student-t constants (AmT), or null for
-// Box-Muller normals.
-extern "C" int am_fused_stage1_sweep(
+// is a host array of the five Student-t constants (AmT) in the Student-t
+// unit, null in the Normal one (else -1).
+extern "C" int AM_K3_SYMBOL(
     int K, int D, int N, int C, int t, unsigned int seed, int nburn,
     int seg_start, const float* tconsts, const void* kinds,
     const void* consts, const void* dims, const void* th_in,
     const void* lp_in, const void* sig, void* th_out, void* lp_out,
     void* cnt_out, void* stream) {
   if (N < 1 || C < 1 || N != K * C) return -1;
+  if ((tconsts != nullptr) != (AM_K3_T != 0)) return -1;
   AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
                      tconsts[4]};
@@ -176,8 +186,7 @@ extern "C" int am_fused_stage1_sweep(
                          dims, th_in, lp_in, sig, th_out, lp_out, cnt_out,  \
                          st)
 #define AM_CASE(k, d)                                                       \
-  if (K == k && D == d)                                                     \
-    return tconsts ? AM_LAUNCH(k, d, true) : AM_LAUNCH(k, d, false);
+  if (K == k && D == d) return AM_LAUNCH(k, d, AM_K3_T != 0);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
 #undef AM_LAUNCH

@@ -9,14 +9,17 @@
 // incremental density; in four variants: Normal or Student-t perturbations
 // (AM_TDIST: Bailey polar draws and the t latent density) and with or without
 // the latent permutation (AM_PERM: the stable bubble network over per-slot
-// uniform keys).  Each variant is its own compilation unit and exports three
-// functions: the per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1 and
-// adapt = 0 it is also the per-sweep kernel of the pooled runner, K1d, the JAX
-// _built(1, L, S, False)), the pooled-pk launcher AM_K1C_SYMBOL (K1c, the JAX
-// in-kernel pooled branch, fused.py:773-779), AM_K1C_CAP_SYMBOL, the number
-// of chains K1c can hold resident, AM_K1_MAXL_SYMBOL, the largest L, and
-// AM_K1_OCC_SYMBOL, the per-chain kernel's resident warps per SM.  The plain
-// PyTorch twin is automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
+// uniform keys).  Each variant is its own compilation unit and exports the
+// per-chain-pk launcher AM_K1_SYMBOL (K1; with n_sweeps = 1 and adapt = 0
+// it is the JAX _built(1, L, S, False), and the one-sweep pooled route
+// kernels/fused.py:pooled_sweeps, the reference K1d is held to), the
+// pooled-pk launcher AM_K1C_SYMBOL (K1c, the JAX in-kernel pooled branch,
+// fused.py:773-779), AM_K1C_CAP_SYMBOL, the number of chains K1c can hold
+// resident, AM_K1_MAXL_SYMBOL, the largest L, and AM_K1_OCC_SYMBOL, the
+// per-chain kernel's resident warps per SM; a second unit of each variant
+// (AM_SCAN) exports K1d's launcher AM_K1D_SYMBOL and its grid query
+// AM_K1D_GRID_SYMBOL (below).  The plain PyTorch twin is
+// automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
 // pkllim, nreinit) stays in registers for the whole chunk; device memory sees
@@ -80,12 +83,12 @@
 // after the grid barrier every thread reads the counts and applies the update
 // of fused.py:768-792 with oh = count * (1/S).  Integer counts make the update
 // exact and independent of order, so K1c equals the twin bit for bit, and with
-// the hash the per-sweep runner (K1d) too: the hw stream reseeds at every
-// launch, so K1d's one-sweep launches draw other words than K1c's chunk, as
-// JAX's _compiled_pooled does against its in-kernel pooled chunk; the gain is
-// am_gain(t), the float32 expression the twin and the K1d runner compute in
-// torch (kernels/fused.py _gains). Threads past S run a copy of chain 0, count
-// nothing and store nothing: they must reach every barrier.
+// the hash K1d too: the hw stream reseeds at every sweep in K1d, so it draws
+// other words than K1c's chunk, as JAX's _compiled_pooled does against its
+// in-kernel pooled chunk; the gain is am_gain(t), the float32 expression the
+// twin and the one-sweep route compute in torch (kernels/fused.py _gains).
+// Threads past S run a copy of chain 0, count nothing and store nothing: they
+// must reach every barrier.
 //
 // What bounds it on the H100: arithmetic, not bytes.  A chain-sweep reads and
 // writes nothing in device memory and costs ~NW random words (NW = 3D+1+2L+K,
@@ -138,6 +141,27 @@
 // at 2 blocks per SM.  K1d, the per-chain launcher with n_sweeps = 1, runs
 // K1e's form.
 //
+// K1d, the pooled route above K1c's bound (the JAX _compiled_pooled: one
+// sweep of every chain with pk frozen, then the shared update from the
+// sweep's histogram), is one cooperative launch a chunk of its own kernel,
+// fused_scan_kernel, compiled in units of its own (AM_SCAN) so that the
+// other forms' units stay as they were.  Its grid is what the card holds
+// resident, trimmed so that every thread carries ceil(S / capacity) chains
+// or one fewer: thread i sweeps chains i, i + G, ... (G the grid's
+// threads) at every sweep with the per-chain body above, each chain's k,
+// theta and logp loaded from and stored back to device memory (in place:
+// a chain belongs to one thread), its stream seeded at that sweep
+// (am_stream_init at t, as a one-sweep launch seeds it), and with a cache
+// its cache built fresh from theta, logp kept, as a one-sweep K1e launch
+// builds it.  rb9's kappa tables are kept across the thread's chains: they
+// are keyed by kappa's bits, so whatever another chain filled reads right.
+// After its chains, a thread's counts per model are summed by its warp and
+// added to K1c's histogram; one grid barrier; then every thread applies
+// K1c's update.  So K1d equals the one-sweep route bit for bit in every
+// chain field and counter.  Its chunk statistics are partial sums per
+// thread over its chains and sweeps ([K | 2KD | 6, G]), which the wrapper
+// reduces; threads without a chain join every barrier and count nothing.
+//
 // Floating point: see common.cuh (built with -fmad=false, no fast math).
 
 #include <cooperative_groups.h>
@@ -165,6 +189,16 @@
 #endif
 #ifndef AM_K1_OCC_SYMBOL
 #define AM_K1_OCC_SYMBOL am_fused_sweep_occupancy_p0_t0
+#endif
+// AM_SCAN: a unit of K1d alone (its launcher and grid query).
+#ifndef AM_SCAN
+#define AM_SCAN 0
+#endif
+#ifndef AM_K1D_SYMBOL
+#define AM_K1D_SYMBOL am_fused_sweep_scan_p0_t0
+#endif
+#ifndef AM_K1D_GRID_SYMBOL
+#define AM_K1D_GRID_SYMBOL am_fused_sweep_scan_grid_p0_t0
 #endif
 
 namespace {
@@ -279,497 +313,39 @@ __device__ __forceinline__ float am_alloc(int m, const float (&x)[D], int dm,
   return lg[idx * kStride] - (mx + logf(se));
 }
 
+// The kernels' parameters, in the order of SweepArgs and coop_launch.
+#define AM_SWEEP_PARAMS                                                       \
+    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,         \
+    int rng, AmT tc,                                                          \
+    int* __restrict__ ghist, float inv_S,                                     \
+    const float* __restrict__ tab, const int* __restrict__ kinds_g,           \
+    const float* __restrict__ consts_g, const int* __restrict__ dims_g,       \
+    const int* __restrict__ k_in, const float* __restrict__ th_in,            \
+    const float* __restrict__ lp_in, const float* __restrict__ pk_in,         \
+    const float* __restrict__ pkl_in, const int* __restrict__ nri_in,         \
+    int* __restrict__ k_out, float* __restrict__ th_out,                      \
+    float* __restrict__ lp_out, float* __restrict__ pk_out,                   \
+    float* __restrict__ pkl_out, int* __restrict__ nri_out,                   \
+    int* __restrict__ ks_out, float* __restrict__ ts_out,                     \
+    float* __restrict__ tq_out, int* __restrict__ cnt_out
+
+// The sweep kernel's forms, their body in fused_sweep_body.cuh: K1 and K1e
+// (per-chain pk), K1c (kPooled), and K1d (header note).
 template <int K, int D, bool kPooled>
 __global__ void __launch_bounds__(kThreads, min_blocks<K, D>())
-fused_sweep_kernel(
-    int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,
-    int rng, AmT tc,
-    int* __restrict__ ghist, float inv_S,
-    const float* __restrict__ tab, const int* __restrict__ kinds_g,
-    const float* __restrict__ consts_g, const int* __restrict__ dims_g,
-    const int* __restrict__ k_in, const float* __restrict__ th_in,
-    const float* __restrict__ lp_in, const float* __restrict__ pk_in,
-    const float* __restrict__ pkl_in, const int* __restrict__ nri_in,
-    int* __restrict__ k_out, float* __restrict__ th_out,
-    float* __restrict__ lp_out, float* __restrict__ pk_out,
-    float* __restrict__ pkl_out, int* __restrict__ nri_out,
-    int* __restrict__ ks_out, float* __restrict__ ts_out,
-    float* __restrict__ tq_out, int* __restrict__ cnt_out) {
-  // ---- tables -> shared memory (stateless form) -------------------------
-  // tab = [sig K*D | loglam K*L | abase K*L | logdet K*L | mu K*L*D |
-  //        binv K*L*D*D | B K*L*D*D]
-  constexpr bool kCache = cached_shape<K, D>();
-  extern __shared__ float smem[];
-  __shared__ float consts_s[K * AM_N_CONSTS];
-  __shared__ int kinds_s[K];
-  __shared__ int dims_s[K];
-  __shared__ int hist_s[K];
-  const int KL = K * L;
-  const int n_tab = K * D + 3 * KL + KL * D + 2 * KL * D * D;
-  if constexpr (!kCache)
-    for (int i = threadIdx.x; i < n_tab; i += blockDim.x) smem[i] = tab[i];
-  else
-    am_ddi_shared_load(smem, threadIdx.x, blockDim.x);
-  for (int i = threadIdx.x; i < K * AM_N_CONSTS; i += blockDim.x)
-    consts_s[i] = consts_g[i];
-  for (int m = threadIdx.x; m < K; m += blockDim.x) {
-    kinds_s[m] = kinds_g[m];
-    dims_s[m] = dims_g[m];
-    hist_s[m] = 0;
-  }
-  __syncthreads();
-  const float* sig = kCache ? tab : smem;
-  const float* loglam = sig + K * D;
-  const float* abase = loglam + KL;
-  const float* logdet = abase + KL;
-  const float* mu = logdet + KL;
-  const float* binv = mu + KL * D;
-  const float* Bm = binv + KL * D * D;
+fused_sweep_kernel(AM_SWEEP_PARAMS) {
+#define AM_SCAN_FORM 0
+#include "fused_sweep_body.cuh"
+#undef AM_SCAN_FORM
+}
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = i < S;
-  if (!kPooled && !valid) return;
-  const int ci = valid ? i : 0;    // K1c: threads past S copy chain 0
-
-  // ---- chain state into registers -----------------------------------------
-  int kk = k_in[ci];
-  float th[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) th[d] = th_in[d * S + ci];
-  float lp = lp_in[ci];
-  float pk[K];
-#pragma unroll
-  for (int m = 0; m < K; ++m) pk[m] = pk_in[m * S + ci];
-  float pkl = pkl_in[ci];
-  int nri = nri_in[ci];
-  // visit counts of every model but the last (the last's is n_sweeps less
-  // the others'), theta sums of every model: in registers, or at the small
-  // shapes in this thread's column of shared memory
-  int ks[K];
-  constexpr bool kSS = small_shape<K, D>();
-  float ts[kSS ? 1 : K * D], tq[kSS ? 1 : K * D];
-  float* sums_s = smem + n_tab + threadIdx.x;
-#pragma unroll
-  for (int m = 0; m < K; ++m) {
-    ks[m] = 0;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      if constexpr (kSS) {
-        sums_s[(m * D + d) * kThreads] = 0.0f;
-        sums_s[(K * D + m * D + d) * kThreads] = 0.0f;
-      } else {
-        ts[m * D + d] = 0.0f;
-        tq[m * D + d] = 0.0f;
-      }
-    }
-  }
-  // accepts and tries: block accepts, componentwise accepts and tries, RJ
-  // accepts (block tries and sweeps follow from sweep0 and n_sweeps)
-  int acc_blk = 0, acc_cw = 0, try_cw = 0, acc_rj = 0;
-
-  // The cached forms: the chain's cache of both models' statistics, fresh at
-  // the chunk's start state (a chunk boundary refreshes the cache, not
-  // logp), after DDI's coefficient tables in shared memory
-  [[maybe_unused]] const auto tab0 = am_ddi_tables<0, true>(smem);
-  [[maybe_unused]] const auto tab1 = am_ddi_tables<1, true>(smem);
-  [[maybe_unused]] const AmDdiCache<kThreads> cache{
-      smem + kAmDdiShared + threadIdx.x};
-  if constexpr (kCache) {
-    am_ddi_cache_full<0>(tab0, th, cache, false);
-    am_ddi_cache_full<1>(tab1, th, cache, false);
-  }
-
-  // Random word slots of one sweep (kernels/fused.py s_* offsets):
-  // D accept words, the RJ accept, L + K + L Gumbel words, D permutation
-  // keys with perm, then the perturbation words: D Box-Muller pairs (cos
-  // for the RWM move, sin for the latent) or, with Student-t, one Bailey
-  // pair each for the RWM move and the latent.
-  const int s_uacc = D, s_gall = D + 1, s_gmod = D + 1 + L;
-  const int s_gcmp = D + 1 + L + K, s_perm = D + 1 + 2 * L + K;
-  const int s_bm = s_perm + (kPerm ? D : 0);
-  const int NW = s_bm + (kTdist ? 4 * D : 2 * D);
-  // the chain's stream: the hash's counter base, or K1f's state seeded at
-  // this launch's first sweep (common.cuh)
-  uint64_t st = am_stream_init(rng, seed, sweep0, (uint32_t)i,
-                               (uint32_t)i * (uint32_t)NW);
-  // RWM perturbation and latent filler of coordinate d this sweep
-  auto z_rwm = [&](const AmWords& wd, int d) {
-    float u1 = am_u01(wd(s_bm + d));
-    float u2 = am_u01(wd(s_bm + D + d));
-    if (kTdist) return am_bailey_t(u1, u2, tc);
-    return am_bm_radius(u1) * cosf(AM_TWO_PI * u2);
-  };
-  auto z_lat = [&](const AmWords& wd, int d) {
-    if (kTdist)
-      return am_bailey_t(am_u01(wd(s_bm + 2 * D + d)),
-                         am_u01(wd(s_bm + 3 * D + d)), tc);
-    float u1 = am_u01(wd(s_bm + d));
-    float u2 = am_u01(wd(s_bm + D + d));
-    return am_bm_radius(u1) * sinf(AM_TWO_PI * u2);
-  };
-  auto lat_lpdf = [&](float w) {
-    return kTdist ? am_t_latent(w, tc) : am_normal_latent(w);
-  };
-
-  // the allocation logits (am_alloc): after the chunk sums in the thread's
-  // shared column at the small shapes, else a local array
-  float lg_local[kSS ? 1 : kLMax];
-  float* lg = kSS ? sums_s + 2 * K * D * kThreads : lg_local;
-
-  // Log-posterior of model m (dimension dm) at x, a candidate of the
-  // current state (kk, th).  At rb9's shape the rb9 density goes through
-  // the chain's kappa tables, empty at the launch's start, which follow the
-  // current state's kappas; sanitized as am_logpost.
-  constexpr bool kRb9 = rb9_shape<K, D>();
-  [[maybe_unused]] float* rb9_col = smem + n_tab + threadIdx.x;
-  if constexpr (kRb9) am_rb9_tab_clear<kThreads>(rb9_col);
-  auto logpost = [&](int m, int dm, const float (&x)[D]) {
-    if constexpr (kRb9) {
-      if (kinds_s[m] == AM_KIND_RB9) {
-        uint32_t ca = 0xffffffffu, cb = 0xffffffffu;
-        if (kinds_s[kk] == AM_KIND_RB9)
-          am_rb9_keys<D>(consts_s + kk * AM_N_CONSTS, th, ca, cb);
-        const float v = am_density_rb9_tab<D, kThreads>(
-            consts_s + m * AM_N_CONSTS, dm, x, rb9_col, ca, cb);
-        return fminf(fmaxf(v, AM_NEG_INF), -AM_NEG_INF);
-      }
-    }
-    return am_logpost<K, D, true, small_shape<K, D>(), !kRb9>(
-        kinds_s[m], consts_s + m * AM_N_CONSTS, dm, x);
-  };
-
-  for (int tr = 0; tr < n_sweeps; ++tr) {
-    const int t = sweep0 + tr;
-    const AmWords wd = am_stream_sweep(rng, seed, t, st);
-    const int dk = dims_s[kk];
-
-    // ---- (a) within-model move: block every 10th sweep, else per coord --
-    if (t % 10 == 0) {
-      float prop[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        prop[d] = (d < dk) ? th[d] + sig[kk * D + d] * z_rwm(wd, d) : th[d];
-      float lpn;
-      if constexpr (kCache)
-        lpn = (kk == 0) ? am_ddi_logpost<0>(prop, tab0)
-                        : am_ddi_logpost<1>(prop, tab1);
-      else
-        lpn = logpost(kk, dk, prop);
-      float acc = (am_u01(wd(0)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
-      if constexpr (kCache) {
-        if (acc != 0.0f) {
-          am_ddi_cache_full<0>(tab0, prop, cache, true);
-          am_ddi_cache_full<1>(tab1, prop, cache, true);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) th[d] = th[d] + acc * (prop[d] - th[d]);
-      lp = lp + acc * (lpn - lp);
-      acc_blk += (int)acc;
-    } else if constexpr (kCache) {
-      // K1e: coordinates at run time; theta's entries by compare
-#pragma unroll 1
-      for (int j = 0; j < dk; ++j) {
-        float oldj = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-          if (d == j) oldj = th[d];
-        const float pj = oldj + sig[kk * D + j] * z_rwm(wd, j);
-        float prop[D];
-#pragma unroll
-        for (int d = 0; d < D; ++d) prop[d] = (d == j) ? pj : th[d];
-        const float lpn = (kk == 0)
-                              ? am_ddi_lp_coord<0>(tab0, j, prop, oldj, cache)
-                              : am_ddi_lp_coord<1>(tab1, j, prop, oldj, cache);
-        const float acc =
-            (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
-        if (acc != 0.0f) {
-          am_ddi_cache_coord<0>(tab0, j, prop, oldj, cache);
-          am_ddi_cache_coord<1>(tab1, j, prop, oldj, cache);
-        }
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-          if (d == j) th[d] = th[d] + acc * (pj - th[d]);
-        lp = lp + acc * (lpn - lp);
-        acc_cw += (int)acc;
-        try_cw += 1;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        if (j >= dk) continue;
-        float prop[D];
-#pragma unroll
-        for (int d = 0; d < D; ++d) prop[d] = th[d];
-        prop[j] = th[j] + sig[kk * D + j] * z_rwm(wd, j);
-        float lpn = logpost(kk, dk, prop);
-        float acc = (am_u01(wd(j)) < am_accept(lpn - lp)) ? 1.0f : 0.0f;
-        th[j] = th[j] + acc * (prop[j] - th[j]);
-        lp = lp + acc * (lpn - lp);
-        acc_cw += (int)acc;
-        try_cw += 1;
-      }
-    }
-
-    // ---- (b) reversible jump ---------------------------------------------
-    // forward allocation over the chain's own model's components
-    int l_idx = 0;
-    const float log_palloc = am_alloc<K, D>(kk, th, dk, L, abase, mu, binv,
-                                            wd, s_gall, true, l_idx, lg);
-
-    // standardized residual of the selected component (recomputed)
-    float work[D];
-    {
-      const int ml = kk * L + l_idx;
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        if (r < dk) {
-          float w = binv[ml * D * D + r * D] * (th[0] - mu[ml * D]);
-#pragma unroll
-          for (int c = 1; c <= r; ++c)
-            w = w + binv[ml * D * D + r * D + c] * (th[c] - mu[ml * D + c]);
-          work[r] = w;
-        } else {
-          work[r] = 0.0f;
-        }
-      }
-    }
-
-    // destination model kn ~ pk (Gumbel argmax, strict > keeps the first)
-    int kn = kk;
-    float logratio = 0.0f;
-    if (K > 1) {
-      float logpk[K];
-#pragma unroll
-      for (int m = 0; m < K; ++m) logpk[m] = logf(fmaxf(pk[m], 1e-38f));
-      float bk = logpk[0] + am_gumbel(am_u01(wd(s_gmod)));
-      kn = 0;
-#pragma unroll
-      for (int m = 1; m < K; ++m) {
-        float v = logpk[m] + am_gumbel(am_u01(wd(s_gmod + m)));
-        if (v > bk) {
-          bk = v;
-          kn = m;
-        }
-      }
-      float lpk_k = 0.0f, lpk_kn = 0.0f;
-#pragma unroll
-      for (int m = 0; m < K; ++m) {
-        if (m == kk) lpk_k = logpk[m];
-        if (m == kn) lpk_kn = logpk[m];
-      }
-      logratio = lpk_k - lpk_kn;
-    }
-    const int dkn = dims_s[kn];
-
-    // destination component ln ~ lam[kn]
-    int ln = 0;
-    {
-      float bl = loglam[kn * L] + am_gumbel(am_u01(wd(s_gcmp)));
-      for (int li = 1; li < L; ++li) {
-        float v = loglam[kn * L + li]
-                  + am_gumbel(am_u01(wd(s_gcmp + li)));
-        if (v > bl) {
-          bl = v;
-          ln = li;
-        }
-      }
-    }
-
-    // latent dimension matching: coordinates the chain's model lacks are
-    // filled with latent draws; the "grow" density reads the latent before
-    // the permutation, the "shrink" density after it
-    float wf[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) wf[d] = (d < dk) ? work[d] : z_lat(wd, d);
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d >= dk && d < dkn) logratio = logratio - lat_lpdf(wf[d]);
-    if (kPerm) {
-      // random permutation of the first max(dk, dkn) latent slots: a
-      // stable bubble network over per-slot uniform keys, inactive slots
-      // keyed 1 + d (D passes of D - 1 compare-swaps, as in the TPU kernel)
-      const int nact = dk > dkn ? dk : dkn;
-      float keys[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        keys[d] = (d < nact) ? am_u01(wd(s_perm + d)) : 1.0f + (float)d;
-#pragma unroll
-      for (int pass = 0; pass < D; ++pass) {
-#pragma unroll
-        for (int j = 0; j < D - 1; ++j) {
-          if (keys[j] > keys[j + 1]) {
-            const float kt = keys[j];
-            keys[j] = keys[j + 1];
-            keys[j + 1] = kt;
-            const float wt = wf[j];
-            wf[j] = wf[j + 1];
-            wf[j + 1] = wt;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < dk && d >= dkn) logratio = logratio + lat_lpdf(wf[d]);
-
-    // de-standardize into the destination model
-    float thn[D];
-    {
-      const int mln = kn * L + ln;
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        if (r < dkn) {
-          float a = mu[mln * D + r];
-#pragma unroll
-          for (int c = 0; c <= r; ++c) a = a + Bm[mln * D * D + r * D + c] * wf[c];
-          thn[r] = a;
-        } else {
-          thn[r] = 0.0f;
-        }
-      }
-    }
-
-    // reverse allocation over the destination model's components
-    const float log_pallocn = am_alloc<K, D>(kn, thn, dkn, L, abase, mu,
-                                             binv, wd, 0, false, ln, lg);
-
-    // MH accept
-    float lpn;
-    if constexpr (kCache)
-      lpn = (kn == 0) ? am_ddi_logpost<0>(thn, tab0)
-                      : am_ddi_logpost<1>(thn, tab1);
-    else
-      lpn = logpost(kn, dkn, thn);
-    logratio = logratio + (lpn - lp);
-    logratio = logratio + (log_pallocn - log_palloc);
-    logratio = logratio + (loglam[kk * L + l_idx] - loglam[kn * L + ln]);
-    logratio = logratio + (logdet[kn * L + ln] - logdet[kk * L + l_idx]);
-    const float accf =
-        (am_u01(wd(s_uacc)) < am_accept(logratio)) ? 1.0f : 0.0f;
-    const int acci = (int)accf;
-    if constexpr (kCache) {
-      if (acci) {
-        am_ddi_cache_full<0>(tab0, thn, cache, true);
-        am_ddi_cache_full<1>(tab1, thn, cache, true);
-      }
-    }
-    kk = kk + acci * (kn - kk);
-#pragma unroll
-    for (int d = 0; d < D; ++d) th[d] = th[d] + accf * (thn[d] - th[d]);
-    lp = lp + accf * (lpn - lp);
-    if constexpr (kCache) {
-      // periodic refresh of the cache and logp from the state (keyed on
-      // the global sweep, so a resume at a chunk boundary replays it)
-      if (t % kRefresh == kRefresh - 1) {
-        am_ddi_cache_full<0>(tab0, th, cache, false);
-        am_ddi_cache_full<1>(tab1, th, cache, false);
-        const auto col0 = [&](int c) { return cache[AmDdi<0>::kOff + c]; };
-        const auto col1 = [&](int c) { return cache[AmDdi<1>::kOff + c]; };
-        lp = (kk == 0) ? am_ddi_lp<0>(th, col0) : am_ddi_lp<1>(th, col1);
-      }
-    }
-
-    // ---- (c) pk diminishing adaptation with the re-init safeguard --------
-    if (adapt && K > 1) {
-      // K1c: this sweep's population histogram (header note)
-      const int* gh = nullptr;
-      if constexpr (kPooled) {
-        gh = ghist + (tr % 3) * K;
-        const int lane = threadIdx.x & 31;
-#pragma unroll
-        for (int m = 0; m < K; ++m) {
-          const unsigned b = __ballot_sync(0xffffffffu, valid && kk == m);
-          if (lane == 0 && b != 0u) atomicAdd(&hist_s[m], __popc(b));
-        }
-        __syncthreads();
-        if (threadIdx.x < K) {
-          const int c = hist_s[threadIdx.x];
-          hist_s[threadIdx.x] = 0;
-          if (c != 0) atomicAdd(ghist + (tr % 3) * K + threadIdx.x, c);
-        }
-        cooperative_groups::this_grid().sync();
-        if (blockIdx.x == 0 && threadIdx.x < K)
-          ghist[((tr + 2) % 3) * K + threadIdx.x] = 0;
-      }
-      const float gamma = am_gain(t);
-      float newpk[K];
-      bool reinit = false;
-#pragma unroll
-      for (int m = 0; m < K; ++m) {
-        float oh;
-        if constexpr (kPooled)
-          oh = (float)__ldcg(gh + m) * inv_S;
-        else
-          oh = (kk == m) ? 1.0f : 0.0f;
-        newpk[m] = pk[m] + gamma * (oh - pk[m]);
-        reinit = reinit || (newpk[m] < pkl);
-      }
-      nri += reinit ? 1 : 0;
-      if (reinit) pkl = 1.0f / (10.0f * (float)nri);
-      const float rf = reinit ? 1.0f : 0.0f;
-#pragma unroll
-      for (int m = 0; m < K; ++m)
-        pk[m] = newpk[m] + rf * ((float)(1.0 / K) - newpk[m]);
-    }
-
-    // ---- chunk statistics -------------------------------------------------
-#pragma unroll
-    for (int m = 0; m < K - 1; ++m) ks[m] += (m == kk) ? 1 : 0;
-    if constexpr (kSS) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float* s1 = sums_s + (kk * D + d) * kThreads;
-        float* s2 = sums_s + (K * D + kk * D + d) * kThreads;
-        *s1 = *s1 + th[d];
-        *s2 = *s2 + th[d] * th[d];
-      }
-    } else {
-#pragma unroll
-      for (int m = 0; m < K; ++m) {
-        if (m != kk) continue;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          ts[m * D + d] = ts[m * D + d] + th[d];
-          tq[m * D + d] = tq[m * D + d] + th[d] * th[d];
-        }
-      }
-    }
-    acc_rj += acci;
-  }
-
-  // ---- state and per-chain statistics out -----------------------------------
-  if (!valid) return;
-  k_out[i] = kk;
-#pragma unroll
-  for (int d = 0; d < D; ++d) th_out[d * S + i] = th[d];
-  lp_out[i] = lp;
-#pragma unroll
-  for (int m = 0; m < K; ++m) pk_out[m * S + i] = pk[m];
-  pkl_out[i] = pkl;
-  nri_out[i] = nri;
-  int ks_last = n_sweeps;
-#pragma unroll
-  for (int m = 0; m < K - 1; ++m) {
-    ks_out[m * S + i] = ks[m];
-    ks_last -= ks[m];
-  }
-  ks_out[(K - 1) * S + i] = ks_last;
-#pragma unroll
-  for (int j = 0; j < K * D; ++j) {
-    if constexpr (kSS) {
-      ts_out[j * S + i] = sums_s[j * kThreads];
-      tq_out[j * S + i] = sums_s[(K * D + j) * kThreads];
-    } else {
-      ts_out[j * S + i] = ts[j];
-      tq_out[j * S + i] = tq[j];
-    }
-  }
-  // sweeps t in [sweep0, sweep0 + n_sweeps) with t % 10 == 0 (block moves)
-  const int n_blk = (sweep0 + n_sweeps + 9) / 10 - (sweep0 + 9) / 10;
-  const int cnt[6] = {acc_blk, n_blk, acc_cw, try_cw, acc_rj, n_sweeps};
-#pragma unroll
-  for (int c = 0; c < 6; ++c) cnt_out[c * S + i] = cnt[c];
+template <int K, int D>
+__global__ void __launch_bounds__(kThreads, min_blocks<K, D>())
+fused_scan_kernel(AM_SWEEP_PARAMS) {
+  constexpr bool kPooled = false;
+#define AM_SCAN_FORM 1
+#include "fused_sweep_body.cuh"
+#undef AM_SCAN_FORM
 }
 
 // Kernel arguments after the launch configuration, in the kernel's order.
@@ -800,12 +376,15 @@ cudaError_t set_smem(int L) {
                               (int)sweep_smem<K, D, kPooled>(L));
 }
 
-// Chains K1c can hold resident at once on the current device at this L:
-// blocks per SM (occupancy at the kernel's registers and shared memory)
-// times SMs times kThreads; 0 where the device has no cooperative launch.
+// Blocks of the cooperative form ``fn`` (K1c or K1d) the current device
+// holds resident at once at this L: blocks per SM (occupancy at the
+// kernel's registers and shared memory) times SMs; 0 where the device has
+// no cooperative launch.
 template <int K, int D>
-int pooled_capacity(int L, int* chains) {
-  cudaError_t e = set_smem<K, D, true>(L);
+int resident_blocks(const void* fn, int L, int* blocks) {
+  const size_t smem = sweep_smem<K, D, true>(L);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -813,11 +392,36 @@ int pooled_capacity(int L, int* chains) {
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_sweep_kernel<K, D, true>, kThreads,
-      sweep_smem<K, D, true>(L));
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
-  *chains = coop ? per_sm * sms * kThreads : 0;
+  *blocks = coop ? per_sm * sms : 0;
+  return 0;
+}
+
+// Chains K1c can hold resident at once on the current device at this L.
+template <int K, int D>
+int pooled_capacity(int L, int* chains) {
+  int blocks = 0;
+  const int rc = resident_blocks<K, D>(
+      (const void*)fused_sweep_kernel<K, D, true>, L, &blocks);
+  *chains = blocks * kThreads;
+  return rc;
+}
+
+// K1d's grid on the current device, in threads: the blocks it holds
+// resident, trimmed so that every thread carries ceil(S / capacity) chains
+// or one fewer.
+template <int K, int D>
+int scan_grid(int S, int L, int* threads) {
+  int blocks = 0;
+  const int rc = resident_blocks<K, D>(
+      (const void*)fused_scan_kernel<K, D>, L, &blocks);
+  if (rc != 0) return rc;
+  if (blocks == 0) return (int)cudaErrorNotSupported;
+  const int cap = blocks * kThreads;
+  const int nc = (S + cap - 1) / cap;           // chains a thread carries
+  *threads = ((S + nc - 1) / nc + kThreads - 1) / kThreads * kThreads;
   return 0;
 }
 
@@ -858,11 +462,26 @@ int max_l(int* L) {
   return 0;
 }
 
+// A cooperative launch of ``fn`` (K1c or K1d) on ``blocks`` blocks.
+int coop_launch(const void* fn, SweepArgs a, int blocks, size_t smem,
+                cudaStream_t st) {
+  void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
+                  &a.rng, &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
+                  &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
+                  &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
+                  &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
+                  &a.ts_out, &a.tq_out, &a.cnt_out};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(blocks), dim3(kThreads), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int K, int D, bool kPooled>
 int launch_sweep(SweepArgs a, cudaStream_t st) {
   cudaError_t e = set_smem<K, D, kPooled>(a.L);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.S + kThreads - 1) / kThreads);
+  const int blocks = (a.S + kThreads - 1) / kThreads;
   const size_t smem = sweep_smem<K, D, kPooled>(a.L);
   if constexpr (kPooled) {
     // refuse a population the card cannot hold resident
@@ -870,25 +489,37 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
     const int rc = pooled_capacity<K, D>(a.L, &cap);
     if (rc != 0) return rc;
     if (a.S > cap) return -2;
-    void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
-                    &a.rng, &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
-                    &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
-                    &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
-                    &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
-                    &a.ts_out, &a.tq_out, &a.cnt_out};
-    e = cudaLaunchCooperativeKernel(
-        (const void*)fused_sweep_kernel<K, D, true>, grid,
-        dim3(kThreads), args, smem, st);
-    if (e != cudaSuccess) return (int)e;
-  } else {
-    fused_sweep_kernel<K, D, false><<<grid, kThreads, smem, st>>>(
-        a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.rng, a.tc,
-        a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
-        a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
-        a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
-        a.cnt_out);
+    return coop_launch((const void*)fused_sweep_kernel<K, D, true>, a,
+                       blocks, smem, st);
   }
+  fused_sweep_kernel<K, D, false><<<blocks, kThreads, smem, st>>>(
+      a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.rng, a.tc,
+      a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
+      a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
+      a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
+      a.cnt_out);
   return (int)cudaGetLastError();
+}
+
+// K1d on a grid of G threads (scan_grid; the statistics are sized for it).
+// Pooled pk needs K > 1, so no K = 1 form is compiled.
+template <int K, int D>
+int launch_scan(SweepArgs a, int G, cudaStream_t st) {
+  if constexpr (K > 1) {
+    int g = 0;
+    const int rc = scan_grid<K, D>(a.S, a.L, &g);
+    if (rc != 0) return rc;
+    if (g != G) return -1;
+    return coop_launch((const void*)fused_scan_kernel<K, D>, a,
+                       G / kThreads, sweep_smem<K, D, true>(a.L), st);
+  }
+  return -1;
+}
+
+template <int K, int D>
+int scan_grid_of(int S, int L, int* threads) {
+  if constexpr (K > 1) return scan_grid<K, D>(S, L, threads);
+  return -1;
 }
 
 AmT t_consts(const float* tconsts) {
@@ -910,6 +541,7 @@ int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
 }  // namespace
 
 #ifdef __CUDACC__
+#if !AM_SCAN
 // Launch on ``stream``; returns cudaGetLastError() after the launch, or -1
 // for a (K, D) pair without an instantiation or an L above kLMax.  The form
 // follows from (K, D): at the cached shape (AM_DDI_K, AM_DDI_D) the kernel
@@ -1000,4 +632,52 @@ extern "C" int AM_K1C_CAP_SYMBOL(int K, int D, int L, int* chains) {
 #undef AM_CASE
   return -1;
 }
+#else
+// K1d: ``n_sweeps`` sweeps of pooled pk adaptation for S chains on a grid
+// of ``G`` threads (AM_K1D_GRID_SYMBOL).  ``k_io``, ``th_io`` [D, S] and
+// ``lp_io`` hold the chains' state and are updated in place; ``pk_in`` [K],
+// ``pkl_in`` and ``nri_in`` [1] are the shared pk, pkllim and nreinit, and
+// ``pk_out``, ``pkl_out``, ``nri_out`` receive them; ``ks_out`` [K, G],
+// ``ts_out`` and ``tq_out`` [K*D, G] and ``cnt_out`` [6, G] the threads'
+// partial chunk statistics.  ``ghist`` is a zeroed device int[3 * K],
+// ``inv_S`` float32(1 / S).  Returns -1 for a (K, D) pair without an
+// instantiation, K < 2, an L above kLMax, or a G other than the grid's.
+extern "C" int AM_K1D_SYMBOL(
+    int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
+    int rng, const float* tconsts, int G, void* ghist, float inv_S,
+    const void* tab, const void* kinds, const void* consts, const void* dims,
+    void* k_io, void* th_io, void* lp_io, const void* pk_in,
+    const void* pkl_in, const void* nri_in, void* pk_out, void* pkl_out,
+    void* nri_out,
+    void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
+  if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
+  if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
+  if (kTdist && !tconsts) return -1;
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, t_consts(tconsts),
+                 (int*)ghist, inv_S,
+                 (const float*)tab, (const int*)kinds, (const int*)dims,
+                 (const float*)consts, nullptr, nullptr, nullptr,
+                 (const float*)pk_in, (const float*)pkl_in,
+                 (const int*)nri_in, (int*)k_io, (float*)th_io,
+                 (float*)lp_io, (float*)pk_out, (float*)pkl_out, (int*)nri_out,
+                 (int*)ks_out, (float*)ts_out, (float*)tq_out,
+                 (int*)cnt_out};
+#define AM_CASE(k, d) \
+  if (K == k && D == d) return launch_scan<k, d>(a, G, (cudaStream_t)stream);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
+}
+
+// K1d's grid for S chains at (K, D, L) on the current device, in threads,
+// in ``G``; -1 without an instantiation.
+extern "C" int AM_K1D_GRID_SYMBOL(int K, int D, int S, int L, int* G) {
+  if (L < 1 || L > kLMax || S < 1) return -1;
+#define AM_CASE(k, d) \
+  if (K == k && D == d) return scan_grid_of<k, d>(S, L, G);
+  AM_SHAPES(AM_CASE)
+#undef AM_CASE
+  return -1;
+}
+#endif
 #endif

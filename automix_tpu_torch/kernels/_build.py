@@ -3,15 +3,15 @@
 The kernels in ``automix_tpu_torch/csrc`` are compiled at first use with
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``.  Each compilation unit (a source, and for the stage-3 sweep
-kernel one unit per perm / Student-t variant, for the stage-1 segment
-kernel one per Student-t variant) is compiled by its own
-``nvcc`` process, all started together, then linked.  The (K, D) shapes
-the kernels are instantiated for are :data:`SHAPES`, written for the
-compiler into a generated ``am_shapes.h`` (the ``AM_SHAPES`` X-macro that
-``csrc/common.cuh`` includes); the rb9 family's data are written into a
-generated ``am_rb9.h`` from ``models/rb9.py``, the DDI family's
-tables into ``am_ddi.h`` from ``models/ddi_cols.py`` and the change-point
-events into ``am_cpt.h`` from ``models/changepoint.py``.  The library is
+kernel two units per perm / Student-t variant, one of them K1d's, for the
+stage-1 kernels one per Student-t variant) is compiled by its own
+``nvcc`` process, as many at once as there are CPU cores, then linked.
+The (K, D) shapes the kernels are instantiated for are :data:`SHAPES`,
+written for the compiler into a generated ``am_shapes.h`` (the
+``AM_SHAPES`` X-macro that ``csrc/common.cuh`` includes); the rb9 family's
+data are written into a generated ``am_rb9.h`` from ``models/rb9.py``,
+the DDI family's tables into ``am_ddi.h`` from ``models/ddi_cols.py`` and
+the change-point events into ``am_cpt.h`` from ``models/changepoint.py``.  The library is
 cached under ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source builds anew; the
 compilers' output (``ptxas -v`` register and spill counts) is kept beside
@@ -32,7 +32,8 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_HEADERS = ("common.cuh", "ddi.cuh", "changepoint.cuh")
+_HEADERS = ("common.cuh", "ddi.cuh", "changepoint.cuh",
+            "fused_sweep_body.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -66,10 +67,17 @@ def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
     """Exported name of a stage-3 sweep function of one variant: the
     per-chain launcher (``kind=""``), the pooled launcher (``"pooled"``),
     the pooled capacity query (``"pooled_cap"``), the largest-L query
-    (``"max_l"``) or the per-chain kernel's occupancy query
-    (``"occupancy"``)."""
+    (``"max_l"``), the per-chain kernel's occupancy query
+    (``"occupancy"``), K1d's launcher (``"scan"``) or its grid query
+    (``"scan_grid"``)."""
     infix = f"_{kind}" if kind else ""
     return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
+
+
+def stage1_sweep_symbol(tdist: bool) -> str:
+    """Exported name of the stage-1 one-sweep launcher (K3) of one unit,
+    Normal or Student-t."""
+    return f"am_fused_stage1_sweep_t{int(tdist)}"
 
 
 def stage1_symbol(tdist: bool, kind: str = "") -> str:
@@ -80,7 +88,9 @@ def stage1_symbol(tdist: bool, kind: str = "") -> str:
     return f"am_fused_stage1{infix}_t{int(tdist)}"
 
 
-# (source, preprocessor definitions) of each compilation unit.
+# (source, preprocessor definitions) of each compilation unit, longest
+# first: at most one unit a CPU core compiles at once (build), started in
+# this order, so the short units take the cores the long ones leave.
 _UNITS = tuple(
     ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}",
                         f"-DAM_K1_SYMBOL={sweep_symbol(p, t)}",
@@ -91,11 +101,18 @@ _UNITS = tuple(
                         "-DAM_K1_OCC_SYMBOL="
                         f"{sweep_symbol(p, t, 'occupancy')}"))
     for p in (0, 1) for t in (0, 1)) + tuple(
+    ("fused_stage1_sweep.cu", (f"-DAM_K3_T={t}",
+                               f"-DAM_K3_SYMBOL={stage1_sweep_symbol(t)}"))
+    for t in (0, 1)) + tuple(
+    ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}", "-DAM_SCAN=1",
+                        f"-DAM_K1D_SYMBOL={sweep_symbol(p, t, 'scan')}",
+                        "-DAM_K1D_GRID_SYMBOL="
+                        f"{sweep_symbol(p, t, 'scan_grid')}"))
+    for p in (0, 1) for t in (0, 1)) + tuple(
     ("fused_stage1.cu", (f"-DAM_STAGE1_T={t}",
                          f"-DAM_STAGE1_SYMBOL={stage1_symbol(t)}",
                          f"-DAM_STAGE1_CAP_SYMBOL={stage1_symbol(t, 'cap')}"))
     for t in (0, 1)) + (
-    ("fused_stage1_sweep.cu", ()),
     ("sweep_rng.cu", ()),
 )
 
@@ -116,11 +133,16 @@ _SIGNATURES = {
     **{sweep_symbol(p, t, kind): [_I, _I, _I, _P]
        for p in (0, 1) for t in (0, 1)
        for kind in ("pooled_cap", "max_l", "occupancy")},
+    **{sweep_symbol(p, t, "scan"): [_I, _I, _I, _I, _U, _I, _I, _I, _P, _I]
+       + [_P, _F] + [_P] * 4 + [_P] * 3 + [_P] * 6 + [_P] * 4 + [_P]
+       for p in (0, 1) for t in (0, 1)},
+    **{sweep_symbol(p, t, "scan_grid"): [_I, _I, _I, _I, _P]
+       for p in (0, 1) for t in (0, 1)},
     **{stage1_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
        + [_P] + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P] for t in (0, 1)},
     **{stage1_symbol(t, "cap"): [_I, _I, _P] for t in (0, 1)},
-    "am_fused_stage1_sweep": [_I, _I, _I, _I, _I, _U, _I, _I, _P]
-    + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P],
+    **{stage1_sweep_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P]
+       + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P] for t in (0, 1)},
     "am_sweep_rng": [_I, _I, _I, _I, _U, _U, _I, _P, _P, _P],
 }
 
@@ -175,28 +197,38 @@ def build() -> Path:
     work.mkdir(exist_ok=True)
     for name, text in generated_headers().items():
         (work / name).write_text(text)
-    jobs = []
     t0 = time.time()
+    cmds = [[nvcc, *NVCC_FLAGS, *defines, f"-I{work}", "-c", "-o",
+             str(work / f"{i}_{Path(src).stem}.o"), str(_CSRC / src)]
+            for i, (src, defines) in enumerate(_UNITS)]
+    procs, started = [], []
+    cores = max(1, len(os.sched_getaffinity(0)))
     try:
-        for i, (src, defines) in enumerate(_UNITS):
-            obj = work / f"{i}_{Path(src).stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, *defines, f"-I{work}", "-c", "-o",
-                   str(obj), str(_CSRC / src)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+        # one unit a core at once, started in _UNITS order
+        while len(procs) < len(cmds) or any(
+                p.poll() is None for p in procs):
+            for i, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    raise RuntimeError(
+                        f"nvcc failed ({p.returncode}):\n"
+                        f"{' '.join(cmds[i])}\n{_output(work, i)}")
+            while len(procs) < len(cmds) and sum(
+                    p.poll() is None for p in procs) < cores:
+                i = len(procs)
+                with open(work / f"{i}.out", "w") as fh:
+                    procs.append(subprocess.Popen(
+                        cmds[i], stdout=fh, stderr=subprocess.STDOUT))
+                started.append(time.time() - t0)
+            time.sleep(0.1)
         log = []
-        for cmd, obj, proc in jobs:
-            text = proc.communicate()[0]
-            secs = obj.stat().st_mtime - t0 if obj.exists() else 0.0
-            log.append(f"$ {' '.join(cmd)}\n{text}unit done after "
+        for i, cmd in enumerate(cmds):
+            secs = Path(cmd[-2]).stat().st_mtime - t0
+            log.append(f"$ {' '.join(cmd)}\n{_output(work, i)}unit started "
+                       f"after {started[i]:.1f} s, unit done after "
                        f"{secs:.1f} s\n")
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{text}")
         lib_tmp = work / out.name
         cmd = [nvcc, "-shared", "-o", str(lib_tmp),
-               *[str(obj) for _, obj, _ in jobs]]
+               *[c[-2] for c in cmds]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
@@ -205,12 +237,17 @@ def build() -> Path:
         out.with_suffix(".log").write_text("\n".join(log))
         os.replace(lib_tmp, out)
     finally:
-        for _, _, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def _output(work: Path, i: int) -> str:
+    """What unit i's compiler printed."""
+    return (work / f"{i}.out").read_text()
 
 
 def library() -> ctypes.CDLL:

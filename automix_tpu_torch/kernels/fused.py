@@ -14,10 +14,10 @@ which no GPU has: a per-chain state seeded at each launch's first sweep
 from (seed, sweep0, global chain) and stepped once per sweep into a key,
 every word a cheap mix of (key, slot) (``ops/randoms.py`` ``hw_*``).  It
 is chunk-granular as JAX's is: a launch reseeds, so a run resumed at a
-chunk boundary and chunked the same way reproduces bitwise, and K1d's
-one-sweep launches reseed every sweep, as JAX's ``_compiled_pooled``
-does.  ``auto`` resolves on the chains' device (:func:`resolve_rng`):
-``hw`` on the card, ``hash`` on the CPU, as JAX's is ``hw`` on its chip
+chunk boundary and chunked the same way reproduces bitwise, and K1d
+reseeds every sweep, as JAX's ``_compiled_pooled`` does.  ``auto``
+resolves on the chains' device (:func:`resolve_rng`): ``hw`` on the
+card, ``hash`` on the CPU, as JAX's is ``hw`` on its chip
 and ``hash`` under its interpreter.  An explicit ``hw`` on the CPU runs
 the twin of the port's own stream, which JAX cannot do for the TPU's.
 The wrappers' own default stays ``hash``.
@@ -36,13 +36,16 @@ routes while it adapts.  K1c (:func:`sweep_chunk` with ``pooled=True``)
 does the update inside the kernel, a cooperative launch over every chain,
 for a population the card holds resident at once
 (:func:`pooled_capacity`).  A larger population takes K1d
-(:func:`pooled_sweeps`): one launch of the per-chain kernel per sweep with
-pk frozen, and the shared update between launches in plain torch on the
-device, as the JAX ``_compiled_pooled``.  With the hash and a stateless
-density the two routes give bitwise the same chains; with a cache they do
-not, since K1d's one-sweep launches rebuild it every sweep, nor with the
-hw stream, which they reseed every sweep.  Burn-in and ``adapt=False``
-runs keep the per-chunk kernel, pk being frozen.
+(:func:`pooled_scan`), the JAX ``_compiled_pooled``: every sweep, every
+chain with pk frozen, then the shared update from the sweep's histogram;
+one cooperative launch a chunk, each thread carrying several chains and
+the update behind a grid barrier.  It equals the one-sweep route
+(:func:`pooled_sweeps`: one launch of the per-chain kernel per sweep and
+the update in torch) bit for bit.  With the hash and a stateless density
+K1c and K1d give bitwise the same chains; with a cache they do not, since
+K1d rebuilds it every sweep, nor with the hw stream, which K1d reseeds
+every sweep.  Burn-in and ``adapt=False`` runs keep the per-chunk kernel,
+pk being frozen.
 
 The stateless form copies the proposal tables into each block's shared
 memory, so their size bounds L: at the change-point shape (6, 13) on the
@@ -199,8 +202,8 @@ def _blend(cache, cache_n, acc):
 def _gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
     """float32 [n_sweeps] pk gains gamma_t = exp(-2/3 log(t + 1)) of
     sweeps sweep0 ..., in float32 as the JAX kernel and the CUDA kernel
-    (``am_gain``) compute them.  The pooled twin and the K1d runner both
-    take a chunk's gains from here, so they agree on every device."""
+    (``am_gain``) compute them.  The pooled twin and the one-sweep route
+    both take a chunk's gains from here, so they agree on every device."""
     t = torch.arange(sweep0, sweep0 + n_sweeps, device=device)
     return torch.exp((-2.0 / 3.0) * torch.log(t.to(torch.float32) + 1.0))
 
@@ -625,6 +628,8 @@ sweep_chunk.launches = 0
 sweep_chunk.pooled_launches = 0
 sweep_chunk.hw_launches = 0
 sweep_chunk.pooled_hw_launches = 0
+sweep_chunk.scan_launches = 0      # K1d, pooled_scan
+sweep_chunk.scan_hw_launches = 0
 
 
 def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
@@ -647,16 +652,18 @@ def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
 def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                   *, seed: int, perm: bool = False, tdist=None,
                   sweep_fn=None, rng: str = "hash"):
-    """K1d, the per-sweep pooled runner (the JAX ``_compiled_pooled``):
-    each sweep one launch of the per-chain kernel with pk frozen (its
-    plain twin on the CPU), then :func:`pooled_update` of the shared pk
-    from the sweep's integer histogram, all on the chains' device with no
-    host sync.  Returns (chains', chunk) as the chunk runner does; the
-    float sums are summed sweep by sweep, so they may differ from K1c's in
-    the last bits.  Its launches count in ``sweep_chunk.launches`` (or
-    ``hw_launches`` with ``rng="hw"``, whose one-sweep launches reseed the
-    stream every sweep).  ``sweep_fn=sweep_chunk_ref`` is the runner's
-    plain twin on any device."""
+    """The one-sweep pooled route (the JAX ``_compiled_pooled`` as a host
+    loop): each sweep one launch of the per-chain kernel with pk frozen
+    (``sweep_fn``, :func:`sweep_chunk` by default), then
+    :func:`pooled_update` of the shared pk from the sweep's integer
+    histogram, all on the chains' device with no host sync.  Returns
+    (chains', chunk) as the chunk runner does; the float sums are summed
+    sweep by sweep, so they may differ from K1c's in the last bits.  Its
+    launches count in ``sweep_chunk.launches`` (or ``hw_launches`` with
+    ``rng="hw"``, whose one-sweep launches reseed the stream every sweep).
+    The runner takes K1d (:func:`pooled_scan`) instead; this route is what
+    K1d is held to on the card, and with ``sweep_fn=sweep_chunk_ref`` it
+    is K1d's plain version on any device."""
     sweep_fn = sweep_fn or sweep_chunk
     K, D = modelset.nmodels, modelset.dmax
     S = chains.n_chains
@@ -693,6 +700,106 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                         nreinit=nri.expand(S).contiguous(),
                         sweep=chains.sweep + n_sweeps)
     return chains_out, _chunk(ks_a, ts_a, tq_a, cnt_a, K, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_grid(K: int, D: int, S: int, L: int, perm: bool, tdist: bool,
+               device: int) -> int:
+    """K1d's grid for S chains at (K, D, L) on the card ``device``, in
+    threads (the launcher's own choice)."""
+    G = ctypes.c_int()
+    symbol = _build.sweep_symbol(perm, tdist, "scan_grid")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            K, D, S, L, ctypes.byref(G)), symbol)
+    return G.value
+
+
+def pooled_scan(modelset, chains: Chains, tables: SweepTables, n_sweeps,
+                *, seed: int, perm: bool = False, tdist=None,
+                rng: str = "hash"):
+    """K1d, the pooled route above K1c's bound: ``n_sweeps`` sweeps of the
+    JAX ``_compiled_pooled`` (each sweep every chain with the shared pk
+    frozen, then :func:`pooled_update` from the sweep's histogram) in one
+    cooperative launch of ``csrc/fused_sweep.cu``'s K1d on chains on the
+    card, each thread carrying several chains through every sweep; on the
+    CPU its plain version, :func:`pooled_sweeps` over
+    :func:`sweep_chunk_ref`.  Bit for bit the one-sweep route
+    ``pooled_sweeps(..., sweep_fn=sweep_chunk)`` in every chain field and
+    counter (its float sums in another order).  Returns (chains', chunk).
+    Launches count in ``sweep_chunk.scan_launches`` (hash) and
+    ``sweep_chunk.scan_hw_launches``; a kernel that cannot build or launch
+    raises, and nothing falls back."""
+    if modelset.nmodels < 2:
+        raise ValueError("pooled_scan: pooled pk needs K > 1")
+    if rng not in RNG_STREAMS:
+        raise ValueError(f"pooled_scan: unknown rng {rng!r}")
+    dev = chains.k.device
+    if dev.type == "cpu":
+        return pooled_sweeps(modelset, chains, tables, n_sweeps, seed=seed,
+                             perm=perm, tdist=tdist,
+                             sweep_fn=sweep_chunk_ref, rng=rng)
+    if dev.type != "cuda":
+        raise ValueError(f"pooled_scan: unsupported device {dev}")
+    K, D = modelset.nmodels, modelset.dmax
+    S = chains.n_chains
+    L = tables.loglam.shape[1]
+    _build.check_shape(K, D, "pooled_scan")
+    check_form(modelset)
+    check_tables(K, D, L, dev, perm, tdist is not None, pooled=True)
+    f32, i32 = torch.float32, torch.int32
+    tab = tables.packed()
+    if tab.device != dev or tab.dtype != f32:
+        raise ValueError(f"pooled_scan: tables must be float32 on {dev}")
+    for name, x, dtype, shape in (
+            ("k", chains.k, i32, (S,)), ("theta", chains.theta, f32, (S, D)),
+            ("logp", chains.logp, f32, (S,)), ("pk", chains.pk, f32, (S, K)),
+            ("pkllim", chains.pkllim, f32, (S,)),
+            ("nreinit", chains.nreinit, i32, (S,))):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"pooled_scan: {name} must be a {dtype} "
+                             f"{shape} tensor on {dev}")
+    kinds, consts, dims = modelset.density_table(dev)
+    G = _scan_grid(K, D, S, L, perm, tdist is not None,
+                   torch.cuda.current_device() if dev.index is None
+                   else dev.index)
+    # the state, updated in place; the shared pk, pkllim and nreinit
+    fresh = functools.partial(torch.clone,
+                              memory_format=torch.contiguous_format)
+    k, th, lp = fresh(chains.k), fresh(chains.theta.T), fresh(chains.logp)
+    shared = (chains.pk[0].contiguous(), chains.pkllim[:1].contiguous(),
+              chains.nreinit[:1].contiguous())
+    outs = (torch.empty(K, dtype=f32, device=dev),
+            torch.empty(1, dtype=f32, device=dev),
+            torch.empty(1, dtype=i32, device=dev),
+            torch.empty((K, G), dtype=i32, device=dev),
+            torch.empty((K * D, G), dtype=f32, device=dev),
+            torch.empty((K * D, G), dtype=f32, device=dev),
+            torch.empty((6, G), dtype=i32, device=dev))
+    ghist = torch.zeros(3 * K, dtype=i32, device=dev)
+    symbol = _build.sweep_symbol(perm, tdist is not None, "scan")
+    status = getattr(_build.library(), symbol)(
+        K, D, S, L, seed & 0xFFFFFFFF, chains.sweep, n_sweeps,
+        RNG_STREAMS[rng], _build.tconsts(tdist), G, ghist.data_ptr(),
+        float(torch.tensor(1.0 / S, dtype=f32)), tab.data_ptr(),
+        kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
+        k.data_ptr(), th.data_ptr(), lp.data_ptr(),
+        *[x.data_ptr() for x in shared], *[o.data_ptr() for o in outs],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, symbol)
+    if rng == "hw":
+        sweep_chunk.scan_hw_launches += 1
+    else:
+        sweep_chunk.scan_launches += 1
+    pk, pkl, nri, ks, ts, tq, cnt = outs
+    chains_out = Chains(k=k, theta=th.T.contiguous(), logp=lp,
+                        pk=pk[None, :].expand(S, K).contiguous(),
+                        pkllim=pkl.expand(S).contiguous(),
+                        nreinit=nri.expand(S).contiguous(),
+                        sweep=chains.sweep + n_sweeps)
+    return chains_out, _chunk(
+        ks.sum(dim=1, dtype=torch.int64), ts.sum(dim=1), tq.sum(dim=1),
+        cnt.sum(dim=1, dtype=torch.int64), K, D)
 
 
 def _chunk(ks, ts, tq, cnt, K: int, D: int) -> dict:
@@ -739,9 +846,9 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
                 dev.type == "cuda" and chains.n_chains > pooled_capacity(
                     modelset, tables.loglam.shape[1], dev, cfg.perm,
                     tdist))):
-            return pooled_sweeps(modelset, chains, tables, n_sweeps,
-                                 seed=int(cfg.seed), perm=cfg.perm,
-                                 tdist=tdist, rng=rng)
+            return pooled_scan(modelset, chains, tables, n_sweeps,
+                               seed=int(cfg.seed), perm=cfg.perm,
+                               tdist=tdist, rng=rng)
         outs = sweep_chunk(
             modelset, chains.k, chains.theta.T.contiguous(), chains.logp,
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
@@ -759,7 +866,7 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     return runner
 
 
-# Test hook: send adapting pooled runs to the per-sweep runner (K1d) even
-# where the card holds the population resident, so that its bitwise
-# equality with K1c can be shown (the JAX package's hook of this name).
+# Test hook: send adapting pooled runs to K1d (pooled_scan) even where the
+# card holds the population resident, so that its bitwise equality with
+# K1c can be shown (the JAX package's hook of this name).
 _FORCE_POOLED_SCAN = False

@@ -345,14 +345,14 @@ def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     th_o = torch.empty_like(theta)
     lp_o = torch.empty_like(logp)
     cnt = torch.zeros((K, D), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    status = lib.am_fused_stage1_sweep(
+    symbol = _build.stage1_sweep_symbol(tdist is not None)
+    status = getattr(_build.library(), symbol)(
         K, D, N, C, t, seed, nburn, int(seg_start), _build.tconsts(tdist),
         kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
         theta.data_ptr(), logp.data_ptr(), sig.data_ptr(), th_o.data_ptr(),
         lp_o.data_ptr(), cnt.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "am_fused_stage1_sweep")
+    _build.check(status, symbol)
     sweep.launches += 1
     return th_o, lp_o, cnt
 

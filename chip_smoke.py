@@ -22,9 +22,12 @@ PyTorch twin on the card, then drives the port's paths at full size:
   in mode 1 at its defaults (per-chain pk, perm, traces every 16th sweep)
   at 131072 chains, then pooled pk through ``AMSampler`` from the same
   proposal at 16384 chains (the in-kernel pooled kernel K1c) and 131072
-  chains (the per-sweep runner K1d), p(M) each against the reference C
-  code's ``tests/data/heavy_oracle.json`` rb9 mean, and a short K1d run
-  forced on the 16384 chains, bitwise equal to K1c;
+  chains (K1d, the pooled route above K1c's bound, one cooperative launch
+  a chunk), p(M) each against the reference C code's
+  ``tests/data/heavy_oracle.json`` rb9 mean, a short K1d run forced on
+  the 16384 chains, bitwise equal to K1c, and K1d bitwise equal to the
+  one-sweep route it replaced (a K1 launch a sweep and the update in
+  torch) on both streams;
 * DDI (2 models of dims 16 and 10, the sweep kernel's cached form K1e):
   ``AMSampler`` at ``bench_suite.py``'s configuration (16384 chains, 512
   stage-1 chains per model, 1500 stage-1 sweeps, 500-sweep chunks, seed
@@ -33,8 +36,9 @@ PyTorch twin on the card, then drives the port's paths at full size:
   ``_mix.data`` at its defaults, and pooled pk at 16384 chains on the
   route ``pooled_capacity`` picks, p(M) each against the C oracle's ddi
   mean; K1e, K1e + perm (100 sweeps, crossing six cache refreshes), K1e at
-  L = 32, K1d with the cache (the per-sweep pooled runner, forced on the
-  run's 16384 chains; with K1e's registers and resident warps per SM),
+  L = 32, K1d with the cache (bitwise the one-sweep route on the run's
+  chains repeated above K1c's bound, and its twin on the run's 16384;
+  with K1e's registers and resident warps per SM),
   K1c with the cache and both stage-1 kernels with the DDI density each equal
   to its twin run on the card, and DDI's stage 1 on both routes, timed
   and bitwise equal;
@@ -46,7 +50,8 @@ PyTorch twin on the card, then drives the port's paths at full size:
   1024 stage-1 chains per model on K2-log, 2500 stage-1 sweeps; cptrs
   fitted at lmax 10) with 16384 chains on K1c, 1500 burn-in
   and 10000 timed sweeps; K1, K1 + perm and K1c on cpt's proposal and
-  state, each equal to its twin; the CLI in mode 1 at its defaults with
+  state, each equal to its twin, and K1d forced there, equal to the
+  one-sweep route; the CLI in mode 1 at its defaults with
   ``-N 10000`` from each set's ``_mix.data``.  p(M) against the JAX
   package's own posterior (``tests/data/cpt_jax_reference.json``), the
   mean of eight cpt stage-3 runs from its proposal (each also held to
@@ -68,9 +73,9 @@ above runs the sweep kernel's hw form (K1f).  Beside them: 20000 timed
 sweeps of the main path's state on the hash (both streams' chain-sweeps/s
 in one log) and K1 timed on that state with each stream in turns; K1f
 against its twin on the card in seven forms (the tutorial, toy2 perm +
-Student-t and perm, rb9's K1c and K1d runner, DDI's K1e bitwise, cpt at
-(6, 13)); the two routes held bitwise (K1c against the forced K1d on rb9,
-the K1d runner against its twin) pinned to the hash, which they need; and
+Student-t and perm, rb9's K1c and K1d, DDI's K1e bitwise, cpt at
+(6, 13)); the two pooled routes held bitwise (K1c against the forced K1d
+on rb9) pinned to the hash, which they need; and
 each hash form whose own path now runs K1f driven through ``AMSampler``
 pinned to the hash (the burn-ins of the toy2 and rb9 check states, and
 short drives from the DDI and cpt states).
@@ -510,7 +515,8 @@ def ptxas_summary(lib_path, K, D):
     text = lib_path.with_suffix(".log").read_text()
     out = []
     for unit in text.split("$ ")[1:]:
-        t = re.search(r"-DAM_STAGE1_T=(\d)", unit.split("\n", 1)[0])
+        t = re.search(r"-DAM_(?:STAGE1_T|TDIST)=(\d)",
+                      unit.split("\n", 1)[0])
         for block in unit.split("Compiling entry function '")[1:]:
             name = block.split("'", 1)[0]
             m = re.search(rf"\d(fused_[a-z0-9_]*?_kernel)ILi{K}ELi{D}E"
@@ -590,6 +596,8 @@ def reset_counts():
     fused.sweep_chunk.pooled_launches = 0
     fused.sweep_chunk.hw_launches = 0
     fused.sweep_chunk.pooled_hw_launches = 0
+    fused.sweep_chunk.scan_launches = 0
+    fused.sweep_chunk.scan_hw_launches = 0
     fused_stage1.segment.launches = 0
     fused_stage1.sweep.launches = 0
     sweep_rng.draw.launches = 0
@@ -597,14 +605,16 @@ def reset_counts():
 
 def read_counts():
     """Launches since the last reset: K1 (every per-chain kernel launch
-    with the hash, the K1d runner's one-sweep launches included), K1c
-    (pooled, hash), K1f and K1fc (the same two with the hw stream), K2, K3,
-    K4."""
+    with the hash, the one-sweep pooled route's included), K1c (pooled,
+    hash), K1d (pooled above K1c's bound, hash), K1f, K1fc and K1fd (the
+    same three with the hw stream), K2, K3, K4."""
     from automix_tpu_torch.kernels import fused, fused_stage1, sweep_rng
     return {"K1": fused.sweep_chunk.launches,
             "K1c": fused.sweep_chunk.pooled_launches,
+            "K1d": fused.sweep_chunk.scan_launches,
             "K1f": fused.sweep_chunk.hw_launches,
             "K1fc": fused.sweep_chunk.pooled_hw_launches,
+            "K1fd": fused.sweep_chunk.scan_hw_launches,
             "K2": fused_stage1.segment.launches,
             "K3": fused_stage1.sweep.launches,
             "K4": sweep_rng.draw.launches}
@@ -893,23 +903,92 @@ def check_pooled(ms, prop, chains, dev):
     return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
 
 
+def scan_against_route(ms, tabs, chains, n_sweeps, rng, label):
+    """K1d (``pooled_scan``: one cooperative launch) and the one-sweep
+    route it replaces (``pooled_sweeps`` over ``sweep_chunk``: a K1 launch
+    a sweep and the shared update in torch), both on the card from
+    ``chains``: k, theta, logp, pk, pkllim, nreinit, the visit counts and
+    the six counters bitwise equal, the theta sums within 1e-5 relative
+    (another summation order).  Fails otherwise.  Returns K1d's (chains,
+    chunk)."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    a, ca = fused.pooled_scan(ms, chains, tabs, n_sweeps, seed=17, rng=rng)
+    b, cb = fused.pooled_sweeps(ms, chains, tabs, n_sweeps, seed=17, rng=rng,
+                                sweep_fn=fused.sweep_chunk)
+    torch.cuda.synchronize()
+    fields = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "k", "theta", "logp", "pk", "pkllim", "nreinit"))
+    counts = all(torch.equal(ca[n], cb[n]) for n in ca
+                 if not n.startswith("theta"))
+    sums = max(float(((ca[n] - cb[n]).abs()
+                      / (1e-2 + cb[n].abs())).max())
+               for n in ("theta_sum", "theta_sqsum"))
+    jumps = float((a.k != chains.k).float().mean())
+    log(f"{label} vs the one-sweep route, {rng} ({chains.n_chains} chains x "
+        f"{n_sweeps} sweeps from sweep {chains.sweep}): chain fields equal "
+        f"{fields}, visit counts and counters equal {counts}, theta sums "
+        f"max rel diff {sums:.3e}; chains that jumped {jumps:.4f}")
+    if not (fields and counts and sums <= 1e-5):
+        fail(f"{label} differs from the one-sweep route")
+    return a, ca
+
+
+def route_turns(ms, tabs, chains, rng):
+    """ms per sweep of the one-sweep route (K1D_CHECK_SWEEPS sweeps) and of
+    K1d (a launch of TIME_SWEEPS sweeps) on ``chains``, in turns (route,
+    K1d, K1d, route): ([route, route], [K1d, K1d])."""
+    from automix_tpu_torch.kernels import fused
+
+    def route():
+        return cuda_ms(lambda: fused.pooled_sweeps(
+            ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17, rng=rng,
+            sweep_fn=fused.sweep_chunk), 2) / K1D_CHECK_SWEEPS
+
+    def scan():
+        return cuda_ms(lambda: fused.pooled_scan(
+            ms, chains, tabs, TIME_SWEEPS, seed=17, rng=rng), 2) \
+            / TIME_SWEEPS
+
+    r1, s1, s2, r2 = route(), scan(), scan(), route()
+    return [r1, r2], [s1, s2]
+
+
+def scan_bound(ms, L, chains, rng, ops_of=None):
+    """``bounds`` of one sweep of K1d over ``chains``, from the work its
+    function needs: every chain's sweep (``sweep_ops``, rb9's kappa terms
+    where kappa can change; in full beside them) and its count in the
+    histogram, and the chains' k, theta and logp read and written once a
+    chunk of TIME_SWEEPS sweeps, with the tables."""
+    K, D = ms.nmodels, ms.dmax
+    S = chains.n_chains
+    if ops_of is None:
+        def ops_of(full):
+            return sweep_ops(ms, L, k_probs(ms, chains.k), rng=rng,
+                             full=full)
+    return bounds(lambda full: S * (ops_of(full) + 1),
+                  (S * 4 * 2 * (D + 2) + tables_bytes(K, D, L)) / TIME_SWEEPS)
+
+
 def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
-    """The K1d runner against the same loop over the twin, both on the
-    card, from a pooled run's state: the first 16384 chains x 20 sweeps,
-    on the stream ``rng`` (pinned: "hash" by default).  k equal on >= 99%
-    of chains; where all agree, the shared pk and the visit counts bitwise
-    equal.  Timed per sweep on every chain of the state (one K1 launch and
-    the shared update in torch)."""
+    """K1d against the one-sweep route on every chain of a pooled run's
+    state (``scan_against_route``, K1D_CHECK_SWEEPS sweeps) and, on the
+    first 16384 chains, against the same route over the twin (both on the
+    card): k equal on >= 99% of chains; where all agree, the shared pk and
+    the visit counts bitwise equal.  The stream is ``rng`` (pinned: "hash"
+    by default).  K1d and the route are timed per sweep on every chain of
+    the state, in turns; the twin on two sweeps."""
     import torch
     from automix_tpu_torch.kernels import fused
     from automix_tpu_torch.state import Chains
     tabs = fused.prep_tables(prop, ms.dims)
+    scan_against_route(ms, tabs, chains, K1D_CHECK_SWEEPS, rng, "K1d")
     n = K1_CHAINS
     sub = Chains(**{f: getattr(chains, f)[:n].contiguous() for f in
                     ("k", "theta", "logp", "pk", "pkllim", "nreinit")},
                  sweep=chains.sweep)
-    a, ca = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
-                                rng=rng)
+    a, ca = fused.pooled_scan(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
+                              rng=rng)
     b, cb = fused.pooled_sweeps(ms, sub, tabs, K1D_CHECK_SWEEPS, seed=17,
                                 sweep_fn=fused.sweep_chunk_ref, rng=rng)
     torch.cuda.synchronize()
@@ -918,7 +997,7 @@ def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
     th_err = float((a.theta - b.theta).abs()[same].max())
     shared = (torch.equal(a.pk, b.pk) and torch.equal(a.nreinit, b.nreinit)
               and torch.equal(ca["ksummary"], cb["ksummary"]))
-    log(f"K1d runner vs twin runner, {rng} ({n} chains x "
+    log(f"K1d vs the twin runner, {rng} ({n} chains x "
         f"{K1D_CHECK_SWEEPS} sweeps): k equal on {frac:.6f}, theta max|err| "
         f"{th_err:.3e}, shared pk and visit counts equal {shared}")
     if frac < 0.99:
@@ -927,22 +1006,17 @@ def check_pooled_runner(ms, prop, chains, dev, rng="hash"):
         fail(f"K1d theta differs by {th_err:.3e}")
     if frac == 1.0 and not shared:
         fail("K1d shared pk differs on identical trajectories")
-    ms_k = cuda_ms(lambda: fused.pooled_sweeps(
-        ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17, rng=rng),
-        2) / K1D_CHECK_SWEEPS
+    route_ms, scan_ms = route_turns(ms, tabs, chains, rng)
     ms_p = cuda_ms(lambda: fused.pooled_sweeps(
         ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref,
         rng=rng), 1, warm=False) / 2
-    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
-    S = chains.n_chains
-    b = bounds(
-        lambda full: S * (sweep_ops(ms, L, k_probs(ms, chains.k), rng=rng,
-                                    full=full) + K) + 20 * K,
-        S * state_bytes(K, D) + 4 * S * (K + 2 * K * D + 6)
-        + tables_bytes(K, D, L))
-    log(f"K1d runner, {rng} ({S} chains, per sweep): {ms_k:.4f} ms, plain "
-        f"{ms_p:.4f} ms, {bound_text(b)}")
-    return dict(max_abs_err=th_err, ms=ms_k, plain_ms=ms_p, **b)
+    b = scan_bound(ms, tabs.loglam.shape[1], chains, rng)
+    log(f"K1d, {rng} ({chains.n_chains} chains, per sweep, in turns): K1d "
+        f"{scan_ms[0]:.4f} / {scan_ms[1]:.4f} ms, the one-sweep route "
+        f"{route_ms[0]:.4f} / {route_ms[1]:.4f} ms, plain {ms_p:.4f} ms, "
+        f"{bound_text(b)}, share {b['bound_ms'] / min(scan_ms):.2%}")
+    return dict(max_abs_err=th_err, ms=min(scan_ms), plain_ms=ms_p,
+                route_ms=min(route_ms), **b)
 
 
 def check_hw(ms, prop, chains, label, perm=False, tdist=None, pooled=False,
@@ -1057,7 +1131,8 @@ def hash_drive(ms, prop, chains, label, seed=21, **cfg):
     counts = read_counts()
     log(f"{label}, fused_rng='hash', {chains.n_chains} chains x "
         f"{TIME_SWEEPS} sweeps: launches {counts}")
-    if counts["K1"] + counts["K1c"] == 0 or counts["K1f"] + counts["K1fc"]:
+    if counts["K1"] + counts["K1c"] + counts["K1d"] == 0 \
+            or counts["K1f"] + counts["K1fc"] + counts["K1fd"]:
         fail(f"{label} did not run the hash kernel alone")
     return counts
 
@@ -1209,35 +1284,59 @@ def check_cache_lmax(ms, prop, chains):
 
 
 def check_cache_pooled_runner(ms, prop, chains, dev):
-    """K1d with the DDI cache, the per-sweep pooled runner (one K1e launch
-    a sweep, rebuilding the cache), against the same loop over the twin,
-    both on the card's stream from a DDI run's state: every chain x
-    K1D_CHECK_SWEEPS sweeps, every chain field and chunk statistic bit for
-    bit.  Logs K1e's registers (ptxas) and resident warps per SM."""
+    """K1d with the DDI cache (each chain's cache built fresh at each sweep,
+    as the one-sweep route's K1e launches build it) on the card's stream:
+    against the one-sweep route on the run's state repeated to one more
+    block than K1c holds (``scan_against_route``: each thread of K1d's
+    grid then carries two chains or one), and on the state itself against
+    the same route over the twin, every chain field and visit count and
+    counter bit for bit (the theta sums within 1e-5).  K1d and the route
+    timed per sweep on the state, in turns.  Logs K1e's registers (ptxas)
+    and resident warps per SM."""
     import torch
     from automix_tpu_torch.kernels import _build, fused
     tabs = fused.prep_tables(prop, ms.dims)
     rng = fused.resolve_rng("auto", dev)
-    a, ca = fused.pooled_sweeps(ms, chains, tabs, K1D_CHECK_SWEEPS,
-                                seed=17, rng=rng)
+    above = fused.pooled_capacity(ms, prop.lmax, dev) + 128
+    scan_against_route(ms, tabs, grown(chains, above), K1D_CHECK_SWEEPS,
+                       rng, "K1d with the cache")
+    a, ca = fused.pooled_scan(ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17,
+                              rng=rng)
     b, cb = fused.pooled_sweeps(ms, chains, tabs, K1D_CHECK_SWEEPS, seed=17,
                                 sweep_fn=fused.sweep_chunk_ref, rng=rng)
     torch.cuda.synchronize()
     equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "k", "theta", "logp", "pk", "pkllim", "nreinit")) and all(
-        torch.equal(ca[n], cb[n]) for n in ca)
+        torch.equal(ca[n], cb[n]) for n in ca if not n.startswith("theta"))
+    sums = max(float(((ca[n] - cb[n]).abs() / (1e-2 + cb[n].abs())).max())
+               for n in ("theta_sum", "theta_sqsum"))
     jumps = float((a.k != chains.k).float().mean())
     regs = [r for n, r, *_ in ptxas_summary(_build.build(),
                                             *_build.CACHED_SHAPE)
             if n == "fused_sweep_kernel<0>"]
     warps = fused.occupancy(ms, prop.lmax, dev)
+    route_ms, scan_ms = route_turns(ms, tabs, chains, rng)
     log(f"K1d with the cache, {rng}, vs its twin runner ({chains.n_chains} "
-        f"chains x {K1D_CHECK_SWEEPS} sweeps): every output equal {equal}, "
-        f"chains that jumped {jumps:.4f}; K1e: one thread per chain, "
-        f"{warps} resident warps per SM, registers {regs} (ptxas, per "
-        "variant)")
-    if not equal:
+        f"chains x {K1D_CHECK_SWEEPS} sweeps): chain fields, visit counts "
+        f"and counters equal {equal}, theta sums max rel diff {sums:.3e}, "
+        f"chains that jumped {jumps:.4f}; per sweep in turns: K1d "
+        f"{scan_ms[0]:.4f} / {scan_ms[1]:.4f} ms, the one-sweep route "
+        f"{route_ms[0]:.4f} / {route_ms[1]:.4f} ms; K1e: one thread per "
+        f"chain, {warps} resident warps per SM, registers {regs} (ptxas, "
+        "per variant)")
+    if not equal or sums > 1e-5:
         fail("K1d with the cache differs from its twin")
+
+
+def grown(chains, S):
+    """The first S chains of ``chains``, repeated where it has fewer."""
+    import torch
+    from automix_tpu_torch.state import Chains
+    reps = -(-S // chains.n_chains)
+    return Chains(**{f: getattr(chains, f) if f == "sweep" else torch.cat(
+        [getattr(chains, f)] * reps)[:S].contiguous()
+        for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit",
+                  "sweep")})
 
 
 def check_cache_pooled(ms, prop, chains):
@@ -1391,10 +1490,10 @@ def ddi_paths(dev):
         f"{counts}")
     check_probs("ddi pooled", stats.model_probs, oracle,
                 what="C oracle mean")
-    if not (counts["K1fc"] > 0 and counts["K1f"] == 0 if route == "K1c"
-            else counts["K1f"] == DDI_TIMED and counts["K1fc"] == 0) \
-            or counts["K1"] + counts["K1c"]:
-        fail(f"the ddi pooled run did not take {route} on the hw stream")
+    if {k: v for k, v in counts.items() if v} != {
+            "K1fc" if route == "K1c" else "K1fd": DDI_TIMED // DDI_CHUNK}:
+        fail(f"the ddi pooled run did not take {route} once a chunk on the "
+             "hw stream alone")
     if not bool((am.chains.pk == am.chains.pk[0]).all()):
         fail("the ddi pooled pk rows differ")
     out["pooled"] = counts
@@ -1505,6 +1604,34 @@ def cpt_config(name):
                 trace_chain0=False)
 
 
+def check_scan_cpt(ms, prop, chains):
+    """K1d at (6, 13), forced on cpt's state (16384 chains, one a thread),
+    K1D_CHECK_SWEEPS sweeps on the hash: bitwise the one-sweep route
+    (``scan_against_route``); both timed per sweep in turns.  Returns its
+    entry of the JSON record, its launches the check's own."""
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    reset_counts()
+    scan_against_route(ms, tabs, chains, K1D_CHECK_SWEEPS, "hash", "K1d cpt")
+    launches = read_counts()["K1d"]
+    a, _ = fused.pooled_scan(ms, chains, tabs, 2, seed=17)
+    (b, _), ms_p = timed(lambda: fused.pooled_sweeps(
+        ms, chains, tabs, 2, seed=17, sweep_fn=fused.sweep_chunk_ref))
+    same = a.k == b.k
+    err = float((a.theta - b.theta).abs()[same].max())
+    route_ms, scan_ms = route_turns(ms, tabs, chains, "hash")
+    bd = scan_bound(ms, tabs.loglam.shape[1], chains, "hash")
+    log(f"K1d cpt ({chains.n_chains} chains, per sweep, in turns): K1d "
+        f"{scan_ms[0]:.4f} / {scan_ms[1]:.4f} ms, the one-sweep route "
+        f"{route_ms[0]:.4f} / {route_ms[1]:.4f} ms, plain {ms_p / 2:.4f} "
+        f"ms (k equal on {float(same.float().mean()):.6f}, theta max|err| "
+        f"{err:.3e} after 2 sweeps), {bound_text(bd)}")
+    if float(same.float().mean()) < 0.99 or err > 1e-3:
+        fail("K1d cpt differs from its twin runner")
+    return launches, dict(max_abs_err=err, ms=min(scan_ms), plain_ms=ms_p / 2,
+                          route_ms=min(route_ms), **bd)
+
+
 def changepoint_paths(dev):
     """The change-point paths: K2-log and the K3 + log route against their
     twins; stage 1 of cpt at 512 chains per model (K2-log); ``AMSampler``
@@ -1609,6 +1736,7 @@ def changepoint_paths(dev):
                                                "K1 perm cpt", perm=True)
                 out["K1c"] = check_exact_sweep(ms, prop, am.chains,
                                                "K1c cpt", pooled=True)
+                out["K1d"] = check_scan_cpt(ms, prop, am.chains)
                 out["K1f"] = check_hw(ms, prop, am.chains, "K1f cpt")
                 out["drive"] = hash_drive(ms, prop, am.chains, "cpt K1")
                 out["drive perm"] = hash_drive(ms, prop, am.chains,
@@ -2223,21 +2351,21 @@ def main():
             f"chain-sweeps/s; launches {counts}")
         check_probs(f"rb9 pooled {n_chains} chains", stats.model_probs,
                     oracle, what="C oracle mean")
-        # K1c: one pooled launch per chunk and no per-chain launch; K1d:
-        # one per-chain launch per sweep and no pooled launch; both on the
-        # hw stream ("auto" on the card)
-        if not (counts["K1fc"] > 0 and counts["K1f"] == 0 if route == "K1c"
-                else counts["K1f"] == CLI_SWEEPS and counts["K1fc"] == 0) \
-                or counts["K1"] + counts["K1c"]:
+        # one launch of the route's kernel per chunk (K1c, or K1d above
+        # K1c's bound) and no other launch, on the hw stream ("auto" on
+        # the card)
+        want = {"K1fc" if route == "K1c" else "K1fd":
+                CLI_SWEEPS // SWEEP_CHUNK}
+        if {k: v for k, v in counts.items() if v} != want:
             fail(f"the pooled run at {n_chains} chains did not take {route} "
-                 "on the hw stream")
+                 "once a chunk on the hw stream alone")
         if not bool((am.chains.pk == am.chains.pk[0]).all()):
             fail("the pooled pk rows differ")
-        pooled[route] = (am, counts["K1fc" if route == "K1c" else "K1f"])
+        pooled[route] = (am, counts["K1fc" if route == "K1c" else "K1fd"])
         log(f"phase rb9 pooled {route}: {time.perf_counter() - t0:.2f} s")
 
-    # K1c and the forced K1d are bitwise equal on the hash only (the hw
-    # stream reseeds at each of K1d's one-sweep launches), so this pins it
+    # K1c and the forced K1d are bitwise equal on the hash only (K1d
+    # reseeds the hw stream at every sweep), so this pins it
     t0 = time.perf_counter()
     short = {}
     for force in (False, True):
@@ -2260,9 +2388,10 @@ def main():
     log(f"rb9 pooled {RB9_POOLED_K1C} chains, {RB9_FORCED[1]} sweeps: K1c "
         f"(launches {ca}) vs K1d forced (launches {cb}): k, theta, pk and "
         f"ksummary bitwise equal {equal}")
-    if not equal or ca["K1c"] == 0 or ca["K1"] != 0 or cb["K1c"] != 0 \
-            or cb["K1"] != RB9_FORCED[1]:
-        fail("the forced K1d run is not bitwise equal to K1c")
+    if not equal or ca["K1c"] == 0 or ca["K1"] + ca["K1d"] != 0 \
+            or cb["K1c"] + cb["K1"] != 0 or cb["K1d"] != RB9_FORCED[1] // 100:
+        fail("the forced K1d run is not bitwise equal to K1c, or did not "
+             "launch K1d once a chunk")
     k1c = check_pooled(rb, rb_prop, pooled["K1c"][0].chains, dev)
     k1d = check_pooled_runner(rb, rb_prop, pooled["K1d"][0].chains, dev,
                               rng="hash")
@@ -2296,7 +2425,7 @@ def main():
         entry("fused_sweep_student_t", k1_src, k1_at, k1a_counts["K1"], k1a),
         entry("fused_sweep_perm_rb9", k1_src, k1_at, k1b_counts["K1"], k1b),
         entry("fused_sweep_pooled", k1_src, k1_at, ca["K1c"], k1c),
-        entry("fused_sweep_pooled_runner", k1_src, k1_at, cb["K1"], k1d),
+        entry("fused_sweep_pooled_runner", k1_src, k1_at, cb["K1d"], k1d),
         entry("fused_sweep_hw", k1_src, k1_at, main_counts["K1f"], k1f),
         entry("fused_sweep_student_t_hw", k1_src, k1_at, t_counts["K1f"],
               k1fa),
@@ -2347,6 +2476,8 @@ def main():
               cpt_out["drive pooled"]["K1c"], cpt_out["K1c"]),
         entry("fused_sweep_cpt_hw", k1_src, k1_at, cpt_out["cpt"]["K1f"],
               cpt_out["K1f"]),
+        entry("fused_sweep_pooled_runner_cpt", k1_src, k1_at,
+              *cpt_out["K1d"]),
         dict(entry("sweep_rng", "sweep_rng.cu",
                    "automix_tpu/kernels/sweep_rng.py:139",
                    gen["tutorial"]["K4"], gen["K4"]),

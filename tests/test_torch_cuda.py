@@ -8,6 +8,8 @@ machine with a card (``--noconftest`` skips the JAX-side test settings):
         -o addopts= --noconftest
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -411,7 +413,12 @@ def test_segment_kernel_registers(cuda):
 def _rb9_state(dev, S, seed=0):
     """rb9 chains at the start points under the two-component start
     proposal; pk uniform, so every row is the shared pooled vector."""
-    ms = rb9.rb9_set()
+    return _start_state(rb9.rb9_set(), dev, S, seed)
+
+
+def _start_state(ms, dev, S, seed=0, sweep=5):
+    """Chains of ``ms`` at its start points, their models drawn from a
+    numpy seed, under the two-component start proposal; pk uniform."""
     K = ms.nmodels
     tabs = fused.prep_tables(_start_proposal(ms), ms.dims)
     tabs = type(tabs)(**{f: getattr(tabs, f).to(dev)
@@ -426,7 +433,7 @@ def _rb9_state(dev, S, seed=0):
                     pk=torch.full((S, K), 1.0 / K, device=dev),
                     pkllim=torch.full((S,), 0.1, device=dev),
                     nreinit=torch.ones(S, dtype=torch.int32, device=dev),
-                    sweep=5)
+                    sweep=sweep)
     return ms, chains, tabs
 
 
@@ -562,6 +569,132 @@ def test_pooled_kernel_raises_above_its_bound(cuda):
                           pooled=True)
     assert (fused.sweep_chunk.launches,
             fused.sweep_chunk.pooled_launches) == before
+
+
+# K1d, one cooperative launch a chunk (fused.pooled_scan), against the
+# one-sweep route it replaces: (set, variant) of each case.
+_SCAN_CASES = {"rb9": ("rb9", {}), "rb9 perm": ("rb9", dict(perm=True)),
+               "ddi": ("ddi", {}), "cpt": ("cpt", {}),
+               "tutorial": ("tutorial", {}), "toy1": ("toy1", {}),
+               "toy2 t": ("toy2", dict(tdist=randoms.student_t(5)))}
+
+
+def _scan_state(name, dev, S):
+    """S chains of set ``name`` from sweep 7 (block moves at 10 and 20, a
+    DDI cache refresh after 15): DDI's and cpt's at their posterior
+    scales, the others at their start points."""
+    if name == "ddi":
+        return _ddi_state(dev, S, seed=3, sweep=7)
+    if name == "cpt":
+        return _cpt_state(dev, S, seed=3, sweep=7)
+    return _start_state(_SHAPE_SETS[name](), dev, S, seed=3, sweep=7)
+
+
+def _assert_scan_matches_route(ms, ch, tabs, n_sweeps, rng, **kw):
+    """K1d against the one-sweep route (a per-chain launch a sweep and the
+    update in torch) from the same chains: one launch counted on ``rng``'s
+    counter and none of the per-chain kernel; k, theta, logp, pk, pkllim,
+    nreinit, the visit counts and the six counters bit for bit, the theta
+    sums within 1e-5 relative (summed in another order)."""
+    key = "scan_hw_launches" if rng == "hw" else "scan_launches"
+    before = (getattr(fused.sweep_chunk, key), fused.sweep_chunk.launches,
+              fused.sweep_chunk.hw_launches)
+    a, ca = fused.pooled_scan(ms, ch, tabs, n_sweeps, seed=4, rng=rng, **kw)
+    assert (getattr(fused.sweep_chunk, key), fused.sweep_chunk.launches,
+            fused.sweep_chunk.hw_launches) == (before[0] + 1, *before[1:])
+    b, cb = fused.pooled_sweeps(ms, ch, tabs, n_sweeps, seed=4, rng=rng,
+                                sweep_fn=fused.sweep_chunk, **kw)
+    for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.sweep == b.sweep == ch.sweep + n_sweeps
+    for name in ca:
+        if name.startswith("theta"):
+            torch.testing.assert_close(ca[name], cb[name], rtol=1e-5,
+                                       atol=1e-2)
+        else:
+            assert torch.equal(ca[name], cb[name]), name
+    assert int(ca["ksummary"].sum()) == ch.n_chains * n_sweeps
+    assert (a.k != ch.k).any()                          # jumps happened
+    return a
+
+
+@pytest.mark.parametrize("rng", ["hash", "hw"])
+@pytest.mark.parametrize("case", list(_SCAN_CASES))
+def test_pooled_scan_matches_one_sweep_route(cuda, case, rng):
+    """K1d above K1c's capacity (the route's population): capacity + 1001
+    chains, so every thread of its grid carries two chains or one, and the
+    population is a multiple neither of a block nor of the grid; 20 sweeps
+    from sweep 7.  Bitwise the one-sweep route on either stream, at rb9's
+    (10, 5) with and without perm, DDI's (2, 16) with its cache across a
+    refresh, cpt's (6, 13) and the small shapes (the tutorial's (3, 2),
+    toy1's (2, 2), toy2's (5, 5) with Student-t draws)."""
+    name, kw = _SCAN_CASES[case]
+    ms = _SHAPE_SETS[name]()
+    L = 2
+    S = fused.pooled_capacity(ms, L, cuda, kw.get("perm", False),
+                              kw.get("tdist")) + 1001
+    G = fused._scan_grid(ms.nmodels, ms.dmax, S, L, kw.get("perm", False),
+                         "tdist" in kw, cuda.index)
+    assert S % 128 and S % G and G % 128 == 0 and S > G
+    ms, ch, tabs = _scan_state(name, cuda, S)
+    _assert_scan_matches_route(ms, ch, tabs, 20, rng, **kw)
+
+
+def test_pooled_scan_at_one_chain_a_thread(cuda):
+    """K1d on 4096 rb9 chains, within K1c's capacity (one chain a thread,
+    the forced route's population), 30 sweeps on the hash: bitwise the
+    one-sweep route."""
+    ms, ch, tabs = _rb9_state(cuda, 4096, seed=5)
+    _assert_scan_matches_route(ms, ch, tabs, 30, "hash")
+
+
+def test_pooled_runner_takes_k1d_per_chunk(cuda):
+    """The chunk runner: above K1c's capacity, and below it when forced,
+    an adapting pooled run launches K1d once a chunk and nothing else (two
+    chunks, hw and hash); burn-in keeps the per-chain kernel."""
+    ms = rb9.rb9_set()
+    prop = _start_proposal(ms)
+    prop = Proposal(**{f: getattr(prop, f).to(cuda)
+                       for f in prop.__dataclass_fields__})
+    cap = fused.pooled_capacity(ms, 2, cuda)
+    for S, force, rng in ((cap + 1001, False, "hw"), (4096, True, "hash")):
+        _, ch, _ = _rb9_state(cuda, S, seed=6)
+        fused._FORCE_POOLED_SCAN = force
+        try:
+            run = fused.build_fused_chunk_runner(
+                ms, EngineConfig(seed=6, pk_mode="pooled", fused_rng=rng),
+                burning=False)
+            keys = ("launches", "hw_launches", "pooled_launches",
+                    "pooled_hw_launches", "scan_launches",
+                    "scan_hw_launches")
+            before = [getattr(fused.sweep_chunk, k) for k in keys]
+            for n in (15, 10):
+                ch, _ = run(ch, prop, n)
+            moved = {k: getattr(fused.sweep_chunk, k) - b
+                     for k, b in zip(keys, before)}
+        finally:
+            fused._FORCE_POOLED_SCAN = False
+        want = "scan_hw_launches" if rng == "hw" else "scan_launches"
+        assert moved == {k: 2 if k == want else 0 for k in keys}, moved
+        assert bool((ch.pk == ch.pk[0]).all())
+
+
+def test_pooled_scan_refuses_what_it_cannot_take(cuda):
+    """K1d raises before any launch on a per-chain pk model set of one
+    model, a wrong dtype and an unknown stream: nothing falls back."""
+    ms, ch, tabs = _rb9_state(cuda, 1024)
+    before = (fused.sweep_chunk.scan_launches, fused.sweep_chunk.launches)
+    bad = dataclasses.replace(ch, logp=ch.logp.double())
+    with pytest.raises(ValueError, match="logp"):
+        fused.pooled_scan(ms, bad, tabs, 2, seed=1)
+    with pytest.raises(ValueError, match="rng"):
+        fused.pooled_scan(ms, ch, tabs, 2, seed=1, rng="philox")
+    one = builtin.normal_sampler_set()
+    _, ch1, tabs1 = _start_state(one, cuda, 256)
+    with pytest.raises(ValueError, match="K > 1"):
+        fused.pooled_scan(one, ch1, tabs1, 2, seed=1)
+    assert (fused.sweep_chunk.scan_launches,
+            fused.sweep_chunk.launches) == before
 
 
 def test_kernel_gain_matches_the_runners_gain(cuda):
@@ -1311,6 +1444,66 @@ def test_large_shape_sweep_kernel_occupancy(cuda, shape):
         for tdist in (None, randoms.student_t(5)):
             assert fused.occupancy(ms, L, cuda, perm=perm, tdist=tdist) \
                 == warps, (perm, tdist)
+
+
+# K1d (fused_scan_kernel) at every shape it is compiled for (K > 1):
+# ptxas -v registers (lo, hi) and the most bytes of spill stores and loads,
+# as the H100 build gives them: the per-chain body with its chains' loop
+# and counts, 226-237 registers at (10, 5) and (2, 16), within 64 at the
+# small shapes (8 blocks per SM), and at (6, 13) 184 / 212 bytes of spills
+# at the 255-register ceiling.
+_SCAN_REGS = {(2, 2): ((54, 64), 0), (3, 2): ((54, 64), 0),
+              (5, 5): ((132, 146), 0), (10, 5): ((220, 234), 0),
+              (2, 16): ((228, 244), 0), (6, 13): ((248, 255), 256)}
+
+
+def test_pooled_scan_kernel_registers(cuda):
+    """K1d in every variant at every shape within the registers and spills
+    the build gave (ptxas -v, kept in the log beside the library)."""
+    import re
+    log = _build.build().with_suffix(".log").read_text()
+    found = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"fused_scan_kernelILi(\d+)ELi(\d+)E",
+                      block.split("'", 1)[0])
+        if not m:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        found.setdefault(tuple(map(int, m.groups())), []).append(
+            (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
+    assert set(found) == set(_SCAN_REGS), found
+    for shape, forms in found.items():
+        (lo, hi), max_spill = _SCAN_REGS[shape]
+        assert len(forms) == 4, (shape, forms)      # 4 variants
+        assert all(lo <= r <= hi and st <= max_spill and ld <= max_spill
+                   for r, st, ld in forms), (shape, forms)
+
+
+@pytest.mark.parametrize("name", ["toy1", "tutorial", "toy2", "rb9", "ddi",
+                                  "cpt"])
+def test_pooled_scan_grid(cuda, name):
+    """K1d's grid, in every variant, for K1c's capacity, one chain more
+    and three times as many: whole blocks, resident, and every thread
+    carrying ceil(S / G) chains or one fewer.  Where K1d's registers give
+    K1c's blocks per SM (every shape but toy2's (5, 5), where 139
+    registers leave 3 blocks per SM against K1c's 4), K1c's population
+    runs at one chain a thread."""
+    ms = _SHAPE_SETS[name]()
+    K, D = ms.nmodels, ms.dmax
+    for perm in (False, True):
+        for tdist in (None, randoms.student_t(5)):
+            cap = fused.pooled_capacity(ms, 2, cuda, perm, tdist)
+            for S in (cap, cap + 1, 3 * cap + 5):
+                G = fused._scan_grid(K, D, S, 2, perm, tdist is not None,
+                                     cuda.index)
+                nc = -(-S // G)
+                assert G % 128 == 0 and (nc - 1) * G < S <= nc * G, (S, G)
+                assert G <= cap, (S, G)
+            one = fused._scan_grid(K, D, cap, 2, perm, tdist is not None,
+                                   cuda.index)
+            assert (one == cap) == (name != "toy2"), (cap, one)
 
 
 def _ulps(a, b):

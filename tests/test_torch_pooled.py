@@ -1,8 +1,9 @@
 """Pooled pk (``pk_mode="pooled"``): the port's two routes, K1c's twin
-(``sweep_chunk_ref(pooled=True)``) and the per-sweep K1d runner
-(``pooled_sweeps``), against the JAX fused runner in interpret mode with
-the counter hash, through both of its pooled routes, and against each
-other.  Proposal and chain state are made with numpy from a seed."""
+(``sweep_chunk_ref(pooled=True)``) and K1d (``pooled_scan``, on the CPU
+its plain version, the one-sweep route ``pooled_sweeps`` over the twin),
+against the JAX fused runner in interpret mode with the counter hash,
+through both of its pooled routes, and against each other.  Proposal and
+chain state are made with numpy from a seed."""
 
 import os
 
@@ -20,12 +21,14 @@ from automix_tpu.state import Proposal as JaxProposal
 from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.convert import chains_from_numpy, proposal_from_numpy
 from automix_tpu_torch.kernels import fused
-from automix_tpu_torch.models import rb9, toy
+from automix_tpu_torch.models import changepoint, rb9, toy
 from _torch_threads import one_torch_thread  # noqa: F401
 
 S, L, NSWEEPS, SWEEP0, SEED = 1024, 3, 20, 41, 5
 _FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                         "rb9_pooled_fixture.npz")
+_CPT_FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                            "cpt_pooled_fixture.npz")
 
 
 def _toy1_proposal(rng):
@@ -264,3 +267,71 @@ def test_pooled_wrapper_rules():
     assert torch.equal(ch2.pk, ch.pk)
     assert (fused.sweep_chunk.launches,
             fused.sweep_chunk.pooled_launches) == before
+
+
+def test_k1d_at_the_changepoint_shape_matches_jax():
+    """K1d at (6, 13), the route of a pooled cpt run above K1c's bound
+    (forced with ``_FORCE_POOLED_SCAN``), 1024 cpt chains x 4 sweeps (a
+    block move at 50) against JAX's ``_compiled_pooled`` in interpret mode
+    with the hash, frozen by ``tests/data/make_cpt_pooled_fixture.py``
+    (its compile takes minutes): the tolerances of the toy1 test (k equal
+    on >= 99% of chains, theta and logp within 1e-4 relative on those,
+    the shared pk within 1e-7, pkllim and nreinit equal, visit counts and
+    counters within 1%)."""
+    z = np.load(_CPT_FIXTURE)
+    n_chains, _, n, sweep0, seed = (int(x) for x in z["meta"])
+    p = {f[5:]: z[f] for f in z.files if f.startswith("prop_")}
+    c = {f[3:]: z[f] for f in z.files if f.startswith("in_")}
+    fused._FORCE_POOLED_SCAN = True
+    try:
+        run = fused.build_fused_chunk_runner(
+            changepoint.cpt_set(), EngineConfig(seed=seed, pk_mode="pooled"),
+            burning=False)
+        ch, chunk = run(chains_from_numpy(**c, sweep=sweep0),
+                        proposal_from_numpy(**p), n)
+    finally:
+        fused._FORCE_POOLED_SCAN = False
+    same = ch.k.numpy() == z["out_k"]
+    assert same.mean() >= 0.99, same.mean()
+    assert (ch.k.numpy() != c["k"]).any()                   # jumps
+    np.testing.assert_allclose(ch.theta.numpy()[same], z["out_theta"][same],
+                               rtol=1e-4)
+    np.testing.assert_allclose(ch.logp.numpy()[same], z["out_logp"][same],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ch.pk.numpy(), z["out_pk"], rtol=0,
+                               atol=1e-7)
+    np.testing.assert_array_equal(ch.pkllim.numpy(), z["out_pkllim"])
+    np.testing.assert_array_equal(ch.nreinit.numpy(), z["out_nreinit"])
+    ks = chunk["ksummary"].numpy()
+    assert ks.sum() == z["chunk_ksummary"].sum() == n_chains * n
+    np.testing.assert_allclose(ks, z["chunk_ksummary"], rtol=0.01, atol=20)
+    for name in ("naccrwmb", "ntryrwmb", "naccrwms", "ntryrwms", "nacctd",
+                 "ntrytd"):
+        np.testing.assert_allclose(int(chunk[name]),
+                                   int(z[f"chunk_{name}"]), rtol=0.01,
+                                   atol=5, err_msg=name)
+
+
+def test_k1d_on_the_cpu_is_its_plain_version():
+    """``pooled_scan`` on CPU tensors is the one-sweep route over the twin,
+    bit for bit in every chain field and chunk statistic, and launches
+    nothing (toy1, 1024 chains x 12 sweeps with the re-init blend)."""
+    rng = np.random.default_rng(SEED + 3)
+    p, c = _toy1_proposal(rng), _toy1_chains(rng, 0.45)
+    ms, ch = toy.toy1_set(), chains_from_numpy(**c)
+    tabs = fused.prep_tables(proposal_from_numpy(**p), ms.dims)
+    counters = ("launches", "hw_launches", "scan_launches",
+                "scan_hw_launches")
+    before = [getattr(fused.sweep_chunk, n) for n in counters]
+    for rng_name in ("hash", "hw"):
+        a, ca = fused.pooled_scan(ms, ch, tabs, 12, seed=SEED, rng=rng_name)
+        b, cb = fused.pooled_sweeps(ms, ch, tabs, 12, seed=SEED,
+                                    sweep_fn=fused.sweep_chunk_ref,
+                                    rng=rng_name)
+        for f in ("k", "theta", "logp", "pk", "pkllim", "nreinit"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert a.sweep == b.sweep == SWEEP0 + 12
+        for name in ca:
+            assert torch.equal(ca[name], cb[name]), name
+        assert int(a.nreinit[0]) > 1                        # re-init ran
+    assert [getattr(fused.sweep_chunk, n) for n in counters] == before

@@ -21,7 +21,23 @@ versions of the kernel sources.  Each part is chosen with ``--parts``
 * ``stage1``: stage 1 of each ``AMSampler`` path of ``chip_smoke.py``
   (its populations, sweeps and rules) on the segment runner (K2) where
   the population fits and on the one-sweep runner (K3), host seconds with
-  a synchronize, after a short warm-up run of the same shape.
+  a synchronize, after a short warm-up run of the same shape;
+* ``scan``: K1d (one cooperative launch a chunk) against the one-sweep
+  route it replaced (a K1 launch a sweep and the update in torch), ms per
+  sweep in turns (route, K1d, K1d, route; ``chip_smoke.route_turns``) on
+  the rb9 (131072), DDI and cpt (16384) states, on both streams, each
+  first held bitwise to the route (``chip_smoke.scan_against_route``);
+* ``pooled_run``: rb9's pooled run of ``chip_smoke.py`` (131072 chains,
+  20000 sweeps after its burn-in, from the fit's proposal) through
+  ``AMSampler`` on K1d and on the one-sweep route, seconds each and
+  whether their visit counts are equal;
+* ``sass``: a hash of each compiled sweep and stage-1 kernel's SASS
+  instructions (``cuobjdump -sass``, the anonymous namespace's per-build
+  name taken out), by kernel and occurrence, so that two builds' forms
+  are compared function by function.
+
+Every part prints the seconds the library's build took (0 where it was
+built before).
 
 The ``sweep`` part (the ``tutorial`` part the tutorial's alone) makes the
 states of ``chip_smoke.py``'s checks with its own functions and
@@ -38,7 +54,8 @@ events):
 * at (6, 13) (cpt, cptrs) and (10, 5) (rb9), at 16384 and 131072 chains
   (a state of 16384 repeated): K1 and K1 + perm on the hash, K1f and
   K1f + perm (hw), K1c and K1f pooled where the population is resident
-  (``pooled_capacity``), and the K1d runner (one launch a sweep, ms per sweep) on both streams;
+  (``pooled_capacity``), and K1d and the one-sweep route (ms per sweep)
+  on both streams;
 * the tutorial's K1f and K1 at 131072 chains, DDI's K1e at 16384 on both
   streams with and without perm;
 * K2-log (one 100-sweep segment of 6 x 512 cpt chains) and the K3 + log
@@ -87,7 +104,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 
 SIZES = (16_384, 131_072)
-PARTS = ("sweep", "tutorial", "k1c", "k2", "stage1")
+PARTS = ("sweep", "tutorial", "k1c", "k2", "stage1", "scan", "pooled_run",
+         "sass")
 # the model sets whose states the sweep part makes and times
 SETS = ("cpt", "cptrs", "rb9", "tutorial", "ddi")
 # (name, set, chains per model, rule) of the K2 segment timings
@@ -126,20 +144,14 @@ def saved(path, make):
     return am.chains, am.proposal
 
 
-def grown(ch, S):
-    """The first S chains of ``ch``, repeated where it has fewer."""
-    import torch
-    from automix_tpu_torch.state import Chains
-    reps = -(-S // ch.n_chains)
-    return Chains(**{f: v if f == "sweep" else torch.cat([v] * reps)[:S]
-                     for f, v in dataclasses.asdict(ch).items()})
+grown = cs.grown
 
 
 def sweep_forms(ms, prop, ch, dev, perm=True, pooled=True):
     """ms per 100-sweep launch of each per-chain form on ``ch`` (with
     ``perm``, the perm variants too) and, with ``pooled``, of each pooled
-    form where the population is resident, and ms per sweep of the K1d
-    runner."""
+    form where the population is resident, and ms per sweep of K1d (a
+    100-sweep launch) and of the one-sweep route."""
     from automix_tpu_torch.kernels import fused
     tabs = fused.prep_tables(prop, ms.dims)
     args = cs.chunk_args(ch)
@@ -162,8 +174,11 @@ def sweep_forms(ms, prop, ch, dev, perm=True, pooled=True):
         out["K1f pooled"] = chunk(pooled=True, rng="hw")
     for rng, name in (("hash", "K1d"), ("hw", "K1f")):
         out[f"{name} per sweep"] = cs.cuda_ms(
-            lambda: fused.pooled_sweeps(ms, ch, tabs, 20, seed=17, rng=rng),
-            2) / 20
+            lambda: fused.pooled_scan(ms, ch, tabs, n, seed=17, rng=rng),
+            2) / n
+        out[f"{name} one-sweep route per sweep"] = cs.cuda_ms(
+            lambda: fused.pooled_sweeps(ms, ch, tabs, 20, seed=17, rng=rng,
+                                        sweep_fn=fused.sweep_chunk), 2) / 20
     return out
 
 
@@ -229,6 +244,91 @@ def sass_sizes(lib_path, classes_at=((3, 2), (10, 5))):
             for op in ops:
                 counts[of.get(op, "other")] += 1
             out.setdefault(f"classes {shape}", []).append((form, counts))
+    return out
+
+
+def sass_hashes(lib_path):
+    """{kernel#occurrence: sha256 of its SASS instructions} of every
+    compiled form of the sweep kernels (K1, K1c, K1e: fused_sweep_kernel;
+    K1d: fused_scan_kernel) and the stage-1 kernels (K2, K3) in the
+    library, the occurrence counting each name's units in link order;
+    empty where the toolkit has no cuobjdump."""
+    import hashlib
+    import re
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    out, seen = {}, {}
+    for block in text.split("Function : ")[1:]:
+        head, body = block.split("\n", 1)
+        m = re.search(r"(fused_(?:sweep|scan|stage1|stage1_sweep)_kernel)"
+                      r"I(\w+?)EEv", head)
+        if not m:
+            continue
+        name = f"{m.group(1)}<{m.group(2)}>"
+        seen[name] = seen.get(name, 0) + 1
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+([^;]*;)", body, re.M)
+        out[f"{name}#{seen[name]}"] = hashlib.sha256(
+            "\n".join(ops).encode()).hexdigest()[:16]
+    return out
+
+
+def scan_part(states, dev):
+    """K1d against the one-sweep route on the rb9, DDI and cpt states,
+    each stream: held bitwise (20 sweeps), then ms per sweep in turns
+    (route, K1d, K1d, route)."""
+    from automix_tpu_torch.kernels import fused
+    out = {}
+    for name in ("rb9", "ddi", "cpt"):
+        if name not in states:
+            continue
+        ms, ch, prop = states[name]
+        tabs = fused.prep_tables(prop, ms.dims)
+        for rng in ("hash", "hw"):
+            cs.scan_against_route(ms, tabs, ch, cs.K1D_CHECK_SWEEPS, rng,
+                                  f"K1d {name}")
+            route, scan = cs.route_turns(ms, tabs, ch, rng)
+            out[f"{name} {ch.n_chains} {rng}"] = {"route": route,
+                                                  "K1d": scan}
+    return out
+
+
+def pooled_run(prop):
+    """rb9's pooled run of chip_smoke.py from ``prop`` through
+    ``AMSampler``: K1d (the runner's route above K1c's bound), then the
+    one-sweep route in its place; the timed sweeps' seconds and visit
+    counts of each, and whether the counts are equal."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.models.rb9 import rb9_set
+    scan = fused.pooled_scan
+
+    def route(*args, **kw):
+        return fused.pooled_sweeps(*args, sweep_fn=fused.sweep_chunk, **kw)
+
+    out = {}
+    for name, fn in (("K1d", scan), ("route", route)):
+        fused.pooled_scan = fn
+        try:
+            am = AMSampler(rb9_set(), EngineConfig(
+                n_chains=cs.RB9_POOLED_K1D, pk_mode="pooled", seed=11,
+                trace_chain0=False), device="cuda")
+            am.set_proposal(prop)
+            am.burn_samples(cs.RB9_BURN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = am.rjmcmc_samples(cs.CLI_SWEEPS)
+            torch.cuda.synchronize()
+            out[f"{name} s"] = time.perf_counter() - t0
+            out[f"{name} ksummary"] = np.asarray(stats.ksummary).tolist()
+        finally:
+            fused.pooled_scan = scan
+    out["ksummary equal"] = out["K1d ksummary"] == out["route ksummary"]
     return out
 
 
@@ -380,7 +480,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
     lib = _build.build()
+    build_s = time.perf_counter() - t0
     print(lib, flush=True)
     dev = torch.device("cuda", 0)
     path = lambda name: os.path.join(opts.state, name)  # noqa: E731
@@ -425,7 +527,12 @@ def main():
         am.burn_samples(cs.DDI_BURN)
         return am
 
-    out = {}
+    out = {"build_s": build_s}
+    if "sass" in parts:
+        out["sass"] = sass_hashes(lib)
+    if "pooled_run" in parts:
+        out["pooled_run"] = pooled_run(
+            saved(path("rb9.pt"), rb9_run)[1])
     if "tutorial" in parts:
         out["tutorial"] = tutorial_part(
             lib, *saved(path("tutorial.pt"), tutorial_run), dev)
@@ -436,7 +543,7 @@ def main():
         out["k2"] = k2_part(lib, dev)
     if "stage1" in parts:
         out["stage1_s"] = stage1_part(dev)
-    if "sweep" not in parts:
+    if "sweep" not in parts and "scan" not in parts:
         print(json.dumps(out), flush=True)
         return
 
@@ -447,6 +554,11 @@ def main():
                      *saved(path(f"{name}.pt"), makers[name]))
               for name in SETS if name in sets}
     made = time.perf_counter() - t0
+    if "scan" in parts:
+        out["scan_ms"] = scan_part(states, dev)
+    if "sweep" not in parts:
+        print(json.dumps(out), flush=True)
+        return
 
     out.update({"registers": {}, "warps_per_sm": {}, "k1c_capacity": {},
                 "L": {}, "ms": {}})
