@@ -71,6 +71,16 @@
 // within 64; 10 or 12 blocks per SM spilled and were slower (PERF.md
 // section 6).
 //
+// Shapes of up to 25 (model, coordinate) pairs take the small shapes'
+// layout at 4 blocks per SM.  At toy2's (5, 5) the 25 pairs of chunk sums
+// and the logits in the thread's shared column (42 KB a block at L = 10)
+// took 95-128 registers and no local array, where
+// the sums in registers and the logits in local memory took 124-127 and a
+// 160-byte stack frame at the same 4 blocks.  The perm forms ran 1.2 times
+// faster, the others 0-3% (PERF.md section 6).  5 blocks per SM (at most
+// 102 registers) ran 16-31% slower; drawing the latent fillers only below
+// the destination's dimension, at (5, 5) and at toy1's (2, 2), was level.
+//
 // K1c: the JAX kernel keeps the population in one lane block, so its visit
 // histogram is a cross-lane sum.  Here the population spans many blocks, so
 // K1c is a cooperative launch over blocks that the card holds resident at once
@@ -212,17 +222,26 @@ constexpr int kRefresh = 16;
 // The small shapes (K * D <= 6: the tutorial's (3, 2) and below; header
 // note): a chain's allocation logits and chunk sums in the thread's column
 // of shared memory ([slot][thread]: a warp's 32 accesses to a slot hit 32
-// banks), 8 blocks of kThreads per SM.  The larger shapes, whose kernels
-// hold 206-255 registers, keep the sums in registers and the logits in a
-// local array.
+// banks), 8 blocks of kThreads per SM.  The shapes of more than 25
+// (model, coordinate) pairs, whose kernels hold 206-255 registers, keep
+// the sums in registers and the logits in a local array.
 template <int K, int D>
 __host__ __device__ constexpr bool small_shape() {
   return K * D <= 6;
 }
 
+// The shapes that keep a chain's chunk sums and logits in the thread's
+// column of shared memory: the small shapes and those of up to 25 (model,
+// coordinate) pairs (toy2's (5, 5); header note), the latter at 4 blocks
+// per SM.
+template <int K, int D>
+__host__ __device__ constexpr bool shared_cols() {
+  return K * D <= 25;
+}
+
 template <int K, int D>
 __host__ __device__ constexpr int min_blocks() {
-  return small_shape<K, D>() ? 8 : 1;
+  return small_shape<K, D>() ? 8 : shared_cols<K, D>() ? 4 : 1;
 }
 
 // The shape whose model set carries a cache: only its cached form exists.
@@ -249,7 +268,7 @@ size_t sweep_smem(int L) {
                             (size_t)AM_DDI_NCACHE * kThreads);
   const int KL = K * L;
   return sizeof(float) * ((size_t)(K * D + 3 * KL + KL * D + 2 * KL * D * D)
-                          + (small_shape<K, D>() ? (2 * K * D + L) * kThreads
+                          + (shared_cols<K, D>() ? (2 * K * D + L) * kThreads
                                                  : 0)
                           + (rb9_shape<K, D>() ? AM_RB9_TAB * kThreads : 0));
 }
@@ -290,7 +309,7 @@ __device__ __forceinline__ float am_alloc(int m, const float (&x)[D], int dm,
                                           const float* mu, const float* binv,
                                           const AmWords& wd, int s_g,
                                           bool draw, int& idx, float* lg) {
-  constexpr int kStride = small_shape<K, D>() ? kThreads : 1;
+  constexpr int kStride = shared_cols<K, D>() ? kThreads : 1;
   for (int li = 0; li < L; ++li)
     lg[li * kStride] = am_logit<K, D>(m, li, x, dm, L, abase, mu, binv);
   float mx = lg[0];

@@ -74,9 +74,9 @@
 #endif
   // visit counts of every model but the last (the last's is n_sweeps less
   // the others'), theta sums of every model: in registers, or at the small
-  // shapes in this thread's column of shared memory
+  // shapes and toy2's in this thread's column of shared memory
   int ks[K];
-  constexpr bool kSS = small_shape<K, D>();
+  constexpr bool kSS = shared_cols<K, D>();
   float ts[kSS ? 1 : K * D], tq[kSS ? 1 : K * D];
   float* sums_s = smem + n_tab + threadIdx.x;
 #pragma unroll
@@ -149,7 +149,7 @@
   };
 
   // the allocation logits (am_alloc): after the chunk sums in the thread's
-  // shared column at the small shapes, else a local array
+  // shared column at the small shapes and toy2's, else a local array
   float lg_local[kSS ? 1 : kLMax];
   float* lg = kSS ? sums_s + 2 * K * D * kThreads : lg_local;
 

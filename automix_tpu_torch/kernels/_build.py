@@ -74,10 +74,12 @@ def sweep_symbol(perm: bool, tdist: bool, kind: str = "") -> str:
     return f"am_fused_sweep{infix}_p{int(perm)}_t{int(tdist)}"
 
 
-def stage1_sweep_symbol(tdist: bool) -> str:
-    """Exported name of the stage-1 one-sweep launcher (K3) of one unit,
-    Normal or Student-t."""
-    return f"am_fused_stage1_sweep_t{int(tdist)}"
+def stage1_sweep_symbol(tdist: bool, kind: str = "") -> str:
+    """Exported name of a stage-1 one-sweep function (K3) of one unit,
+    Normal or Student-t: the launcher (``kind=""``) or its grid query
+    (``"grid"``)."""
+    infix = f"_{kind}" if kind else ""
+    return f"am_fused_stage1_sweep{infix}_t{int(tdist)}"
 
 
 def stage1_symbol(tdist: bool, kind: str = "") -> str:
@@ -101,8 +103,9 @@ _UNITS = tuple(
                         "-DAM_K1_OCC_SYMBOL="
                         f"{sweep_symbol(p, t, 'occupancy')}"))
     for p in (0, 1) for t in (0, 1)) + tuple(
-    ("fused_stage1_sweep.cu", (f"-DAM_K3_T={t}",
-                               f"-DAM_K3_SYMBOL={stage1_sweep_symbol(t)}"))
+    ("fused_stage1_sweep.cu", (
+        f"-DAM_K3_T={t}", f"-DAM_K3_SYMBOL={stage1_sweep_symbol(t)}",
+        f"-DAM_K3_GRID_SYMBOL={stage1_sweep_symbol(t, 'grid')}"))
     for t in (0, 1)) + tuple(
     ("fused_sweep.cu", (f"-DAM_PERM={p}", f"-DAM_TDIST={t}", "-DAM_SCAN=1",
                         f"-DAM_K1D_SYMBOL={sweep_symbol(p, t, 'scan')}",
@@ -141,8 +144,10 @@ _SIGNATURES = {
     **{stage1_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
        + [_P] + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P] for t in (0, 1)},
     **{stage1_symbol(t, "cap"): [_I, _I, _P] for t in (0, 1)},
-    **{stage1_sweep_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P]
-       + [_P] * 3 + [_P] * 3 + [_P] * 3 + [_P] for t in (0, 1)},
+    **{stage1_sweep_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I,
+                                _F] + [_P] * 3 + [_P] * 2 + [_P] * 3
+       + [_P] * 3 + [_P] for t in (0, 1)},
+    **{stage1_sweep_symbol(t, "grid"): [_I, _P, _P] for t in (0, 1)},
     "am_sweep_rng": [_I, _I, _I, _I, _U, _U, _I, _P, _P, _P],
 }
 

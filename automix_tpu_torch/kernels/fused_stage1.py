@@ -14,18 +14,21 @@ chain), stage 1 runs :func:`run_fused_stage1`: one launch of
 ``csrc/fused_stage1.cu`` (K2) per segment, the pooled update inside the
 kernel across a grid barrier per sweep.  A larger population runs
 :func:`run_fused_stage1_sweeps`: one launch of
-``csrc/fused_stage1_sweep.cu`` (K3) per sweep, and the pooled update
-between launches.  On the CPU, where both kernels are their plain twins
-(:func:`segment_ref`, :func:`sweep_ref`) and there is no card to hold a
-population, every population takes the segment runner; the two runners
-give bitwise the same sig, samples and logp there.
+``csrc/fused_stage1_sweep.cu`` (K3) per sweep, the pooled update inside
+the launch (its last block applies it).  On the CPU, where both kernels
+are their plain twins (:func:`segment_ref`, :func:`sweep_ref`) and there
+is no card to hold a population, every population takes the segment
+runner; the two runners give bitwise the same sig, samples and logp
+there.
 
 The pooled update is the rule of ``cfg.stage1_adapt``: AAP,
 ``sig = max(sig + 10 * gamma * err, 0)``, or the log rule,
 ``sig = sig * exp(log_gain * gamma * err)``, with err = acc / C - 0.25 and
-JAX's grouping of the products.  The segment kernel applies it inside the
-kernel; the one-sweep runner between launches, as the JAX ``seg_fn`` does
-outside its kernel, so the one-sweep kernel has no rule.
+JAX's grouping of the products.  Both kernels apply it inside their
+launch.  The one-sweep kernel also has a moves-only mode, which writes
+the sweep's counts alone, for a caller that sums them across devices
+before the rule (:func:`pooled_update`), as the JAX ``seg_fn`` does
+outside its kernel.
 
 Randomness is the counter hash of (seed_eff, 1-based global sweep, chain,
 slot) with ``seed_eff = (seed * 1000003 + 777) & 0x7FFFFFFF``, so the
@@ -45,6 +48,7 @@ and to JAX statistically.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -98,7 +102,8 @@ def runs_segment_kernel(n_chains: int, capacity: int) -> bool:
     of ``n_chains`` that the card holds resident (``capacity``, from
     :func:`segment_capacity`), the one-sweep kernel (K3) above it.  K2
     measured faster than K3 on every stage-1 population of the shipped
-    configurations, 2.7-100 times (PERF.md section 6)."""
+    configurations, 1.3-6.3 times since K3 applies the update in its
+    launch (PERF.md section 6)."""
     return n_chains <= capacity
 
 
@@ -297,12 +302,43 @@ def segment(modelset, theta, sig, nacc, ntry, *, C: int, sweep0: int,
 segment.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _coord_active(dims: tuple, dmax: int, dev: str):
+    """[K, D] bool on ``dev``: coordinate d belongs to model k."""
+    dims_t = torch.as_tensor(dims, device=dev).long()
+    return torch.arange(dmax, device=dev)[None, :] < dims_t[:, None]
+
+
+def pooled_update(modelset, sig, nacc, ntry, cnt, *, C: int, t: int,
+                  adapt: bool, rule: str = "aap", log_gain: float = 3.0):
+    """Sweep ``t``'s pooled update from its exact [K, D] accept counts
+    ``cnt``, as the JAX ``seg_fn`` applies it outside its kernel
+    (automix_tpu/kernels/fused_stage1.py:230-243), blends included: err =
+    cnt / C - 0.25 on each model's coordinates (0 on the others), sig
+    blended towards the rule's value by ``adapt`` (False on a block-move
+    sweep), nacc and ntry advanced by the counts and C.  The one-sweep
+    kernel's in-launch update computes the same expressions.  Returns
+    (sig, nacc, ntry)."""
+    active = _coord_active(tuple(modelset.dims), modelset.dmax,
+                           str(sig.device))
+    err = (cnt.to(torch.float32) * (1.0 / C) - RWM_TARGET_ACCEPT) \
+        * active.to(torch.float32)
+    sig_new = _adapted(sig, err, _gain(t, sig.device), rule, log_gain)
+    return (sig + float(adapt) * (sig_new - sig), nacc + int(adapt) * cnt,
+            ntry + int(adapt) * (active * C).to(torch.int32))
+
+
 def sweep_ref(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
-              nburn: int, seg_start: bool, tdist=None):
+              nburn: int, seg_start: bool, tdist=None, nacc=None, ntry=None,
+              rule: str = "aap", log_gain: float = 3.0):
     """Plain PyTorch twin of the one-sweep kernel: global sweep ``t`` of
-    every lane, moves only.  logp is recomputed from theta when
-    ``seg_start``.  Returns (theta [D, N], logp [N], accept counts
-    [K, D] int32 of the componentwise moves, zero on a block sweep)."""
+    every lane; logp is recomputed from theta when ``seg_start``.  Moves
+    only (``nacc`` and ``ntry`` None): returns (theta [D, N], logp [N],
+    accept counts [K, D] int32 of the componentwise moves, zero on a block
+    sweep).  With ``nacc`` and ``ntry`` [K, D], the sweep's pooled update
+    (:func:`pooled_update`, the rule ``rule`` with ``log_gain``) is
+    applied to ``sig``, ``nacc`` and ``ntry`` in place, as the kernel
+    applies it inside its launch, and the counts come back as None."""
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
     dev = theta.device
@@ -318,17 +354,35 @@ def sweep_ref(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     cnt = torch.zeros((K, D), dtype=torch.int32, device=dev)
     for j, acc in enumerate(accs):
         cnt[:, j].index_add_(0, model_of, acc.to(torch.int32))
-    return torch.stack(th), lp, cnt
+    if nacc is None:
+        return torch.stack(th), lp, cnt
+    new = pooled_update(modelset, sig, nacc, ntry, cnt, C=C, t=t,
+                        adapt=not block, rule=rule, log_gain=log_gain)
+    for x, v in zip((sig, nacc, ntry), new):
+        x.copy_(v)
+    return torch.stack(th), lp, None
 
+
+# The one-sweep kernel's rule codes (csrc/fused_stage1_sweep.cu; -1 is
+# moves only).
+_K3_RULES = {"aap": 0, "log": 1}
 
 def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
-          nburn: int, seg_start: bool, tdist=None):
+          nburn: int, seg_start: bool, tdist=None, nacc=None, ntry=None,
+          rule: str = "aap", log_gain: float = 3.0, work=None):
     """One stage-1 sweep: the CUDA kernel for tensors on the card, its
     plain twin for tensors on the CPU.  Same arguments and results as
-    :func:`sweep_ref`."""
+    :func:`sweep_ref`: with ``nacc`` and ``ntry`` the kernel applies the
+    pooled update to ``sig``, ``nacc`` and ``ntry`` in device memory inside
+    its launch, else it writes the counts alone (the moves-only mode, whose
+    counts a caller can sum across devices before the rule).  ``work``,
+    with the update, is the launch's counts and ticket: int32 [K * D + 1],
+    zero before the launch and left zero by it, so a caller that runs many
+    sweeps makes it once; None makes a zeroed one for this call."""
     if theta.device.type == "cpu":
         return sweep_ref(modelset, theta, logp, sig, C=C, t=t, seed=seed,
-                         nburn=nburn, seg_start=seg_start, tdist=tdist)
+                         nburn=nburn, seg_start=seg_start, tdist=tdist,
+                         nacc=nacc, ntry=ntry, rule=rule, log_gain=log_gain)
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
     dev = theta.device
@@ -337,27 +391,56 @@ def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     _build.check_shape(K, D, "sweep")
     if N != K * C:
         raise ValueError(f"sweep: {N} chains are not {K} x {C}")
-    for name, x, dtype, shape in (("theta", theta, torch.float32, (D, N)),
-                                  ("logp", logp, torch.float32, (N,)),
-                                  ("sig", sig, torch.float32, (K, D))):
+    if rule not in STAGE1_RULES:
+        raise ValueError(f"sweep: unknown rule {rule!r}")
+    update = nacc is not None
+    if update != (ntry is not None):
+        raise ValueError("sweep: nacc and ntry go together")
+    checks = [("theta", theta, torch.float32, (D, N)),
+              ("logp", logp, torch.float32, (N,)),
+              ("sig", sig, torch.float32, (K, D))]
+    if work is not None and not update:
+        raise ValueError("sweep: work serves the update only")
+    if update:
+        if work is None:
+            work = torch.zeros(K * D + 1, dtype=torch.int32, device=dev)
+        checks += [("nacc", nacc, torch.int32, (K, D)),
+                   ("ntry", ntry, torch.int32, (K, D)),
+                   ("work", work, torch.int32, (K * D + 1,))]
+    else:
+        work = torch.zeros(K * D, dtype=torch.int32, device=dev)
+    for name, x, dtype, shape in checks:
         _check(name, x, dev, dtype, shape, "sweep")
     kinds, consts, dims = modelset.density_table(dev)
     th_o = torch.empty_like(theta)
     lp_o = torch.empty_like(logp)
-    cnt = torch.zeros((K, D), dtype=torch.int32, device=dev)
     symbol = _build.stage1_sweep_symbol(tdist is not None)
     status = getattr(_build.library(), symbol)(
         K, D, N, C, t, seed, nburn, int(seg_start), _build.tconsts(tdist),
+        _K3_RULES[rule] if update else -1, float(log_gain),
         kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
-        theta.data_ptr(), logp.data_ptr(), sig.data_ptr(), th_o.data_ptr(),
-        lp_o.data_ptr(), cnt.data_ptr(),
+        theta.data_ptr(), logp.data_ptr(), sig.data_ptr(),
+        nacc.data_ptr() if update else None,
+        ntry.data_ptr() if update else None, th_o.data_ptr(),
+        lp_o.data_ptr(), work.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, symbol)
     sweep.launches += 1
-    return th_o, lp_o, cnt
+    return th_o, lp_o, None if update else work.view(K, D)
 
 
 sweep.launches = 0
+
+
+def sweep_grid(N: int, device, tdist=None):
+    """(threads a block, blocks) of the one-sweep kernel's launch for N
+    chains on the card ``device``: the launcher's own choice."""
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+    symbol = _build.stage1_sweep_symbol(tdist is not None, "grid")
+    with torch.cuda.device(device):
+        _build.check(getattr(_build.library(), symbol)(
+            N, ctypes.byref(threads), ctypes.byref(blocks)), symbol)
+    return threads.value, blocks.value
 
 
 def _start(modelset, cfg, nsweeps, C, init_theta, device):
@@ -428,18 +511,23 @@ def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
                             C: int, init_theta, device, sweep_fn=None):
     """Stage 1 for a population the segment kernel cannot hold resident:
     the one-device form of the JAX ``run_fused_stage1_sharded``.  Each
-    sweep is one launch of the one-sweep kernel, then the pooled update of
-    sig (the rule of ``cfg.stage1_adapt``), nacc and ntry from its exact
-    integer accept counts, in the JAX order, blends included.  Same schedule,
+    sweep is one launch of the one-sweep kernel, which applies the pooled
+    update of sig (the rule of ``cfg.stage1_adapt``), nacc and ntry inside
+    the launch from its exact integer accept counts, in the JAX order,
+    blends included; telemetry is read at segment ends.  Same schedule,
     arguments and results as :func:`run_fused_stage1`, and bitwise the
     same values in the twins.  ``sweep_fn=sweep_ref`` is the runner's
     plain twin on any device."""
-    sweep_fn = sweep_fn or sweep
     ((total, nburn, seg, n_seg, snap_segs), coord_active, theta, sig, nacc,
      ntry, seed_eff, tdist) = _start(modelset, cfg, nsweeps, C, init_theta,
                                      device)
-    ca = coord_active.to(torch.float32).to(device)
-    ca_c = (coord_active * C).to(torch.int32).to(device)
+    if sweep_fn is None:
+        # the kernel's counts and ticket, zeroed once: each launch leaves
+        # them zeroed for the next
+        K, D = modelset.nmodels, modelset.dmax
+        sweep_fn = functools.partial(sweep, work=torch.zeros(
+            K * D + 1, dtype=torch.int32, device=device))
+    rule, log_gain = cfg.stage1_adapt, cfg.stage1_log_gain
     lp = torch.zeros((theta.shape[1],), dtype=torch.float32, device=device)
     snaps, tele = [], []
     done = 0
@@ -447,20 +535,13 @@ def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
         n = min(seg, total - done)
         for i in range(n):
             t = done + i + 1                             # 1-based global
-            theta, lp, cnt = sweep_fn(modelset, theta, lp, sig, C=C, t=t,
-                                      seed=seed_eff, nburn=nburn,
-                                      seg_start=i == 0, tdist=tdist)
-            # block-move sweeps do not adapt (the kernel's own coin)
-            adapt = not (t > nburn and randoms.block_coin(seed_eff, t))
-            err = (cnt.to(torch.float32) * (1.0 / C)
-                   - RWM_TARGET_ACCEPT) * ca
-            sig_new = _adapted(sig, err, _gain(t, device), cfg.stage1_adapt,
-                               cfg.stage1_log_gain)
-            sig = sig + float(adapt) * (sig_new - sig)
-            nacc = nacc + int(adapt) * cnt
-            ntry = ntry + int(adapt) * ca_c
+            # sig, nacc and ntry updated in place
+            theta, lp, _ = sweep_fn(modelset, theta, lp, sig, C=C, t=t,
+                                    seed=seed_eff, nburn=nburn,
+                                    seg_start=i == 0, tdist=tdist, nacc=nacc,
+                                    ntry=ntry, rule=rule, log_gain=log_gain)
         done += n
-        tele.append((sig, nacc, ntry))
+        tele.append((sig.clone(), nacc.clone(), ntry.clone()))
         if s in snap_segs:
             snaps.append(theta)
     if done != total:

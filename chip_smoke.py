@@ -14,8 +14,12 @@ PyTorch twin on the card, then drives the port's paths at full size:
   the ported report writers, then the CLI in mode 1 from the
   ``_mix.data`` at its defaults (perm on, traces every 16th sweep), p(M)
   against the exact 0.5 / 0.25 / 0.125 / 0.0625 / 0.0625;
+* the sweep kernel's forms at toy2's (5, 5) on toy2's state, each
+  bitwise equal to its twin and timed per launch of 100 and of 16
+  sweeps (the CLI's launch), and a drive of its hw perm + Student-t form;
 * the CLI on toy1 with Student-t perturbations (``-t 5``), p(M) against
-  the exact 0.3 / 0.7;
+  the exact 0.3 / 0.7, then its (2, 2) perm + Student-t forms on the
+  state of the CLI's proposal, bitwise and timed as toy2's;
 * rb9 (10 models, dmax 5): stages 1-2 through ``AMSampler`` at the bench
   size (1024 stage-1 chains per model on the segment kernel, 2000
   stage-1 sweeps, seed 0) and the ported writers, then the CLI
@@ -43,8 +47,9 @@ PyTorch twin on the card, then drives the port's paths at full size:
   to its twin run on the card, and DDI's stage 1 on both routes, timed
   and bitwise equal;
 * change-point (6 models of dims 3-13, D5): the segment kernel with the
-  log rule (K2-log) and the one-sweep route with the log update between
-  launches, each equal to its twin on the card; stage 1 of cpt at 512
+  log rule (K2-log) and the one-sweep route (K3 with the log update in
+  its launch, and in its moves-only mode with the update between
+  launches), each equal to its twin on the card; stage 1 of cpt at 512
   chains per model (K2-log); ``AMSampler`` on cpt and on cptrs at the JAX
   package's change-point configuration (pooled pk, the log stage-1 rule,
   1024 stage-1 chains per model on K2-log, 2500 stage-1 sweeps; cptrs
@@ -166,9 +171,10 @@ DDI_CHECK_SWEEPS = TIME_SWEEPS  # crosses six cache refreshes (t % 16 == 15)
 # chunks, 1500 burn-in sweeps) held to the JAX package's own p(M), frozen
 # by tools/cpt_jax_reference.py (the C binaries segfault).  JAX's 1024
 # stage-1 chains per model run on K2-log, the log update in the kernel;
-# the K3 route with the log update between launches is held to its twin
-# at the same population.  Stage 3 at 16384 chains, as rb9's and DDI's
-# pooled runs: K1c.  K2-log also runs a stage 1 at 512 chains per model.
+# the K3 route (the log update in its launch, or between launches in its
+# moves-only mode) is held to its twin at the same population.  Stage 3
+# at 16384 chains, as rb9's and DDI's pooled runs: K1c.  K2-log also runs
+# a stage 1 at 512 chains per model.
 CPT_CHAINS = 16_384
 CPT_C_STAGE1, CPT_C_K2 = 1024, 512
 CPT_SEEDS = {"cpt": 5, "cptrs": 6}
@@ -670,10 +676,14 @@ def check_segment(ms, C, dev, tdist=None, label="K2", rule="aap"):
 
 
 def check_sweep_kernel(ms, C, dev, label="K3"):
-    """K3 against sweep_ref: one 100-sweep segment of K x C chains, sweep
-    by sweep from the same state.  The per-sweep accept counts must be
-    equal; theta and logp agree within float32 tolerance on >= 99% of
-    lanes."""
+    """K3 in its moves-only mode against sweep_ref: one 100-sweep segment
+    of K x C chains, sweep by sweep from the same state.  The per-sweep
+    accept counts must be equal; theta and logp agree within float32
+    tolerance on >= 99% of lanes.  Timed per sweep with the pooled update
+    in its launch, the runner's form: launched from Python (``ms``, as
+    before the update moved into the launch) and replayed from a CUDA
+    graph (``graph_ms``, the device's time alone); moves only from
+    Python beside it."""
     import torch
     from automix_tpu_torch.kernels import fused_stage1
     theta, sig, _ = stage1_start(ms, C, dev)
@@ -700,43 +710,75 @@ def check_sweep_kernel(ms, C, dev, label="K3"):
         fail(f"{label} accept counts differ from sweep_ref")
     if frac < 0.99:
         fail(f"{label} agrees on only {frac:.4f} of lanes")
-    ms_k = cuda_ms(lambda: fused_stage1.sweep(ms, theta, lp_k, sig, t=60,
+    # the update on copies of sig, nacc and ntry, which it updates in
+    # place, with one work buffer as the runner's
+    K, D = ms.nmodels, ms.dmax
+    upd = dict(nacc=torch.zeros(sig.shape, dtype=torch.int32, device=dev),
+               ntry=torch.zeros(sig.shape, dtype=torch.int32, device=dev),
+               work=torch.zeros(K * D + 1, dtype=torch.int32, device=dev))
+    sig_u = sig.clone()
+
+    def in_launch():
+        fused_stage1.sweep(ms, theta, lp_k, sig_u, t=60, seg_start=False,
+                           **kw, **upd)
+
+    ms_k = cuda_ms(in_launch, 200)
+    ms_g = graph_ms(in_launch, 100)
+    ms_m = cuda_ms(lambda: fused_stage1.sweep(ms, theta, lp_k, sig, t=60,
                                               seg_start=False, **kw), 200)
     ms_p = cuda_ms(lambda: fused_stage1.sweep_ref(
         ms, theta, lp_k, sig, t=60, seg_start=False, **kw), 5)
     N = ms.nmodels * C
-    b = bounds(lambda full: N * stage1_ops(ms, uniform(ms), full),
-               N * 4 * 2 * (ms.dmax + 1))
-    log(f"{label} sweep ({N} chains x 1 sweep): kernel {ms_k:.4f} ms, plain "
+    b = bounds(lambda full: N * stage1_ops(ms, uniform(ms), full) + 8 * K * D,
+               N * 4 * 2 * (D + 1))
+    grid = fused_stage1.sweep_grid(N, dev)
+    log(f"{label} sweep ({N} chains x 1 sweep, blocks of {grid[0]} x "
+        f"{grid[1]}): kernel {ms_k:.4f} ms with the update in its launch "
+        f"({ms_g:.4f} ms from a graph), {ms_m:.4f} ms moves only; plain "
         f"{ms_p:.4f} ms, {bound_text(b)}")
-    return dict(max_abs_err=float(th_err.max()), ms=ms_k, plain_ms=ms_p,
-                **b)
+    return dict(max_abs_err=float(th_err.max()), ms=ms_k, graph_ms=ms_g,
+                plain_ms=ms_p, **b)
+
+
+def runner_ms_per_sweep(run, n):
+    """(``run()``'s result, host milliseconds per sweep of its ``n``
+    sweeps), a synchronize before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / n
 
 
 def check_sweep_runner(ms, dev):
     """The one-sweep runner (K3), which the routing rule sends only
     populations above K2's resident capacity, against the segment runner
-    (K2) at toy2's CLI population, 5 x 2048 chains, 300 stage-1 sweeps:
-    sig, samples, telemetry and logp bitwise equal (the runner's gain is a
-    torch op, the segment kernel's the same float32 expression in the
-    kernel).  Returns the K3 runner's launches."""
+    (K2) at toy2's CLI population, 5 x 2048 chains, 300 stage-1 sweeps
+    (block-move sweeps after the 30 of burn-in), on the AAP rule, K3 with
+    the pooled update in its launch: sig, samples, telemetry and logp
+    bitwise equal to K2's (the segment kernel computes the rule's float32
+    expressions in its launch, K3 in its last block).  Both runners timed
+    on the host per sweep.  Returns the K3 runner's launches."""
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
     init = ms.init_points(torch.Generator())
     cfg = EngineConfig(seed=3)
+    n = 330
     reset_counts()
-    a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, TOY2_C_K3, init,
-                                             dev)
-    torch.cuda.synchronize()
+    a, ms_in = runner_ms_per_sweep(
+        lambda: fused_stage1.run_fused_stage1_sweeps(
+            ms, cfg, 300, TOY2_C_K3, init, dev), n)
     counts = read_counts()
-    b = fused_stage1.run_fused_stage1(ms, cfg, 300, TOY2_C_K3, init, dev)
-    torch.cuda.synchronize()
+    b, ms_seg = runner_ms_per_sweep(lambda: fused_stage1.run_fused_stage1(
+        ms, cfg, 300, TOY2_C_K3, init, dev), n)
     equal = all(torch.equal(x, y) for x, y in zip(a, b))
     log(f"K3 runner (launches {counts}) vs K2 runner (toy2, 5 x "
-        f"{TOY2_C_K3} chains, 330 sweeps): sig, samples, telemetry and "
-        f"logp equal {equal}")
-    if not equal or counts["K3"] != 330 or counts["K2"]:
+        f"{TOY2_C_K3} chains, {n} sweeps, AAP): sig, samples, telemetry and "
+        f"logp equal {equal}; host ms per sweep: K3 {ms_in:.4f}, K2 "
+        f"{ms_seg:.4f}")
+    if not equal or counts["K3"] != n or counts["K2"]:
         fail("the one-sweep runner disagrees with the segment runner")
     return counts
 
@@ -744,9 +786,9 @@ def check_sweep_runner(ms, dev):
 def stage1_routes(ms, C, nsweeps, dev, label):
     """Stage 1 of K models x C chains on both routes from the same start,
     ``nsweeps`` sweeps (+10% burn-in) at seed 0: the segment runner (K2)
-    and the one-sweep runner (K3), each timed on the host clock after a
-    synchronize; sig, samples, telemetry and logp must be bitwise equal.
-    Returns the K3 run's launches."""
+    and the one-sweep runner (K3, the update in its launch), each timed on
+    the host clock after a synchronize; sig, samples, telemetry and logp
+    must be bitwise equal.  Returns the K3 run's launches."""
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
@@ -763,10 +805,11 @@ def stage1_routes(ms, C, nsweeps, dev, label):
         secs.append(time.perf_counter() - t0)
         counts.append(read_counts())
     equal = all(torch.equal(a, b) for a, b in zip(*out))
-    log(f"{label} stage 1 ({ms.nmodels} x {C} chains, {nsweeps * 11 // 10} "
-        f"sweeps): K2 {secs[0]:.3f} s (launches {counts[0]}), K3 "
-        f"{secs[1]:.3f} s (launches {counts[1]}); sig, samples, telemetry "
-        f"and logp equal {equal}")
+    n = nsweeps * 11 // 10
+    log(f"{label} stage 1 ({ms.nmodels} x {C} chains, {n} sweeps): K2 "
+        f"{secs[0]:.3f} s (launches {counts[0]}), K3 {secs[1]:.3f} s "
+        f"({secs[1] * 1e3 / n:.4f} ms a sweep; launches {counts[1]}); sig, "
+        f"samples, telemetry and logp equal {equal}")
     if not equal:
         fail(f"{label}: the stage-1 routes differ")
     return counts[1]
@@ -1110,6 +1153,82 @@ def stream_times(ms, prop, chains):
             f"{' / '.join(f'{x:.4f}' for x in t)} ms, mean {ms_k:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms_k:.2%}")
     return out
+
+
+# The sweep kernel's forms at the toy shapes: (label, perm, Student-t,
+# stream).  toy2's (5, 5) forms on its state; toy1's (2, 2) forms, which its
+# `-t 5` CLI (K1f) and a hash run of its state (K1a) launch, on toy1's.
+TOY2_FORMS = (("K1", False, False, "hash"), ("K1a", True, True, "hash"),
+              ("K1b", True, False, "hash"), ("K1f", False, False, "hw"),
+              ("K1f + perm", True, False, "hw"),
+              ("K1f + t + perm", True, True, "hw"))
+TOY1_FORMS = (("K1a", True, True, "hash"),
+              ("K1f + t + perm", True, True, "hw"))
+TOY_CHECK_SWEEPS = 20
+CLI_LAUNCH = 16            # the CLI's launch: a trace every 16th sweep
+
+
+def check_toy_forms(ms, prop, chains, forms, label):
+    """Each form of ``forms`` against its twin run on the card, every
+    output bitwise equal (``exact_check``: K1_CHAINS chains of the state x
+    TOY_CHECK_SWEEPS sweeps), then timed on every chain of the state per
+    launch of TIME_SWEEPS and of CLI_LAUNCH sweeps, each against its
+    bound.  Returns {form: its entry keys, the TIME_SWEEPS launch's time
+    and bound}."""
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.ops import randoms
+    tabs = fused.prep_tables(prop, ms.dims)
+    small = chunk_args(grown(chains, K1_CHAINS))
+    args = chunk_args(chains)
+    L, K, D, S = tabs.loglam.shape[1], ms.nmodels, ms.dmax, chains.n_chains
+    probs = k_probs(ms, chains.k)
+    out = {}
+    for form, perm, tdist, rng in forms:
+        kw = dict(seed=11, adapt=True, perm=perm, rng=rng,
+                  tdist=randoms.student_t(5) if tdist else None)
+        _, err, ms_p = exact_check(ms, tabs, small, f"{label} {form}",
+                                   sweep0=chains.sweep,
+                                   n_sweeps=TOY_CHECK_SWEEPS, **kw)
+        row = {}
+        for n in (TIME_SWEEPS, CLI_LAUNCH):
+            ms_k = cuda_ms(lambda: fused.sweep_chunk(
+                ms, *args, tabs, sweep0=chains.sweep, n_sweeps=n, **kw), 5)
+            b = bounds(lambda full: S * n * sweep_ops(
+                ms, L, probs, perm, tdist, rng=rng, full=full),
+                S * state_bytes(K, D) + tables_bytes(K, D, L))
+            row[n] = (ms_k, b)
+        log(f"{label} {form} ({S} chains, L={L}): "
+            + "; ".join(f"{n} sweeps {ms_k:.4f} ms, {bound_text(b)}, share "
+                        f"{b['bound_ms'] / ms_k:.2%}"
+                        for n, (ms_k, b) in row.items())
+            + f"; plain {ms_p:.4f} ms ({K1_CHAINS} chains x "
+            f"{TOY_CHECK_SWEEPS} sweeps, its check)")
+        ms_k, b = row[TIME_SWEEPS]
+        out[form] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **b)
+    return out
+
+
+def toy_drive(ms, prop, chains, label, **cfg):
+    """A form's own path where no sampler path of this run launches it:
+    ``AMSampler`` from a state and its proposal on the stream "auto"
+    resolves to (K1f), TIME_SWEEPS production sweeps in one chunk, counts
+    set to 0 just before.  Returns its launch counts."""
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    am = AMSampler(ms, EngineConfig(
+        n_chains=chains.n_chains, seed=23, sweep_chunk=TIME_SWEEPS,
+        trace_chain0=False, **cfg), device="cuda")
+    am.set_proposal(prop)
+    am.chains = chains
+    reset_counts()
+    am.rjmcmc_samples(TIME_SWEEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{label}, {chains.n_chains} chains x {TIME_SWEEPS} sweeps: "
+        f"launches {counts}")
+    if counts["K1f"] == 0 or counts["K1"]:
+        fail(f"{label} did not launch K1f alone")
+    return counts
 
 
 def hash_drive(ms, prop, chains, label, seed=21, **cfg):
@@ -1508,12 +1627,12 @@ def ddi_paths(dev):
 
 def check_stage1_route(ms, C, dev, label="K3 + log"):
     """The one-sweep stage-1 route with the log rule
-    (``run_fused_stage1_sweeps``: a K3 launch per sweep, the log update
-    between launches in torch) against the same runner over the one-sweep
-    twin, both on the card: K models x C chains, CPT_ROUTE_SWEEPS stage-1
-    sweeps (+10% burn-in), seed 5; sig, samples, telemetry and logp must
-    be bitwise equal.  Timed per sweep.  Returns the kernel's entry and the
-    K3 launches of the checked run."""
+    (``run_fused_stage1_sweeps``: a K3 launch per sweep, the log update in
+    the launch) against the same runner over the one-sweep twin, both on
+    the card: K models x C chains, CPT_ROUTE_SWEEPS stage-1 sweeps (+10%
+    burn-in), seed 5; sig, samples, telemetry and logp must be bitwise
+    equal.  Timed per sweep.  Returns the kernel's entry and the K3
+    launches of the checked run."""
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
@@ -2077,7 +2196,7 @@ def main():
     log(f"phase build: {time.perf_counter() - t0:.2f} s ({lib_path.name})")
     log("build units, seconds to each object: " + "; ".join(
         f"{u} {t:.1f}" for u, t in unit_seconds(lib_path)))
-    for K, D in ((3, 2), (10, 5), (2, 16), (6, 13)):
+    for K, D in ((2, 2), (3, 2), (5, 5), (10, 5), (2, 16), (6, 13)):
         log(f"ptxas at ({K}, {D}), per form (registers, stack frame, spill "
             "stores, spill loads): " + "; ".join(
                 f"{n} {r}, {f}, {st}, {ld}"
@@ -2256,6 +2375,12 @@ def main():
                         "K1f perm + Student-t toy2", perm=True, tdist=t5)
         k1fb = check_hw(toy2, am.proposal, am.chains, "K1f perm toy2",
                         perm=True)
+        check_toy_forms(toy2, am.proposal, am.chains, TOY2_FORMS,
+                        "toy2 (5, 5)")
+        # no sampler path of this run takes the hw perm + t form at (5, 5)
+        k1fa_counts = toy_drive(toy2, am.proposal, am.chains,
+                                "toy2 perm + Student-t drive", perm=True,
+                                student_t_dof=5)
         del am
         log(f"phase K1 variant checks: {time.perf_counter() - t1:.2f} s")
 
@@ -2268,6 +2393,31 @@ def main():
         if t_counts["K1f"] == 0 or t_counts["K2"] == 0 or t_counts["K1"]:
             fail("the toy1 CLI run did not launch K1f alone and K2")
         log(f"phase toy1 Student-t CLI: {secs:.2f} s")
+
+        # ---- 8b. the (2, 2) Student-t + perm forms on toy1's state -------
+        # the CLI's proposal (its _mix.data), the state after a hash
+        # burn-in at the CLI's width: the path of K1a at (2, 2)
+        t1 = time.perf_counter()
+        from automix_tpu_torch.io import mixfile
+        prop1 = mixfile.read_mix_file(
+            os.path.join(tmp, "toy1_mix.data"), toy1.dims,
+            lmax=EngineConfig().max_mix_comps, dmax=toy1.dmax)
+        am = AMSampler(toy1, EngineConfig(
+            n_chains=N_CHAINS, seed=5, perm=True, student_t_dof=5,
+            fused_rng="hash", trace_chain0=False), device="cuda")
+        am.set_proposal(prop1)
+        reset_counts()
+        am.burn_samples(200)
+        toy1_counts = read_counts()
+        log(f"launches on the toy1 perm + Student-t burn-in (hash): "
+            f"{toy1_counts}")
+        if toy1_counts["K1"] == 0 or toy1_counts["K1f"]:
+            fail("the toy1 hash burn-in did not launch K1 on the hash")
+        toy1_forms = check_toy_forms(toy1, am.proposal, am.chains,
+                                     TOY1_FORMS, "toy1 (2, 2)")
+        del am
+        log(f"phase toy1 (2, 2) form checks: "
+            f"{time.perf_counter() - t1:.2f} s")
 
         # ---- 9. rb9: stages 1-2 at the bench size, reports -----------------
         oracle = json.load(open(os.path.join(
@@ -2427,8 +2577,10 @@ def main():
         entry("fused_sweep_pooled", k1_src, k1_at, ca["K1c"], k1c),
         entry("fused_sweep_pooled_runner", k1_src, k1_at, cb["K1d"], k1d),
         entry("fused_sweep_hw", k1_src, k1_at, main_counts["K1f"], k1f),
-        entry("fused_sweep_student_t_hw", k1_src, k1_at, t_counts["K1f"],
-              k1fa),
+        entry("fused_sweep_student_t_hw", k1_src, k1_at,
+              k1fa_counts["K1f"], k1fa),
+        entry("fused_sweep_student_t_hw_toy1", k1_src, k1_at,
+              t_counts["K1f"], toy1_forms["K1f + t + perm"]),
         entry("fused_sweep_perm_hw", k1_src, k1_at, toy2_counts["K1f"],
               k1fb),
         entry("fused_sweep_pooled_hw", k1_src, k1_at, pooled["K1c"][1],

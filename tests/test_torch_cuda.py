@@ -22,6 +22,7 @@ from automix_tpu_torch.models.tutorial import TUTORIAL_MODEL_PROBS, \
     tutorial_set
 from automix_tpu_torch.ops import randoms
 from automix_tpu_torch.state import Proposal
+from _k3_moves import moves_then_update
 
 pytestmark = pytest.mark.cuda
 
@@ -618,23 +619,40 @@ def _assert_scan_matches_route(ms, ch, tabs, n_sweeps, rng, **kw):
     return a
 
 
+def _scan_capacity(ms, L, perm, tdist, index):
+    """Chains K1d holds resident at one a thread: the largest multiple of
+    its block whose grid is the population itself (above it the launcher
+    gives every thread two chains or more, on a smaller grid)."""
+    lo, hi = 1, 4096                                  # blocks of 128
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        S = 128 * mid
+        if fused._scan_grid(ms.nmodels, ms.dmax, S, L, perm, tdist,
+                            index) == S:
+            lo = mid
+        else:
+            hi = mid - 1
+    return 128 * lo
+
+
 @pytest.mark.parametrize("rng", ["hash", "hw"])
 @pytest.mark.parametrize("case", list(_SCAN_CASES))
 def test_pooled_scan_matches_one_sweep_route(cuda, case, rng):
-    """K1d above K1c's capacity (the route's population): capacity + 1001
-    chains, so every thread of its grid carries two chains or one, and the
-    population is a multiple neither of a block nor of the grid; 20 sweeps
-    from sweep 7.  Bitwise the one-sweep route on either stream, at rb9's
-    (10, 5) with and without perm, DDI's (2, 16) with its cache across a
-    refresh, cpt's (6, 13) and the small shapes (the tutorial's (3, 2),
-    toy1's (2, 2), toy2's (5, 5) with Student-t draws)."""
+    """K1d above K1c's capacity (the route's population) and its own: the
+    larger + 1001 chains, so every thread of its grid carries two chains
+    or one, and the population is a multiple neither of a block nor of
+    the grid; 20 sweeps from sweep 7.  Bitwise the one-sweep route on
+    either stream, at rb9's (10, 5) with and without perm, DDI's (2, 16)
+    with its cache across a refresh, cpt's (6, 13) and the small shapes
+    (the tutorial's (3, 2), toy1's (2, 2), toy2's (5, 5) with Student-t
+    draws)."""
     name, kw = _SCAN_CASES[case]
     ms = _SHAPE_SETS[name]()
     L = 2
-    S = fused.pooled_capacity(ms, L, cuda, kw.get("perm", False),
-                              kw.get("tdist")) + 1001
-    G = fused._scan_grid(ms.nmodels, ms.dmax, S, L, kw.get("perm", False),
-                         "tdist" in kw, cuda.index)
+    perm, tdist = kw.get("perm", False), "tdist" in kw
+    S = max(fused.pooled_capacity(ms, L, cuda, perm, kw.get("tdist")),
+            _scan_capacity(ms, L, perm, tdist, cuda.index)) + 1001
+    G = fused._scan_grid(ms.nmodels, ms.dmax, S, L, perm, tdist, cuda.index)
     assert S % 128 and S % G and G % 128 == 0 and S > G
     ms, ch, tabs = _scan_state(name, cuda, S)
     _assert_scan_matches_route(ms, ch, tabs, 20, rng, **kw)
@@ -1018,8 +1036,8 @@ def test_changepoint_segment_log_rule_matches_twin_exactly(cuda):
 def test_changepoint_sweep_runner_log_rule_matches_twin(cuda):
     """The K3 route with the log rule at (6, 13): 6 x 1024 cpt chains
     (JAX's stage-1 population), 30 stage-1 sweeps (+3 burn-in) of
-    ``run_fused_stage1_sweeps``, one K3 launch per sweep and the log
-    update between launches, against the same runner over the one-sweep
+    ``run_fused_stage1_sweeps``, one K3 launch per sweep with the log
+    update in the launch, against the same runner over the one-sweep
     twin on the card: sig, samples, telemetry and logp bitwise equal."""
     ms = changepoint.cpt_set()
     cfg = EngineConfig(seed=5, stage1_adapt="log")
@@ -1450,10 +1468,11 @@ def test_large_shape_sweep_kernel_occupancy(cuda, shape):
 # ptxas -v registers (lo, hi) and the most bytes of spill stores and loads,
 # as the H100 build gives them: the per-chain body with its chains' loop
 # and counts, 226-237 registers at (10, 5) and (2, 16), within 64 at the
-# small shapes (8 blocks per SM), and at (6, 13) 184 / 212 bytes of spills
-# at the 255-register ceiling.
+# small shapes (8 blocks per SM), 94-103 at toy2's (5, 5) with its chunk
+# sums in shared memory (139-141 before), and at (6, 13) 184 / 212 bytes
+# of spills at the 255-register ceiling.
 _SCAN_REGS = {(2, 2): ((54, 64), 0), (3, 2): ((54, 64), 0),
-              (5, 5): ((132, 146), 0), (10, 5): ((220, 234), 0),
+              (5, 5): ((90, 108), 0), (10, 5): ((220, 234), 0),
               (2, 16): ((228, 244), 0), (6, 13): ((248, 255), 256)}
 
 
@@ -1485,25 +1504,28 @@ def test_pooled_scan_kernel_registers(cuda):
                                   "cpt"])
 def test_pooled_scan_grid(cuda, name):
     """K1d's grid, in every variant, for K1c's capacity, one chain more
-    and three times as many: whole blocks, resident, and every thread
-    carrying ceil(S / G) chains or one fewer.  Where K1d's registers give
-    K1c's blocks per SM (every shape but toy2's (5, 5), where 139
-    registers leave 3 blocks per SM against K1c's 4), K1c's population
-    runs at one chain a thread."""
+    and three times as many: whole blocks, resident (within K1d's own
+    capacity at one chain a thread), and every thread carrying
+    ceil(S / G) chains or one fewer.  K1d's registers give at least K1c's
+    blocks per SM at every shape (at toy2's (5, 5), with the chunk sums
+    in shared memory, 4-5 against K1c's 4), so K1c's population runs at
+    one chain a thread."""
     ms = _SHAPE_SETS[name]()
     K, D = ms.nmodels, ms.dmax
     for perm in (False, True):
         for tdist in (None, randoms.student_t(5)):
             cap = fused.pooled_capacity(ms, 2, cuda, perm, tdist)
+            own = _scan_capacity(ms, 2, perm, tdist is not None, cuda.index)
+            assert own >= cap, (cap, own)
             for S in (cap, cap + 1, 3 * cap + 5):
                 G = fused._scan_grid(K, D, S, 2, perm, tdist is not None,
                                      cuda.index)
                 nc = -(-S // G)
                 assert G % 128 == 0 and (nc - 1) * G < S <= nc * G, (S, G)
-                assert G <= cap, (S, G)
+                assert G <= own, (S, G)
             one = fused._scan_grid(K, D, cap, 2, perm, tdist is not None,
                                    cuda.index)
-            assert (one == cap) == (name != "toy2"), (cap, one)
+            assert one == cap, (cap, one)
 
 
 def _ulps(a, b):
@@ -1572,3 +1594,202 @@ def test_general_engine_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(out.logp.cpu()[same], out_c.logp[same],
                                    rtol=1e-4, atol=1e-4)
         assert int(chunk["ntrytd"]) == int(chunk_c["ntrytd"]) == 8192 * 5
+
+
+# ---- K3: the pooled update in the launch, its moves-only mode, its grid --
+
+def _k3_block_sweeps(ms, cfg, nsweeps, C):
+    """The block-move sweeps of a stage-1 schedule (the batch coin after
+    the burn-in), on which K3 counts nothing and does not adapt."""
+    total, nburn = fused_stage1.schedule(cfg, nsweeps, C, ms.dmax)[:2]
+    seed = (int(cfg.seed) * 1000003 + 777) & 0x7FFFFFFF
+    return [t for t in range(nburn + 1, total + 1)
+            if randoms.block_coin(seed, t)]
+
+
+@pytest.mark.parametrize("rule", ["aap", "log"])
+@pytest.mark.parametrize("name,C,nsweeps", [("toy2", 2048, 300),
+                                            ("ddi", 512, 60)])
+def test_k3_update_in_launch_matches_twin_runner(cuda, name, C, nsweeps,
+                                                rule):
+    """K3 with the pooled update in its launch (its last block applies
+    the rule to sig, nacc and ntry in device memory): the one-sweep runner
+    on it against the same runner over the twin on the card (the update in
+    torch, sweep_ref's), and against the moves-only runner (K3 writing
+    its counts, the update in torch between launches), at toy2's 5 x 2048
+    and DDI's 2 x 512, on the AAP and log rules, over a schedule with
+    block-move sweeps: sig, samples, telemetry and logp bitwise equal, one
+    launch a sweep."""
+    ms = _SHAPE_SETS[name]()
+    cfg = EngineConfig(seed=3, stage1_adapt=rule)
+    assert _k3_block_sweeps(ms, cfg, nsweeps, C)
+    init = ms.init_points(torch.Generator())
+    n = nsweeps * 11 // 10
+    before = fused_stage1.sweep.launches
+    got = fused_stage1.run_fused_stage1_sweeps(ms, cfg, nsweeps, C, init,
+                                               cuda)
+    assert fused_stage1.sweep.launches == before + n
+    twin = fused_stage1.run_fused_stage1_sweeps(
+        ms, cfg, nsweeps, C, init, cuda, sweep_fn=fused_stage1.sweep_ref)
+    moves = fused_stage1.run_fused_stage1_sweeps(
+        ms, cfg, nsweeps, C, init, cuda,
+        sweep_fn=moves_then_update(fused_stage1.sweep))
+    for i, (a, b, c) in enumerate(zip(got, twin, moves)):
+        assert torch.equal(a, b) and torch.equal(a, c), i
+
+
+@pytest.mark.parametrize("name", ["toy2", "ddi"])
+def test_k3_moves_only_counts_match_twin(cuda, name):
+    """K3's moves-only mode writes the sweep's accept counts alone, as the
+    kernel did before its update moved into the launch: 50 sweeps (block
+    moves after sweep 20, the coin's first at sweep 42 for seed 777)
+    sweep by sweep from the same state, the counts equal to sweep_ref's
+    on the card every sweep and zero on block-move sweeps, theta and logp
+    equal, sig untouched."""
+    ms = _SHAPE_SETS[name]()
+    C = 512
+    a, sig = _stage1_state(ms, C, cuda, 1.0)
+    sig0 = sig.clone()
+    b = a
+    la = lb = torch.zeros(a.shape[1], device=cuda)
+    kw = dict(C=C, seed=777, nburn=20)
+    seen_block = False
+    for t in range(1, 51):
+        a, la, ca = fused_stage1.sweep(ms, a, la, sig, t=t,
+                                       seg_start=t == 1, **kw)
+        b, lb, cb = fused_stage1.sweep_ref(ms, b, lb, sig, t=t,
+                                           seg_start=t == 1, **kw)
+        assert torch.equal(ca, cb), t
+        if t > 20 and randoms.block_coin(777, t):
+            seen_block = True
+            assert int(ca.sum()) == 0, t
+    assert seen_block
+    assert torch.equal(a, b) and torch.equal(la, lb)
+    assert torch.equal(sig, sig0)
+
+
+def test_k3_grid_covers_every_chain(cuda):
+    """K3's grid, the launcher's choice: one-warp blocks while they put at
+    most four on each SM, then blocks of 2, 4 or 8 warps; whole warps,
+    every chain covered by exactly one thread, at populations below and
+    above K2's resident capacity.  One sweep above the capacity (toy2)
+    equals its twin on the card in every chain."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    toy2 = toy.toy2_set()
+    cap = fused_stage1.segment_capacity(toy2, cuda)
+    for N in (1024, 10240, 4 * 32 * sms, 4 * 32 * sms + 1, cap, cap + 1,
+              3 * cap + 5):
+        threads, blocks = fused_stage1.sweep_grid(N, cuda)
+        assert threads in (32, 64, 128, 256), (N, threads)
+        assert (blocks - 1) * threads < N <= blocks * threads, (N, threads)
+        assert (threads == 32) == (N <= 4 * 32 * sms), (N, threads)
+        assert (threads == 256) == (N > 16 * 32 * sms), (N, threads)
+    C = cap // 5 + 1
+    theta, sig = _stage1_state(toy2, C, cuda, 1.0)
+    lp = torch.zeros(theta.shape[1], device=cuda)
+    kw = dict(C=C, t=1, seed=777, nburn=0, seg_start=True)
+    got = fused_stage1.sweep(toy2, theta, lp, sig, **kw)
+    want = fused_stage1.sweep_ref(toy2, theta, lp, sig, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert bool((got[0] != theta).any(0).float().mean() > 0.2)
+
+
+# ---- the sweep kernel's forms at the toy shapes ---------------------------
+
+# ptxas -v registers (lo, hi) and the largest stack frame of K1 and K1c at
+# toy2's (5, 5) in every variant (its chunk sums and logits in shared
+# memory: 95-128 registers, libdevice's 32-byte frame, where its logits in
+# local memory took a 160-byte frame) and of the Student-t forms at toy1's
+# (2, 2) (the small shapes' layout, within 64 registers); no spills; and
+# the per-chain kernel's resident warps per SM at the L of the toy fits
+# (toy2's lmax 10, toy1's 3).
+_TOY_SHAPES = {(5, 5): (toy.toy2_set, (92, 128), (0, 1), 10, 16),
+               (2, 2): (toy.toy1_set, (56, 64), (1,), 3, 32)}
+
+
+def _ptxas_by_unit(K, D):
+    """(Student-t flag of the unit, kernel name, registers, stack frame,
+    spill stores, spill loads) of every per-chain and pooled form of the
+    sweep kernel at (K, D), from the build's ptxas -v log."""
+    import re
+    log = _build.build().with_suffix(".log").read_text()
+    found = []
+    for unit in log.split("$ ")[1:]:
+        t = re.search(r"-DAM_TDIST=(\d)", unit.split("\n", 1)[0])
+        for block in unit.split("Compiling entry function '")[1:]:
+            name = block.split("'", 1)[0]
+            if not (t and f"fused_sweep_kernelILi{K}ELi{D}ELb" in name):
+                continue
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            found.append((int(t.group(1)), name, int(regs.group(1)),
+                          *map(int, frame.groups())))
+    return found
+
+
+@pytest.mark.parametrize("shape", list(_TOY_SHAPES), ids=str)
+def test_toy_sweep_kernel_registers(cuda, shape):
+    """The sweep kernel's forms at toy2's (5, 5) (every variant) and the
+    Student-t forms at toy1's (2, 2), K1 and K1c: registers within the
+    build's range, a stack frame of at most 32 bytes (libdevice's trig
+    reduction; no local array of logits) and no spills."""
+    _, (lo, hi), tflags, _, _ = _TOY_SHAPES[shape]
+    found = [f for f in _ptxas_by_unit(*shape) if f[0] in tflags]
+    assert len(found) == 4 * len(tflags), found   # 2 perm units x K1, K1c
+    assert all(lo <= r <= hi and fr <= 32 and st == ld == 0
+               for _, _, r, fr, st, ld in found), found
+
+
+@pytest.mark.parametrize("shape", list(_TOY_SHAPES), ids=str)
+def test_toy_sweep_kernel_occupancy(cuda, shape):
+    """The per-chain sweep kernel's resident warps per SM at the toy fits'
+    L: 16 at (5, 5) in every variant (4 blocks of 4 warps), 32 for the
+    Student-t forms at (2, 2) (8 blocks)."""
+    make, _, tflags, L, warps = _TOY_SHAPES[shape]
+    ms = make()
+    for perm in (False, True):
+        for t in tflags:
+            tdist = randoms.student_t(5) if t else None
+            assert fused.occupancy(ms, L, cuda, perm=perm, tdist=tdist) \
+                == warps, (perm, t)
+
+
+# toy2's (5, 5) and toy1's (2, 2) forms (perm, Student-t): the toy2 CLI
+# runs K1f + perm at (5, 5), toy1's `-t 5` CLI K1f + t + perm at (2, 2).
+_TOY_FORMS = [("toy2", False, 0), ("toy2", True, 0), ("toy2", True, 5),
+              ("toy2", False, 5), ("toy1", True, 5), ("toy1", False, 5)]
+
+
+@pytest.mark.parametrize("rng", ["hash", "hw"])
+@pytest.mark.parametrize("name,perm,dof", _TOY_FORMS,
+                         ids=[f"{n}-perm{int(p)}-t{d}"
+                              for n, p, d in _TOY_FORMS])
+def test_toy_sweep_kernel_forms_match_twin_exactly(cuda, name, perm, dof,
+                                                   rng):
+    """The sweep kernel's forms at toy2's (5, 5) and toy1's (2, 2) against
+    their twin on the card: 4096 chains x 30 sweeps (three block moves)
+    from the start points under a two-component proposal, one launch,
+    every output bitwise equal, on both streams; the chains jump."""
+    ms = _SHAPE_SETS[name]()
+    K = ms.nmodels
+    tabs = fused.prep_tables(_start_proposal(ms), ms.dims)
+    tabs = type(tabs)(**{f: getattr(tabs, f).to(cuda)
+                         for f in tabs.__dataclass_fields__})
+    S = 4096
+    init = ms.init_points(torch.Generator().manual_seed(0))
+    k = torch.as_tensor(np.random.default_rng(2).integers(0, K, S),
+                        dtype=torch.int32)
+    theta = init[k.long()].T.contiguous()
+    logp = ms.logpost_cols(k.long(), list(theta))
+    args = [x.to(cuda) for x in (k, theta, logp, torch.full((K, S), 1.0 / K),
+                                 torch.full((S,), 0.1),
+                                 torch.ones(S, dtype=torch.int32))]
+    kw = dict(seed=3, sweep0=5, n_sweeps=30, adapt=True, perm=perm, rng=rng,
+              tdist=randoms.student_t(dof) if dof else None)
+    got = fused.sweep_chunk(ms, *args, tabs, **kw)
+    want = fused.sweep_chunk_ref(ms, *args, tabs, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert (got[0] != args[0]).float().mean() > 0.05

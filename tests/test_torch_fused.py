@@ -226,3 +226,101 @@ def test_sweep_chunk_ref_variants_match_jax_on_toy2(variant):
                                    rtol=0.01, atol=5, err_msg=name)
     # the move really changed dimension on a share of chains
     assert (ch2.k.numpy() != c["k"]).mean() > 0.05
+
+
+# toy1's mixture modes: model 1 (dim 1) at -3 and +2, model 2 (dim 2) at
+# (0, 3), (-4, 1) and (4, 1) (models/toy.py toy1_set).
+_TOY1_MODES = ([[-3.0, 0.0], [2.0, 0.0]],
+               [[0.0, 3.0], [-4.0, 1.0], [4.0, 1.0]])
+
+
+def _toy1_proposal(rng, L=3):
+    """A toy1 proposal: each model's components near its mixture's modes
+    (model 1's third component repeats its first), correlated lower-
+    triangular factors on each model's own coordinates."""
+    K, D = 2, 2
+    dims = np.array([1, 2])
+    lam = rng.dirichlet(np.ones(L) * 3, size=K)
+    modes = np.array([[_TOY1_MODES[k][li % len(_TOY1_MODES[k])]
+                       for li in range(L)] for k in range(K)])
+    mu = modes + 0.3 * rng.normal(size=(K, L, D))
+    B = np.zeros((K, L, D, D))
+    for i in range(D):
+        B[..., i, i] = rng.uniform(0.8, 2.0, (K, L))
+    B[..., 1, 0] = 0.4 * rng.uniform(-1, 1, (K, L))
+    mask = np.arange(D)[None, :] < dims[:, None]
+    mu = mu * mask[:, None, :]
+    keep = mask[:, None, :, None] & mask[:, None, None, :]
+    B = np.where(keep, B, np.eye(D))
+    logdetB = np.sum(np.log(np.diagonal(B, axis1=-2, axis2=-1))
+                     * mask[:, None, :], axis=-1)
+    f32 = np.float32
+    return dict(lam=lam.astype(f32), mu=mu.astype(f32), B=B.astype(f32),
+                logdetB=logdetB.astype(f32), nmix=np.full(K, L, np.int32),
+                sig=np.full((K, D), 1.5, f32) * mask.astype(f32))
+
+
+def _toy1_chains(rng):
+    from automix_tpu.models import toy as jtoy
+    k = rng.integers(0, 2, size=S).astype(np.int32)
+    modes = [np.array(m) for m in _TOY1_MODES]
+    theta = np.stack([modes[kk][rng.integers(len(modes[kk]))] for kk in k])
+    theta = theta + rng.normal(size=(S, 2))
+    theta = (theta * (np.arange(2)[None, :] <= k[:, None])).astype(np.float32)
+    cols = jfused.make_logpost_cols(jtoy.toy1_set())
+    mks = [jnp.asarray((k == m).astype(np.float32)) for m in range(2)]
+    logp = np.asarray(cols(mks, [jnp.asarray(theta[:, d]) for d in range(2)]))
+    pk = rng.dirichlet(np.ones(2) * 5, size=S).astype(np.float32)
+    return dict(k=k, theta=theta, logp=logp, pk=pk,
+                pkllim=np.full(S, 0.1, np.float32),
+                nreinit=np.ones(S, np.int32), sweep=SWEEP0)
+
+
+def test_sweep_chunk_ref_perm_student_t_matches_jax_on_toy1():
+    """The form toy1's ``-t 5`` CLI runs at (2, 2), perm and Student-t
+    together: toy1 (dims 1 and 2), 1024 chains x 12 sweeps (one block
+    sweep) under a 3-component proposal, against the JAX fused runner in
+    interpret mode on the hash.  Words are bitwise equal; the tolerances
+    are those of the toy2 variant test: k equal on >= 99% of chains,
+    theta and logp within 1e-4 relative on those, counters within 1%."""
+    from automix_tpu.models import toy as jtoy
+    from automix_tpu_torch.models import toy
+    nsweeps = 12
+    variant = dict(perm=True, student_t_dof=5)
+    rng = np.random.default_rng(SEED + 2)
+    p = _toy1_proposal(rng)
+    c = _toy1_chains(rng)
+
+    jcfg = JaxConfig(seed=SEED, n_chains=S, fused="on", fused_rng="hash",
+                     **variant)
+    jrun = jfused.build_fused_chunk_runner(jtoy.toy1_set(), jcfg,
+                                           burning=False)
+    jprop = JaxProposal(**{n: jnp.asarray(v) for n, v in p.items()})
+    jch = JaxChains(key=jax.random.split(jax.random.PRNGKey(0), S),
+                    **{n: jnp.asarray(v) for n, v in c.items()
+                       if n != "sweep"},
+                    sweep=jnp.asarray(SWEEP0, jnp.int32))
+    jch2, jchunk = jax.device_get(jrun(jch, jprop, nsweeps))
+
+    run = fused.build_fused_chunk_runner(
+        toy.toy1_set(), EngineConfig(seed=SEED, **variant), burning=False)
+    ch2, chunk = run(chains_from_numpy(**c), proposal_from_arrays(jprop),
+                     nsweeps)
+
+    same = ch2.k.numpy() == np.asarray(jch2.k)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(ch2.theta.numpy()[same],
+                               np.asarray(jch2.theta)[same], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(ch2.logp.numpy()[same],
+                               np.asarray(jch2.logp)[same], rtol=1e-4,
+                               atol=1e-4)
+    ks, jks = chunk["ksummary"].numpy(), np.asarray(jchunk["ksummary"])
+    assert ks.sum() == jks.sum() == S * nsweeps
+    np.testing.assert_allclose(ks, jks, rtol=0.01, atol=20)
+    for name in ("naccrwmb", "ntryrwmb", "naccrwms", "ntryrwms", "nacctd",
+                 "ntrytd"):
+        np.testing.assert_allclose(int(chunk[name]), int(jchunk[name]),
+                                   rtol=0.01, atol=5, err_msg=name)
+    # the move really changed dimension on a share of chains
+    assert (ch2.k.numpy() != c["k"]).mean() > 0.05

@@ -16,6 +16,8 @@ from automix_tpu_torch.config import EngineConfig
 from automix_tpu_torch.convert import stage1_state_from_numpy
 from automix_tpu_torch.kernels import fused_stage1, rwm
 from automix_tpu_torch.models import toy, tutorial
+from automix_tpu_torch.ops import randoms
+from _k3_moves import moves_then_update
 from _torch_threads import one_torch_thread  # noqa: F401
 
 C, NSWEEPS, SEED = 64, 200, 5
@@ -157,12 +159,14 @@ def test_segment_ref_student_t_matches_jax_interpret():
     pytest.param("tutorial", 0, "log", id="tutorial-0-log")])
 def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof,
                                                               rule):
-    """The one-sweep runner (K3's twin plus the pooled update between
+    """The one-sweep runner (K3's twin with the pooled update inside each
+    sweep, as the kernel applies it in its launch) against JAX
+    ``run_fused_stage1_sharded`` on a 1-device CPU mesh, with the
+    tolerances of the segment runner's JAX test, and BITWISE against the
+    port's own segment runner (the rule in its kernel's twin) and against
+    the moves-only runner (the twin's counts alone, the update between
     sweeps, the log rule's as JAX's seg_fn applies it outside its kernel,
-    fused_stage1.py:239-243) against JAX ``run_fused_stage1_sharded`` on
-    a 1-device CPU mesh, with the tolerances of the segment runner's JAX
-    test, and BITWISE against the port's own segment runner (the rule in
-    its kernel's twin): same sig, samples, telemetry and logp."""
+    fused_stage1.py:239-243): same sig, samples, telemetry and logp."""
     from automix_tpu.parallel import mesh as mesh_lib
     init = _init(name)
     jms, ms = _toy_sets(name)
@@ -175,9 +179,53 @@ def test_sweep_runner_matches_jax_sharded_and_segment_runner(name, dof,
     args = (ms, cfg, nsweeps, C, torch.tensor(init), "cpu")
     got = fused_stage1.run_fused_stage1_sweeps(*args)
     seg = fused_stage1.run_fused_stage1(*args)
-    for a, b in zip(got, seg):
-        assert torch.equal(a, b)
+    moves = fused_stage1.run_fused_stage1_sweeps(
+        *args, sweep_fn=moves_then_update(fused_stage1.sweep_ref))
+    for a, b, c in zip(got, seg, moves):
+        assert torch.equal(a, b) and torch.equal(a, c)
     _agree_with_jax([x.numpy() for x in got], want)
+
+
+@pytest.mark.parametrize("rule", ["aap", "log"])
+def test_sweep_ref_update_mode_matches_moves_and_pooled_update(rule):
+    """The one-sweep twin with the update (nacc and ntry given): the same
+    theta and logp as its moves-only form, sig, nacc and ntry updated in
+    place to what ``pooled_update`` makes of the moves-only counts, and
+    left as they were on a block-move sweep (toy2, 5 x 64 chains, sweeps
+    from the start, block moves after sweep 4)."""
+    ms = toy.toy2_set()
+    K, D, Cn = ms.nmodels, ms.dmax, 64
+    theta = ms.init_points(torch.Generator()).repeat_interleave(Cn, 0).T
+    theta = theta.contiguous()
+    sig = torch.where(torch.arange(D)[None] < torch.tensor(ms.dims)[:, None],
+                      2.0, 0.0)
+    sig0 = sig.clone()
+    nacc = torch.zeros((K, D), dtype=torch.int32)
+    ntry = torch.zeros((K, D), dtype=torch.int32)
+    lp = torch.zeros(K * Cn)
+    seed, nburn = 9, 4
+    kinds = set()
+    for t in range(1, 31):
+        kw = dict(C=Cn, t=t, seed=seed, nburn=nburn, seg_start=t == 1)
+        th_m, lp_m, cnt = fused_stage1.sweep_ref(ms, theta, lp, sig, **kw)
+        block = t > nburn and randoms.block_coin(seed, t)
+        want = fused_stage1.pooled_update(
+            ms, sig, nacc, ntry, cnt, C=Cn, t=t, adapt=not block, rule=rule,
+            log_gain=3.0)
+        before = sig.clone()
+        th_u, lp_u, none = fused_stage1.sweep_ref(
+            ms, theta, lp, sig, nacc=nacc, ntry=ntry, rule=rule,
+            log_gain=3.0, **kw)
+        assert none is None
+        assert torch.equal(th_u, th_m) and torch.equal(lp_u, lp_m)
+        for got, w in zip((sig, nacc, ntry), want):
+            assert torch.equal(got, w), t
+        if block:
+            assert torch.equal(sig, before)
+        kinds.add(block)
+        theta, lp = th_u, lp_u
+    assert kinds == {True, False}
+    assert int(ntry.sum()) > 0 and not torch.equal(sig, sig0)
 
 
 @pytest.mark.parametrize("n,cap,segment", [

@@ -31,6 +31,23 @@ versions of the kernel sources.  Each part is chosen with ``--parts``
   20000 sweeps after its burn-in, from the fit's proposal) through
   ``AMSampler`` on K1d and on the one-sweep route, seconds each and
   whether their visit counts are equal;
+* ``toy``: the sweep kernel's forms at toy2's (5, 5) (K1 / K1a / K1b
+  on the hash, K1f / K1f + perm / K1f + t + perm on the hw stream) on a
+  toy2 state and its Student-t and perm forms at toy1's (2, 2) on a toy1
+  state (each ``AMSampler``'s fit, 131072 chains after 200 burn-in
+  sweeps), each first held bitwise to its twin on the card (16384 chains
+  x 20 sweeps; whether it is equal is recorded, not asserted), then ms
+  per launch of 100 and of 16 sweeps (the CLI's launch, a trace every
+  16th sweep), the forms' ptxas records and warps per SM, and the CLI in
+  mode 1 on toy2 and on toy1 with ``-t 5`` from those fits (131072
+  chains, 20000 sweeps), in seconds;
+* ``k3``: K3, the stage-1 one-sweep kernel, from the start points at
+  DDI's 2 x 512 and toy2's 5 x 2048, and above K2's resident capacity at
+  DDI's 2 x 15000 and toy2's 5 x 27100: ms per launch (CUDA events,
+  from Python and replayed from a CUDA graph) in its moves-only mode
+  and, where the checkout has it, with the update in the launch; the
+  one-sweep runner's host ms per sweep (a synchronize after 330 sweeps)
+  in two turns; K2's capacity and K3's grid;
 * ``sass``: a hash of each compiled sweep and stage-1 kernel's SASS
   instructions (``cuobjdump -sass``, the anonymous namespace's per-build
   name taken out), by kernel and occurrence, so that two builds' forms
@@ -89,6 +106,7 @@ Prints the card's name and power limit, then one JSON line.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -105,7 +123,17 @@ import chip_smoke as cs  # noqa: E402
 
 SIZES = (16_384, 131_072)
 PARTS = ("sweep", "tutorial", "k1c", "k2", "stage1", "scan", "pooled_run",
-         "sass")
+         "toy", "k3", "sass")
+# the toy forms: (label, perm, Student-t, stream) at toy2's (5, 5), and
+# the (2, 2) forms the toy1 `-t 5` CLI and its hash burn-in run
+TOY2_FORMS = (("K1", False, False, "hash"), ("K1a", True, True, "hash"),
+              ("K1b", True, False, "hash"), ("K1f", False, False, "hw"),
+              ("K1f + perm", True, False, "hw"),
+              ("K1f + t + perm", True, True, "hw"))
+TOY1_FORMS = (("K1a", True, True, "hash"), ("K1f + t + perm", True, True, "hw"))
+# (name, set, chains per model) of the K3 timings
+K3_POPULATIONS = (("ddi", "ddi", 512), ("toy2", "toy2", 2048),
+                  ("ddi", "ddi", 15000), ("toy2", "toy2", 27100))
 # the model sets whose states the sweep part makes and times
 SETS = ("cpt", "cptrs", "rb9", "tutorial", "ddi")
 # (name, set, chains per model, rule) of the K2 segment timings
@@ -332,10 +360,10 @@ def pooled_run(prop):
     return out
 
 
-def cli_seconds(name, mix_stem, sweeps=cs.CPT_CLI_SWEEPS):
+def cli_seconds(name, mix_stem, sweeps=cs.CPT_CLI_SWEEPS, extra=()):
     """Seconds of the CLI in mode 1 on ``name`` from the proposal at
     ``mix_stem``_mix.data, at chip_smoke.py's size (131072 chains,
-    ``-N sweeps``)."""
+    ``-N sweeps``), with the arguments ``extra``."""
     from automix_tpu_torch import cli
     with tempfile.TemporaryDirectory() as tmp:
         stem = os.path.join(tmp, name)
@@ -344,11 +372,138 @@ def cli_seconds(name, mix_stem, sweeps=cs.CPT_CLI_SWEEPS):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main([name, "-m", "1", "--chains", str(cs.N_CHAINS),
-                           "-N", str(sweeps), "-s", "1", "-f", stem])
+                           "-N", str(sweeps), "-s", "1", "-f", stem,
+                           *extra])
         secs = time.perf_counter() - t0
     if rc != 0:
         sys.exit(f"time_sweep_shapes: the {name} CLI returned {rc}")
     return secs
+
+
+def toy_forms(ms, ch, prop, forms):
+    """Each of ``forms`` on ``ch``: held bitwise to its twin on the card
+    (16384 chains x 20 sweeps), then ms per launch of 100 and of 16
+    sweeps on every chain of ``ch``."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.ops import randoms
+    tabs = fused.prep_tables(prop, ms.dims)
+    small = cs.chunk_args(grown(ch, cs.K1_CHAINS))
+    args = cs.chunk_args(ch)
+    out = {}
+    for label, perm, tdist, rng in forms:
+        kw = dict(seed=11, adapt=True, perm=perm, rng=rng,
+                  tdist=randoms.student_t(5) if tdist else None)
+        got = fused.sweep_chunk(ms, *small, tabs, sweep0=ch.sweep,
+                                n_sweeps=20, **kw)
+        want = fused.sweep_chunk_ref(ms, *small, tabs, sweep0=ch.sweep,
+                                     n_sweeps=20, **kw)
+        row = {"bitwise": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "k equal": float((got[0] == want[0]).float().mean())}
+        for n in (cs.TIME_SWEEPS, 16):
+            row[f"ms per {n} x {ch.n_chains}"] = cs.cuda_ms(
+                lambda: fused.sweep_chunk(ms, *args, tabs, sweep0=ch.sweep,
+                                          n_sweeps=n, **kw), 5)
+        out[label] = row
+    return out
+
+
+def toy_part(lib, path, dev):
+    """The toy forms at (5, 5) and (2, 2) on the toy2 and toy1 states (made
+    once into the state directory with their _mix.data), the forms'
+    registers and warps per SM, and the two CLI runs' seconds."""
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.io import reports
+    from automix_tpu_torch.kernels import fused
+    from automix_tpu_torch.models import toy
+    from automix_tpu_torch.ops import randoms
+
+    def run(name, ms, **cfg):
+        def make():
+            fit = AMSampler(ms, EngineConfig(max_mix_comps=10, seed=1,
+                                             **cfg), device="cuda")
+            fit.estimate_conditional_probs()
+            reports.report_cond_prob_estimation(path(name), fit)
+            am = AMSampler(ms, EngineConfig(
+                n_chains=cs.N_CHAINS, seed=5, trace_chain0=False, **cfg),
+                device="cuda")
+            am.set_proposal(fit.proposal)
+            am.burn_samples(200)
+            return am
+        return saved(path(f"{name}.pt"), make)
+
+    out = {}
+    for name, ms, forms, cfg in (
+            ("toy2", toy.toy2_set(), TOY2_FORMS,
+             dict(n_chains_stage1=cs.TOY2_C_K3)),
+            ("toy1", toy.toy1_set(), TOY1_FORMS,
+             dict(n_chains_stage1=cs.TOY2_C_K3, student_t_dof=5,
+                  perm=True))):
+        ch, prop = run(name, ms, **cfg)
+        K, D = ms.nmodels, ms.dmax
+        out[f"{name} ({K}, {D}) L={prop.lmax}"] = toy_forms(ms, ch, prop,
+                                                            forms)
+        out[f"ptxas ({K}, {D})"] = [
+            f"{n} {r}, frame {f}, spills {st}/{ld}"
+            for n, r, f, st, ld in cs.ptxas_summary(lib, K, D)]
+        out[f"warps per SM ({K}, {D})"] = {
+            f"perm {p} t {t}": fused.occupancy(
+                ms, prop.lmax, dev, perm=p,
+                tdist=randoms.student_t(5) if t else None)
+            for p in (False, True) for t in (False, True)}
+    out["cli_s"] = {
+        "toy2": cli_seconds("toy2", path("toy2"), cs.CLI_SWEEPS),
+        "toy1 -t 5": cli_seconds("toy1", path("toy1"), cs.CLI_SWEEPS,
+                                 extra=("-t", "5"))}
+    return out
+
+
+def k3_part(dev):
+    """K3's ms per launch and the one-sweep runner's host ms per sweep at
+    each of K3_POPULATIONS (two below K2's resident capacity, two above
+    it, where the routing rule sends K3): the kernel in its moves-only
+    mode and, where this checkout has it, with the update in the launch,
+    each launched from Python and replayed from a CUDA graph; the runner
+    in this checkout's form, in two turns; K2's capacity and, where this
+    checkout has it, K3's grid."""
+    import inspect
+    import torch
+    from automix_tpu_torch import EngineConfig
+    from automix_tpu_torch.kernels import fused_stage1
+    has_update = "nacc" in inspect.signature(fused_stage1.sweep).parameters
+    out = {}
+    for name, setname, C in K3_POPULATIONS:
+        ms = model_set(setname)
+        K, D = ms.nmodels, ms.dmax
+        at = f"{name} {K} x {C}"
+        out[f"{at} K2 capacity"] = fused_stage1.segment_capacity(ms, dev)
+        if hasattr(fused_stage1, "sweep_grid"):
+            out[f"{at} grid"] = fused_stage1.sweep_grid(K * C, dev)
+        theta, sig, _ = cs.stage1_start(ms, C, dev)
+        lp = torch.zeros(theta.shape[1], device=dev)
+        kw = dict(C=C, t=60, seed=777, nburn=50, seg_start=False)
+        forms = {"moves only": functools.partial(
+            fused_stage1.sweep, ms, theta, lp, sig, **kw)}
+        if has_update:
+            zi = dict(dtype=torch.int32, device=dev)
+            forms["update in launch"] = functools.partial(
+                fused_stage1.sweep, ms, theta, lp, sig.clone(), **kw,
+                nacc=torch.zeros((K, D), **zi), ntry=torch.zeros((K, D), **zi),
+                work=torch.zeros(K * D + 1, **zi))
+        for form, one in forms.items():
+            out[f"{at} kernel ms, {form}, from Python"] = cs.cuda_ms(one, 200)
+            out[f"{at} kernel ms, {form}, graph"] = cs.graph_ms(one, 100)
+        init = ms.init_points(torch.Generator().manual_seed(0))
+        cfg = EngineConfig(seed=0)
+        fused_stage1.run_fused_stage1_sweeps(ms, cfg, 20, C, init, dev)
+        for turn in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, C, init, dev)
+            torch.cuda.synchronize()
+            out[f"{at} runner ms per sweep, turn {turn}"] = \
+                (time.perf_counter() - t0) * 1e3 / 330
+    return out
 
 
 def tutorial_part(lib, ch, prop, dev):
@@ -543,6 +698,10 @@ def main():
         out["k2"] = k2_part(lib, dev)
     if "stage1" in parts:
         out["stage1_s"] = stage1_part(dev)
+    if "toy" in parts:
+        out["toy"] = toy_part(lib, path, dev)
+    if "k3" in parts:
+        out["k3"] = k3_part(dev)
     if "sweep" not in parts and "scan" not in parts:
         print(json.dumps(out), flush=True)
         return
