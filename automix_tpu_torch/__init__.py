@@ -5,7 +5,9 @@ reversible-jump sweeps, with perm and Student-t options) run through
 hand-written CUDA kernels on an NVIDIA H100 (``csrc/``) for model sets
 with compiled CUDA densities, and through the general engine (plain
 PyTorch on the same device, with the K4 draw kernel) for any other set,
-a user's per-theta ``logp`` models among them.  Every kernel has a plain
+a user's per-theta ``logp`` models among them.  HMC within-model moves
+and annealed SMC evidences (``AMSampler.smc_evidence``) run on the
+general engine.  Every kernel has a plain
 PyTorch twin that runs on the CPU.  The CLI
 (``python -m automix_tpu_torch.cli``) drives them on the tutorial, toy
 and builtin problems and writes the reference's report files.  This

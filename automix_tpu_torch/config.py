@@ -1,9 +1,7 @@
 """Engine configuration of the PyTorch port.
 
 Counterpart of ``automix_tpu/config.py``.  The constants are the same
-numbers, and every knob the port honours has the JAX default.  The knob
-that selects a path the port has not ported yet (HMC) is rejected with
-``NotImplementedError``.
+numbers, and every knob has the JAX default and the JAX checks.
 
 The port has two engines: the CUDA kernels, with the semantics of the
 JAX package's fused kernels, and the general engine in plain torch
@@ -17,10 +15,14 @@ stream in place of the TPU's hardware PRNG (``ops/randoms.py`` ``hw_*``,
 other words than JAX's); "auto" is "hw" on the card and "hash" on the
 CPU, as JAX's is "hw" on its chip and "hash" under its interpreter.  The
 stage-1 kernels draw hash words only, as JAX's do.  ``rng`` ("auto",
-"fast", "pallas") selects the general engine's stream.  JAX's
-``threefry`` stream is not ported: ``rng="threefry"`` raises
-``NotImplementedError``, and so does a Student-t run that reaches the
-general engine (JAX sends it to threefry).
+"threefry", "fast", "pallas") selects the general engine's stage-3
+stream: JAX's threefry words from per-chain keys (``ops/randoms.py``),
+the ``fast`` counter hash, or K4; "auto" is "fast" for Gaussian runs
+and "threefry" for Student-t, as in JAX.  The general engine's stage 1
+always draws threefry words, as JAX's XLA scan does.
+
+``within_move`` ("rwm", "hmc") and the ``hmc_*`` knobs select stage 3's
+within-model move; HMC runs on the general engine (``kernels/hmc.py``).
 """
 
 from __future__ import annotations
@@ -51,12 +53,6 @@ EM_ANNIHILATION_THRESHOLD = 0.005
 EM_DEGENERATE_LOGSUM = -700.0
 EM_DEGENERATE_PENALTY = -500.0
 
-# Knobs of the JAX EngineConfig that select paths this port has not ported
-# yet, with the value that keeps the ported path.
-_UNPORTED = {
-    "within_move": "rwm",
-}
-
 # Stage-1 scale-adaptation rules (automix_tpu/config.py stage1_adapt): the
 # reference's additive AAP update sig = max(sig + 10 gamma (acc - 0.25), 0),
 # or the multiplicative sig * exp(gain gamma (acc - 0.25)), which adapts
@@ -67,9 +63,13 @@ STAGE1_RULES = ("aap", "log")
 # Engine switches and the general engine's streams (automix_tpu/config.py
 # fused, fused_stage1, rng).
 ENGINE_SWITCHES = ("auto", "on", "off")
-RNG_MODES = ("auto", "fast", "pallas")
+RNG_MODES = ("auto", "threefry", "fast", "pallas")
 # The stage-3 kernel's streams (automix_tpu/config.py fused_rng).
 FUSED_RNG_MODES = ("auto", "hw", "hash")
+
+# Stage-3 within-model moves (automix_tpu/config.py within_move): the
+# reference's RWM, or leapfrog HMC preconditioned by the stage-1 scales.
+WITHIN_MOVES = ("rwm", "hmc")
 
 # Stage-3 pk adaptation scopes (automix_tpu/config.py pk_mode): every chain
 # adapts its own pk, or one shared pk adapts from the population's visit
@@ -85,6 +85,12 @@ class EngineConfig:
     seed: int
     adapt: bool                   # pk diminishing adaptation in stage 3
     pk_mode: str                  # "per_chain" or "pooled"
+    within_move: str              # stage-3 within-model move: rwm or hmc
+    hmc_steps: int                # (max) leapfrog steps of an HMC move
+    hmc_jitter: bool              # trajectory length uniform in 1..hmc_steps
+    hmc_step_scale: object        # step = scale * sig; a float or K floats
+    hmc_autotune: bool            # dual-average a scalar scale per model
+    hmc_target_accept: float      # the tuner's target acceptance
     perm: bool                    # permute the RJ latent (doPerm)
     student_t_dof: int            # Student-t perturbations; 0 = Normal
     mix_fit: str                  # "figueiredo" or "autorj"
@@ -101,14 +107,18 @@ class EngineConfig:
     chunk_flush_every: int        # chunks kept on the device between flushes
     trace_chain0: bool            # record chain 0's traces by default
     trace_every: int              # sweeps between trace records
-    rng: str                      # general engine's stream: auto/fast/pallas
+    rng: str                      # general engine's stream: auto/threefry/
+    #                               fast/pallas
     fused: str                    # stage-3 engine: auto/on/off (kernels)
     fused_rng: str                # stage-3 kernel's stream: auto/hw/hash
     fused_stage1: str             # stage-1 engine: auto/on/off (kernels)
     dtype: torch.dtype
 
     def __init__(self, seed: int = 0, adapt: bool = True,
-                 pk_mode: str = "per_chain", perm: bool = False,
+                 pk_mode: str = "per_chain", within_move: str = "rwm",
+                 hmc_steps: int = 5, hmc_jitter: bool = True,
+                 hmc_step_scale=0.2, hmc_autotune: bool = True,
+                 hmc_target_accept: float = 0.65, perm: bool = False,
                  student_t_dof: int = 0, mix_fit: str = FIGUEIREDO_MIX_FIT,
                  max_mix_comps: int = 30, max_em_iters: int = 5000,
                  n_chains: int = 4096, n_chains_stage1: int = 2048,
@@ -119,14 +129,7 @@ class EngineConfig:
                  trace_every: int = 1, rng: str = "auto",
                  fused: str = "auto", fused_rng: str = "auto",
                  fused_stage1: str = "auto",
-                 dtype: torch.dtype = torch.float32, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unknown EngineConfig field {name!r}")
-            if value != _UNPORTED[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to automix_tpu_torch "
-                    f"yet (only {name}={_UNPORTED[name]!r})")
+                 dtype: torch.dtype = torch.float32):
         if pk_mode not in PK_MODES:
             raise ValueError(f"unknown pk_mode {pk_mode!r}")
         if mix_fit not in (FIGUEIREDO_MIX_FIT, AUTORJ_MIX_FIT):
@@ -139,17 +142,19 @@ class EngineConfig:
             raise ValueError(f"unknown fused_rng {fused_rng!r}")
         if fused_stage1 not in ENGINE_SWITCHES:
             raise ValueError(f"unknown fused_stage1 {fused_stage1!r}")
-        if rng == "threefry":
-            raise NotImplementedError(
-                "rng='threefry' is not ported to automix_tpu_torch (only "
-                "'auto', 'fast' and 'pallas')")
         if rng not in RNG_MODES:
             raise ValueError(f"unknown rng {rng!r}")
         if rng in ("fast", "pallas") and student_t_dof > 0:
             raise ValueError(
                 f"rng={rng!r} draws Gaussian perturbations and cannot be "
-                "combined with student_t_dof > 0; use rng='auto' for "
-                "Student-t runs")
+                "combined with student_t_dof > 0; use rng='auto' or "
+                "'threefry' for Student-t runs")
+        if within_move not in WITHIN_MOVES:
+            raise ValueError(f"unknown within_move {within_move!r}")
+        if within_move == "hmc" and student_t_dof > 0:
+            raise ValueError(
+                "within_move='hmc' uses Gaussian momenta; combine it with "
+                "student_t_dof=0")
         if dtype != torch.float32:
             raise NotImplementedError("the port runs float32 only")
         if n_chains < 1:
@@ -160,7 +165,14 @@ class EngineConfig:
             raise ValueError("trace_every must be >= 1")
         if student_t_dof < 0:
             raise ValueError("student_t_dof must be >= 0")
-        fields = dict(seed=seed, adapt=adapt, pk_mode=pk_mode, perm=perm,
+        if isinstance(hmc_step_scale, (list, tuple)):
+            hmc_step_scale = tuple(float(x) for x in hmc_step_scale)
+        fields = dict(seed=seed, adapt=adapt, pk_mode=pk_mode,
+                      within_move=within_move, hmc_steps=int(hmc_steps),
+                      hmc_jitter=bool(hmc_jitter),
+                      hmc_step_scale=hmc_step_scale,
+                      hmc_autotune=bool(hmc_autotune),
+                      hmc_target_accept=float(hmc_target_accept), perm=perm,
                       student_t_dof=student_t_dof, mix_fit=mix_fit,
                       max_mix_comps=max_mix_comps, max_em_iters=max_em_iters,
                       n_chains=n_chains, n_chains_stage1=n_chains_stage1,

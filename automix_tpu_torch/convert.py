@@ -38,25 +38,28 @@ def proposal_from_arrays(prop, device="cpu") -> Proposal:
 
 
 def chains_from_numpy(k, theta, logp, pk, pkllim, nreinit, sweep,
-                      device="cpu") -> Chains:
+                      key=None, device="cpu") -> Chains:
     """Chains from k [S], theta [S, D], logp [S], pk [S, K], pkllim [S],
-    nreinit [S] and the scalar global sweep counter."""
+    nreinit [S], the scalar global sweep counter and, where given, the
+    chains' threefry keys [S, 2] (uint32)."""
     f32 = torch.float32
+    if key is not None:
+        key = _t(np.asarray(key).astype(np.int64), torch.int64, device)
     return Chains(k=_t(k, torch.int32, device), theta=_t(theta, f32, device),
                   logp=_t(logp, f32, device), pk=_t(pk, f32, device),
                   pkllim=_t(pkllim, f32, device),
                   nreinit=_t(nreinit, torch.int32, device),
-                  sweep=int(np.asarray(sweep)))
+                  sweep=int(np.asarray(sweep)), key=key)
 
 
 def chains_from_arrays(chains, device="cpu") -> Chains:
-    """Chains from any object whose k, theta, logp, pk, pkllim, nreinit
-    and sweep attributes convert to numpy arrays (a JAX ``Chains``; its
-    per-chain PRNG ``key`` is dropped, the port's words being hashes of
-    (seed, sweep, chain, slot))."""
+    """Chains from any object whose k, theta, logp, pk, pkllim, nreinit,
+    sweep and key attributes convert to numpy arrays (a JAX ``Chains``,
+    whose keys are uint32 [S, 2])."""
     return chains_from_numpy(
         **{f: np.asarray(getattr(chains, f)) for f in
-           ("k", "theta", "logp", "pk", "pkllim", "nreinit", "sweep")},
+           ("k", "theta", "logp", "pk", "pkllim", "nreinit", "sweep",
+            "key")},
         device=device)
 
 

@@ -1,20 +1,24 @@
 """Full engine-state checkpoints.
 
 Counterpart of ``automix_tpu/io/checkpoint.py``: one ``.npz`` holding the
-chain state, the proposal, the global sweep counter and the host run
-statistics, so a killed run continues with identical trajectories.  The
-port's chains carry no PRNG keys, so there is no ``chains.key`` entry: a
-``hash`` word is a function of seed, sweep, chain and slot, and the
-stage-3 kernel's ``hw`` stream is reseeded from (seed, the launch's first
-sweep, chain) at every launch.  As in JAX, an ``hw`` run resumed at a
-chunk boundary and chunked the same way reproduces bitwise; chunked
+chain state with the chains' threefry keys (``chains.key``, uint32
+[S, 2] as JAX stores its legacy keys), the proposal, the global sweep
+counter and the host run statistics, so a killed run continues with
+identical trajectories: a ``threefry`` word is a function of the chain's
+key and the sweep, a ``hash`` word of seed, sweep, chain and slot, and
+the stage-3 kernel's ``hw`` stream is reseeded from (seed, the launch's
+first sweep, chain) at every launch.  As in JAX, an ``hw`` run resumed at
+a chunk boundary and chunked the same way reproduces bitwise; chunked
 otherwise (another ``sweep_chunk``, or a resume inside a chunk) it draws
-other words.  Written atomically.
+other words.  A checkpoint without keys (written before the port carried
+them) gets keys made as ``init_chains`` makes them from the sampler's
+seed, and says so in a log line.  Written atomically.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 
 import numpy as np
@@ -41,6 +45,9 @@ def save_checkpoint(path: str, sampler) -> None:
         for f in _CHAIN_FIELDS:
             arrays[f"chains.{f}"] = getattr(sampler.chains, f).cpu().numpy()
         arrays["chains.sweep"] = np.asarray(sampler.chains.sweep)
+        if sampler.chains.key is not None:
+            arrays["chains.key"] = \
+                sampler.chains.key.cpu().numpy().astype(np.uint32)
     if sampler.proposal is not None:
         for f in _PROP_FIELDS:
             arrays[f"proposal.{f}"] = \
@@ -84,11 +91,22 @@ def load_checkpoint(path: str, sampler) -> None:
                           else torch.float32) for f in _PROP_FIELDS})
             sampler.cpstats.initialized = True
         if "chains.k" in z:
+            n = int(z["chains.k"].shape[0])
+            if "chains.key" in z:
+                key = torch.tensor(z["chains.key"].astype(np.int64),
+                                   device=dev)
+            else:
+                from automix_tpu_torch.kernels.rjmcmc import init_keys
+                key = init_keys(sampler.cfg, n, dev)
+                logging.getLogger("automix_tpu_torch").info(
+                    "checkpoint %s has no chains.key: made %d chain keys as "
+                    "init_chains does from seed %d", path, n,
+                    sampler.cfg.seed)
             sampler.chains = Chains(
                 **{f: tensor(f"chains.{f}", torch.int32
                              if f in ("k", "nreinit") else torch.float32)
                    for f in _CHAIN_FIELDS},
-                sweep=int(z["chains.sweep"]))
+                sweep=int(z["chains.sweep"]), key=key)
         if "stats.ksummary" in z:
             st = RunStats(ms.nmodels, ms.dmax)
             for f in _STATS_ARRAYS:

@@ -473,7 +473,8 @@ def eligible(modelset, cfg: EngineConfig, L: int, device):
     """(True, why) when the stage-3 kernels serve the model set at
     proposal size L on ``device``, else (False, why not); the counterpart
     of JAX's ``fused_eligible``.  The kernels serve it when ``fused`` is
-    not "off", every model has a CUDA density, the kernels are
+    not "off", the within-model move is RWM (HMC runs on the general
+    engine, as on JAX's XLA engine), every model has a CUDA density, the kernels are
     instantiated at its (K, D) in the density's form (:func:`check_form`)
     and L is within what the sweep kernel's launcher holds there (on the
     CPU, where the twins run, within kLMax).  ``fused="on"`` raises where
@@ -483,6 +484,8 @@ def eligible(modelset, cfg: EngineConfig, L: int, device):
     ok = False
     if cfg.fused == "off":
         why = "fused='off'"
+    elif cfg.within_move != "rwm":
+        why = f"within_move={cfg.within_move!r} (the kernels move by RWM)"
     elif missing:
         why = f"models {missing} have no CUDA density"
     elif (K, D) not in _build.SHAPES:
@@ -698,7 +701,7 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                         pk=pk_vec[None, :].expand(S, K).contiguous(),
                         pkllim=pkl.expand(S).contiguous(),
                         nreinit=nri.expand(S).contiguous(),
-                        sweep=chains.sweep + n_sweeps)
+                        sweep=chains.sweep + n_sweeps, key=chains.key)
     return chains_out, _chunk(ks_a, ts_a, tq_a, cnt_a, K, D)
 
 
@@ -796,7 +799,7 @@ def pooled_scan(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                         pk=pk[None, :].expand(S, K).contiguous(),
                         pkllim=pkl.expand(S).contiguous(),
                         nreinit=nri.expand(S).contiguous(),
-                        sweep=chains.sweep + n_sweeps)
+                        sweep=chains.sweep + n_sweeps, key=chains.key)
     return chains_out, _chunk(
         ks.sum(dim=1, dtype=torch.int64), ts.sum(dim=1), tq.sum(dim=1),
         cnt.sum(dim=1, dtype=torch.int64), K, D)
@@ -858,7 +861,8 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,
-                            nreinit=nri2, sweep=chains.sweep + n_sweeps)
+                            nreinit=nri2, sweep=chains.sweep + n_sweeps,
+                            key=chains.key)
         return chains_out, _chunk(
             ks2.sum(dim=1, dtype=torch.int64), ts2.sum(dim=1),
             tq2.sum(dim=1), cnt2.sum(dim=1, dtype=torch.int64), K, D)

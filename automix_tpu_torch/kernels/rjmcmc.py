@@ -28,9 +28,15 @@ coordinate is NaN, and a NaN log-ratio rejects the move.
 
 The random words of a sweep are [S, MU] uniforms and [S, MZ] normals
 (:func:`rand_slots`) from the ``fast`` counter hash
-(``randoms.fast_sweep_randoms``, bitwise JAX's words) or from K4
-(``kernels/sweep_rng.py``, ``rng="pallas"``).  JAX's threefry stream and
-its Student-t draws are not ported: the engine raises for them.
+(``randoms.fast_sweep_randoms``, bitwise JAX's words), from K4
+(``kernels/sweep_rng.py``, ``rng="pallas"``) or, under ``rng="threefry"``
+(the stream of every Student-t run), from JAX's threefry stream keyed by
+the chains' keys (:func:`draw_sweep_randoms`), whose z are t(dof) for a
+Student-t run; the latent terms of the jump then take t(dof) too.
+
+With ``within_move="hmc"`` the within-model move is a leapfrog HMC move
+(``kernels/hmc.py``) of a length drawn per sweep from
+``fold_in(key(seed ^ 0x177A7EC7), sweep)``, shared by the batch.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from automix_tpu_torch.config import EngineConfig, NEG_INF
-from automix_tpu_torch.kernels import sweep_rng
+from automix_tpu_torch.kernels import hmc, sweep_rng
 from automix_tpu_torch.kernels.fused_stage1 import _accept
 from automix_tpu_torch.ops import linalg, randoms
 from automix_tpu_torch.state import Chains, Proposal
@@ -124,18 +130,56 @@ def gamma_f32(sweep: int) -> float:
                           np.float32(2.0 / 3.0)))
 
 
-def sweep_randoms(cfg: EngineConfig, rng_mode: str, sweep: int, S: int,
-                  mu_count: int, mz_count: int, device):
-    """One sweep's u [S, MU] and z [S, MZ] from the ``fast`` hash or K4."""
+def draw_sweep_randoms(keys, sweep: int, mu_count: int, mz_count: int,
+                       dof: int):
+    """One sweep's u [S, MU] and z [S, MZ] from the chains' threefry keys
+    ``keys`` [S, 2] (JAX's ``draw_sweep_randoms``): each key folded with
+    the sweep, then with 0 for the uniforms and 1 for the perturbations,
+    ``uniform(k0, (MU,))`` and ``rand_t(k1, (MZ,), dof)``.  The uniform
+    and normal words come from one threefry pass."""
+    dev = keys.device
+    kk = randoms.fold_in(randoms.fold_in(keys, sweep)[:, None, :],
+                         torch.arange(2, device=dev))           # [S, 2, 2]
+    which = torch.cat([torch.zeros(mu_count, dtype=torch.int64, device=dev),
+                       torch.ones(mz_count, dtype=torch.int64, device=dev)])
+    counts = torch.cat([torch.arange(mu_count, device=dev),
+                        torch.arange(mz_count, device=dev)])
+    bits = randoms.keyed_words(kk[:, which], counts)
+    u = randoms.uniform_of_bits(bits[:, :mu_count])
+    z = randoms.normal_of_bits(bits[:, mu_count:])
+    return u, randoms.t_scale(z, kk[:, 1], (mz_count,), dof)
+
+
+def sweep_randoms(cfg: EngineConfig, rng_mode: str, chains: Chains,
+                  mu_count: int, mz_count: int):
+    """One sweep's u [S, MU] and z [S, MZ] from the ``fast`` hash, K4 or
+    the chains' threefry keys."""
+    S, sweep, dev = chains.n_chains, chains.sweep, chains.theta.device
     if rng_mode == "fast":
         return randoms.fast_sweep_randoms(int(cfg.seed), sweep, 0, S,
-                                          mu_count, mz_count, device)
+                                          mu_count, mz_count, dev)
     if rng_mode == "pallas":
         return sweep_rng.draw(int(cfg.seed), sweep, 0, S, mu_count,
-                              mz_count, device)
-    raise NotImplementedError(
-        f"rng={rng_mode!r} is not ported to automix_tpu_torch: the general "
-        "engine draws from the 'fast' hash or K4 ('pallas'), Gaussian only")
+                              mz_count, dev)
+    if rng_mode == "threefry":
+        if chains.key is None:
+            raise ValueError("rng='threefry' needs the chains' keys "
+                             "(init_chains makes them)")
+        return draw_sweep_randoms(chains.key, sweep, mu_count, mz_count,
+                                  cfg.student_t_dof)
+    raise ValueError(f"unknown rng mode {rng_mode!r}")
+
+
+HMC_LENGTH_SALT = 0x177A7EC7
+
+
+def hmc_length(cfg: EngineConfig, sweep: int) -> int:
+    """The HMC move's shared trajectory length at ``sweep``, from a
+    uniform of ``fold_in(key(seed ^ 0x177A7EC7), sweep)``: a stream
+    indexed by the sweep alone, independent of the chains' draws."""
+    k = randoms.fold_in(randoms.key(int(cfg.seed) ^ HMC_LENGTH_SALT),
+                        sweep)
+    return hmc.sample_n_steps(cfg, randoms.uniform_host(k))
 
 
 def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
@@ -144,12 +188,11 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
     ``sweep_all(chains, prop, tables=None) -> (chains', stats)`` with
     stats int32 [S] per event kind.  ``tables`` is
     :func:`precompute_tables` of ``prop``."""
-    if cfg.student_t_dof > 0:
-        raise NotImplementedError(
-            "Student-t perturbations on the general engine draw from JAX's "
-            "threefry stream, which is not ported; Student-t runs on the "
-            "kernels (a model set with CUDA densities)")
     K, D = modelset.nmodels, modelset.dmax
+    tc = (randoms.student_t(cfg.student_t_dof) if cfg.student_t_dof > 0
+          else None)
+    scale = cfg.hmc_step_scale
+    per_model_scale = np.ndim(scale) != 0
     adapt = cfg.adapt and not burning
     dims_np = np.asarray(modelset.dims)
     # the models a componentwise move on coordinate j changes
@@ -161,7 +204,9 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
         # wait for the card's queue
         if dev not in consts:
             consts[dev] = (torch.as_tensor(dims_np, device=dev).long(),
-                           torch.arange(D, device=dev))
+                           torch.arange(D, device=dev),
+                           torch.tensor(np.float32(scale), device=dev)
+                           if per_model_scale else None)
         return consts[dev]
 
     def sweep_all(chains: Chains, prop: Proposal, tables=None):
@@ -174,14 +219,13 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
         tab = tables if tables is not None else precompute_tables(
             prop, dims_np)
         slots, mu_count, mz_count = rand_slots(D, L, K)
-        u, z = sweep_randoms(cfg, rng_mode, sweep, S, mu_count, mz_count,
-                             dev)
+        u, z = sweep_randoms(cfg, rng_mode, chains, mu_count, mz_count)
 
         def us(name):
             a, b = slots[name]
             return u[:, a:b]
 
-        dims, coords = device_consts(dev)
+        dims, coords, scale_t = device_consts(dev)
         rows = torch.arange(S, device=dev)
         dim_k = dims[k]
         mask_k = (coords[None, :] < dim_k[:, None]).to(torch.float32)
@@ -190,7 +234,15 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
         zero = torch.zeros_like(chains.k)
 
         # ---- (a) within-model move (automix.c:1054-1085) ----------------
-        if sweep % 10 == 0:
+        if cfg.within_move == "hmc":
+            eps_k = (scale_t[k][:, None] * sig_k if per_model_scale
+                     else float(np.float32(scale)) * sig_k)
+            theta, logp, acc = hmc.hmc_move(
+                modelset, us("rwm")[:, 0], hmc_length(cfg, sweep), z[:, :D],
+                k, theta, logp, eps_k, mask_k)
+            naccb, ntryb = acc.to(torch.int32), zero + 1
+            naccs = ntrys = zero
+        elif sweep % 10 == 0:
             theta_prop = theta + sig_k * z[:, :D] * mask_k
             lpn = modelset.logpost_batch(k, theta_prop)
             acc = us("rwm")[:, 0] < _accept(lpn - logp)
@@ -246,7 +298,7 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
                                 z[:, D:2 * D])
         up = ((coords[None, :] >= dim_k[:, None])
               & (coords[None, :] < dim_kn[:, None]))
-        lpdf = randoms.latent_lpdf(work_full, None)
+        lpdf = randoms.latent_lpdf(work_full, tc)
         logratio = logratio - torch.where(up, lpdf, 0.0).sum(dim=1)
         if cfg.perm:
             n_active = torch.maximum(dim_k, dim_kn)[:, None]
@@ -256,7 +308,7 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
                 work_full, 1, torch.argsort(sort_key, dim=1, stable=True))
         down = ((coords[None, :] >= dim_kn[:, None])
                 & (coords[None, :] < dim_k[:, None]))
-        lpdf = randoms.latent_lpdf(work_full, None)
+        lpdf = randoms.latent_lpdf(work_full, tc)
         logratio = logratio + torch.where(down, lpdf, 0.0).sum(dim=1)
 
         # de-standardize into the destination (automix.c:1206-1211)
@@ -304,7 +356,7 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
 
         return Chains(k=k.to(torch.int32), theta=theta, logp=logp, pk=pk,
                       pkllim=pkllim, nreinit=nreinit,
-                      sweep=sweep + 1), stats
+                      sweep=sweep + 1, key=chains.key), stats
 
     return sweep_all
 
@@ -375,28 +427,47 @@ def build_chunk_runner(modelset, cfg: EngineConfig, burning: bool,
     return runner
 
 
-def init_chains(modelset, cfg: EngineConfig, generator: torch.Generator,
-                device, n_chains: int | None = None) -> Chains:
-    """Chain batch at the start of stage 3 (``init_chains``): model index
-    uniform, theta at the chosen model's stage-1 start point, pk uniform,
-    pkllim 0.1, nreinit 1 and the sweep counter at 1.
+def init_keys(cfg: EngineConfig, n_chains: int, device):
+    """The chain keys ``init_chains`` makes in a run of ``cfg.seed``
+    through stages 1 and 2: the sampler's key after those stages' keys
+    (and the HMC tuner's, where the run tunes) split into four, the
+    second split into one key per chain."""
+    k = randoms.key(int(cfg.seed))
+    n_before = 3 + (cfg.within_move == "hmc" and cfg.hmc_autotune)
+    for _ in range(n_before):
+        k, sub = randoms.split_host(k, 2)
+    _, k_keys, _, _ = randoms.split_host(sub, 4)
+    return randoms.split(k_keys, n_chains, device)
+
+
+def init_chains(modelset, cfg: EngineConfig, key, device,
+                n_chains: int | None = None) -> Chains:
+    """Chain batch at the start of stage 3 (JAX's ``init_chains``): from
+    the threefry key ``key``, split into four, one key per chain split
+    from the second, the model index ``randint`` of the fourth over the K
+    models, theta at the chosen model's stage-1 start point
+    (``init_points`` of the third), pk uniform, pkllim 0.1, nreinit 1 and
+    the sweep counter at 1.
 
     logp comes from the column densities (``ModelSet.logpost_cols``),
     where the JAX function evaluates the scalar ``logp`` with ``gammaln``;
     the two agree to float32 rounding at the start points."""
     S = n_chains or cfg.n_chains
     K = modelset.nmodels
-    k0 = torch.randint(0, K, (S,), generator=generator, dtype=torch.int64)
-    init_theta = modelset.init_points(generator)             # [K, D]
+    _, k_keys, k_init, k_chain = randoms.split_host(key, 4)
+    chain_keys = randoms.split(k_keys, S, device)
+    k0 = randoms.randint(k_chain, (S,), 0, K, device)
+    init_theta = modelset.init_points(k_init).to(device)         # [K, D]
     theta0 = init_theta[k0]
     logp0 = modelset.logpost_cols(k0, list(theta0.T))
     f32 = torch.float32
     return Chains(
-        k=k0.to(torch.int32).to(device),
-        theta=theta0.to(device),
-        logp=logp0.to(device),
+        k=k0.to(torch.int32),
+        theta=theta0,
+        logp=logp0,
         pk=torch.full((S, K), 1.0 / K, dtype=f32, device=device),
         pkllim=torch.full((S,), 0.1, dtype=f32, device=device),
         nreinit=torch.ones((S,), dtype=torch.int32, device=device),
         sweep=1,
+        key=chain_keys,
     )

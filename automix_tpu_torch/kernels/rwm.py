@@ -15,11 +15,12 @@ a plain torch loop over sweeps on the chains' device, for any model set:
 pooled integer acceptance counts per (model, coordinate), the AAP or log
 rule, after burn-in a batch-wide block move on 10% of sweeps, telemetry
 every 100 sweeps and ``n_tail`` thinned snapshots of every chain, laid
-out chain-major.  JAX draws this scan's words from threefry, which the
-port does not have; here they come from the counter hash
-(``randoms.fast_sweep_randoms`` at the stage-1 seed, per (sweep, chain,
-slot)), so the port's CPU and card runs draw the same words and the scan
-is held to JAX statistically.
+out chain-major.  Its words are JAX's threefry words, as JAX's scan draws
+them: the stage-1 key split into three (the next key, the start points'
+key, the chains' key), one key per chain split from the third, folded
+with the sweep and then 0 for the uniforms and 1 for the perturbations
+(t(dof) for a Student-t run), and the block-move coin from the first key
+folded with 7 and then the sweep.
 """
 
 from __future__ import annotations
@@ -38,15 +39,12 @@ TELEMETRY_EVERY = 100
 
 
 def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
-                       init_theta, device, n_tail: int = 1):
-    """The general engine's stage 1 over K*C chains on ``device``.
-    Returns (sig [K, D], samples [K, C * n_tail, D], tele_sig and
-    tele_acc [n_tele, K, D] on the CPU, final logp [K, C])."""
-    if cfg.student_t_dof > 0:
-        raise NotImplementedError(
-            "Student-t perturbations on the general engine's stage 1 draw "
-            "from JAX's threefry stream, which is not ported; Student-t "
-            "runs on the stage-1 kernels (a model set with CUDA densities)")
+                       init_theta, device, key, k_chains, n_tail: int = 1):
+    """The general engine's stage 1 over K*C chains on ``device``: the
+    block coin from ``fold_in(key, 7)``, the chains' keys split from
+    ``k_chains`` (both threefry keys; :func:`run_stage1` splits them from
+    the stage-1 key).  Returns (sig [K, D], samples [K, C * n_tail, D],
+    tele_sig and tele_acc [n_tele, K, D] on the CPU, final logp [K, C])."""
     K, D = modelset.nmodels, modelset.dmax
     M = K * C
     f32 = torch.float32
@@ -56,7 +54,9 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     stride = max(1, (total - max(nburn, total // 2)) // n_tail)
     smp_start = total - n_tail * stride
     n_tele = max(1, total // TELEMETRY_EVERY)
-    seed = (int(cfg.seed) * 1000003 + 777) & 0x7FFFFFFF
+    block_key = randoms.fold_in(key, 7)
+    chain_keys = randoms.split(k_chains, M, device)
+    coin = np.float32(0.1)
     # the models a componentwise move on coordinate j changes
     above = [[m for m in range(K) if modelset.dims[m] > j] for j in range(D)]
 
@@ -68,7 +68,7 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     mask = active_f[k_assign]
     theta = init_theta.to(f32).to(device)[k_assign]
     lp = modelset.logpost_batch(k_assign, theta)
-    sig = 10.0 * active_f
+    sig = torch.full((K, D), 10.0, dtype=f32, device=device)  # automix.c:595
     nacc = torch.zeros((K, D), dtype=torch.int32, device=device)
     ntry = torch.zeros((K, D), dtype=torch.int32, device=device)
     try_inc = coord_active.to(torch.int32) * C
@@ -77,8 +77,10 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     smp = torch.zeros((n_tail, M, D), dtype=f32, device=device)
 
     for sweep in range(1, total + 1):
-        u, z = randoms.fast_sweep_randoms(seed, sweep, 0, M, D, D, device)
-        if sweep > nburn and randoms.block_coin(seed, sweep):
+        u, z = rjmcmc.draw_sweep_randoms(chain_keys, sweep, D, D,
+                                         cfg.student_t_dof)
+        if sweep > nburn and randoms.uniform_host(
+                randoms.fold_in(block_key, sweep)) < coin:
             # a full-vector non-adapting move (automix.c:606-617)
             theta_prop = theta + sig[k_assign] * z * mask
             lpn = modelset.logpost_batch(k_assign, theta_prop)
@@ -123,14 +125,17 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     return sig, samples, tele_sig.cpu(), tele_acc.cpu(), lp.reshape(K, C)
 
 
-def run_stage1(modelset, cfg: EngineConfig, generator: torch.Generator,
-               nsweeps: int, device, n_chains_per_model: int | None = None):
+def run_stage1(modelset, cfg: EngineConfig, key, nsweeps: int, device,
+               n_chains_per_model: int | None = None):
     """Returns ``(sig [K, D], samples [K, C * n_tail, D], telemetry)``; the
     telemetry holds the sig and pooled acceptance traces (at segment
     boundaries on the kernels, every 100 sweeps on the general engine),
-    the final logp [K, C] and the sweep count.  Logs the engine and why."""
+    the final logp [K, C] and the sweep count.  ``key`` is the stage-1
+    threefry key: split into three as in JAX, the second gives the start
+    points.  Logs the engine and why."""
     C = n_chains_per_model or cfg.n_chains_stage1
-    init_theta = modelset.init_points(generator)             # [K, D]
+    key, k_init, k_chains = randoms.split_host(key, 3)
+    init_theta = modelset.init_points(k_init)                # [K, D]
     kernels, why = fused_stage1.stage1_eligible(modelset, cfg)
     logging.getLogger("automix_tpu_torch").info(
         "stage 1: %s engine (%s)", "kernel" if kernels else "general", why)
@@ -141,7 +146,7 @@ def run_stage1(modelset, cfg: EngineConfig, generator: torch.Generator,
     else:
         target = cfg.stage1_target_samples or 1000 * modelset.dmax
         sig, samples, tele_sig, tele_acc, lp = run_general_stage1(
-            modelset, cfg, nsweeps, C, init_theta, device,
+            modelset, cfg, nsweeps, C, init_theta, device, key, k_chains,
             n_tail=-(-target // C))
     return sig, samples, {
         "sig_trace": tele_sig,

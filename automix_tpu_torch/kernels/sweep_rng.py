@@ -45,10 +45,9 @@ def choose_block(s_local: int) -> int:
 
 
 def resolve_rng(cfg) -> str:
-    """cfg.rng resolved to a stream of the general engine: "auto" is
-    "fast" for float32 Gaussian runs (JAX's "threefry" for Student-t,
-    which the port does not have; EngineConfig and the engine raise
-    there)."""
+    """cfg.rng resolved to a stream of the general engine, as JAX's
+    ``resolve_rng``: "auto" is "fast" for float32 Gaussian runs and
+    "threefry" otherwise (Student-t: the chains' keys)."""
     if cfg.rng != "auto":
         return cfg.rng
     if cfg.student_t_dof == 0 and cfg.dtype == torch.float32:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from automix_tpu_torch.config import NEG_INF
+from automix_tpu_torch.ops import randoms
 
 # Constant slots of a CudaDensity (csrc/common.cuh AM_N_CONSTS).  Twenty
 # slots hold the largest density of the ported problems, toy1's 2-D
@@ -207,9 +208,55 @@ class ModelSet:
         self._density_tables[device] = table
         return table
 
-    def init_points(self, generator: torch.Generator) -> torch.Tensor:
-        """[K, dmax] float32 stage-1 start points (padded with 0); a model
-        without ``init`` gets uniform [0, 1) draws from ``generator``."""
+    def logpost_and_grad(self, k, theta):
+        """(logpost_batch(k, theta) [S], its gradient [S, dmax] with
+        respect to each chain's own theta): ``jax.grad`` of JAX's
+        ``logpost_padded`` under vmap, the HMC move's gradient.  A family
+        form is differentiated through the sum over chains, exact since
+        each chain's value depends on its own row alone; otherwise every
+        model is differentiated on its own copy of theta and each chain
+        takes its own model's gradient, so a model's non-finite gradient
+        on another model's chains never reaches them (JAX's select over
+        the switch's branches).  A value sent to NEG_INF by the sanitizing
+        ``where`` passes no gradient, as there."""
+        f32 = torch.float32
+
+        def clean(lp):
+            lp = lp.to(f32)
+            return torch.where(torch.isfinite(lp), lp,
+                               torch.full_like(lp, NEG_INF))
+
+        with torch.enable_grad():
+            if self.batched_logpost_cols is not None:
+                th = theta.detach().requires_grad_(True)
+                lp = clean(self.batched_logpost_cols(k, th.unbind(1)))
+                g, = torch.autograd.grad(lp.sum(), th, allow_unused=True)
+                g = torch.zeros_like(th) if g is None else g
+                return lp.detach(), g
+            leaves, values = [], []
+            for model in self.models:
+                th = theta.detach().requires_grad_(True)
+                leaves.append(th)
+                values.append(clean(model.cols(th.unbind(1)[:model.dim])))
+            grads = torch.autograd.grad(sum(v.sum() for v in values),
+                                        leaves, allow_unused=True)
+        lp = g = None
+        for m, (v, gm) in enumerate(zip(values, grads)):
+            gm = torch.zeros_like(theta) if gm is None else gm
+            v = v.detach()
+            if lp is None:
+                lp, g = v, gm
+            else:
+                sel = k == m
+                lp = torch.where(sel, v, lp)
+                g = torch.where(sel[:, None], gm, g)
+        return lp, g
+
+    def init_points(self, key) -> torch.Tensor:
+        """[K, dmax] float32 stage-1 start points (padded with 0).  A model
+        without ``init`` starts at uniform [0, 1) draws from the threefry
+        key ``key`` folded with the model's index, as JAX's
+        ``init_points``."""
         out = torch.zeros((self.nmodels, self.dmax), dtype=torch.float32)
         for i, m in enumerate(self.models):
             if m.init is not None:
@@ -219,7 +266,8 @@ class ModelSet:
                                      f"{arr.shape[0]}, expected {m.dim}")
                 out[i, :m.dim] = torch.from_numpy(arr).to(torch.float32)
             else:
-                out[i, :m.dim] = torch.rand(m.dim, generator=generator)
+                out[i, :m.dim] = randoms.uniform(
+                    randoms.fold_in(key, i), (m.dim,)).cpu()
         return out
 
 

@@ -21,8 +21,10 @@ definite, a variance <= 0) the density is -1e7, as in the reference.
 The sweep kernel carries the statistics per chain (``fused_density``, the
 incremental cache); stage 1, the chains' start and every stateless use
 evaluate them from scratch.  The data are the port's own copy of the JAX
-package's ``ddi_data.npz``.  The patient-level density of the JAX package
-(``_make_logp``, HMC's gradient source) is not ported yet.
+package's ``ddi_data.npz``.  HMC differentiates the class-statistics
+form (``ModelSet.logpost_and_grad``), whose gradient is held to that of
+the JAX package's patient-level density (``_make_logp``) in
+tests/test_torch_hmc.py.
 """
 
 from __future__ import annotations

@@ -57,6 +57,12 @@ def forward_substitute(B, y):
     return torch.stack(w, dim=-1)
 
 
+def lower_matvec(B, w):
+    """B @ w for lower-triangular B [..., D, D] and w [..., D] (the
+    de-standardizing step, automix.c:1206-1211)."""
+    return torch.einsum("...ij,...j->...i", torch.tril(B), w)
+
+
 def tri_inverse(B):
     """Inverse of lower-triangular B [..., D, D] (the standardizing factor
     of the stage-3 allocation step)."""

@@ -29,6 +29,11 @@ lowbias32(key ^ slot * 0x9E3779B9).  Like the TPU stream it is
 chunk-granular: a launch reseeds, so runs chunked alike are bitwise equal
 and runs chunked otherwise draw other words.
 
+The general engine's third stream is JAX's own: threefry2x32 with the
+key functions and samplers of ``jax.random`` (the end of this module),
+for the chains' keys, the ``threefry`` sweep draws, stage 1's scan and
+the draws of HMC and SMC.
+
 torch has no complete uint32 arithmetic, so words live in int64 tensors
 holding values in [0, 2^32): every multiply and add is masked back to 32
 bits before the next shift.  A product that wraps int64 keeps its low 32
@@ -354,3 +359,297 @@ def latent_lpdf(w, tc: StudentT | None):
     if tc is not None:
         return tc.lt_const - tc.half_dof1 * torch.log1p(w * w * tc.inv_dof)
     return -0.5 * w * w - HALF_LOG_2PI
+
+
+# ---------------------------------------------------------------------------
+# JAX's threefry2x32 stream (``jax.random`` of JAX 0.9 with its defaults,
+# ``jax_threefry_partitionable=True`` and the threefry2x32 implementation):
+# the general engine's ``threefry`` mode, the stage-1 scan's words, the
+# chain keys and the draws of HMC and SMC.
+#
+# A key is two uint32 words.  A single key is a tuple of two Python ints,
+# so a chain of splits and folds on the host costs no tensor operation; a
+# batch of keys is an int64 tensor [..., 2].  Every function takes either
+# and broadcasts a single key against the counters of a draw.  The words
+# live in int64 as the hash's do; the round's sum x0 + x1 is masked only
+# where its high bits could reach the low 32 (shifted right), so x0 runs
+# unmasked through a block of rounds.
+# ---------------------------------------------------------------------------
+
+_TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TF_PARITY = 0x1BD11BDA
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (``prng.py _threefry2x32_lowering``):
+    the two output words of counters (x0, x1) under key (k0, k1), uint32
+    values as Python ints or int64 tensors, broadcast."""
+    ks = (k0, k1, k0 ^ k1 ^ _TF_PARITY)
+    x0 = x0 + k0
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _TF_ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _M32
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def key(seed: int):
+    """``jax.random.PRNGKey(seed)`` of a 32-bit seed: (0, seed mod 2^32)."""
+    return (0, int(seed) & _M32)
+
+
+def key_tensor(k, device="cpu"):
+    """A key (tuple or tensor) as an int64 tensor [..., 2] on ``device``."""
+    if isinstance(k, tuple):
+        return torch.tensor(k, dtype=torch.int64, device=device)
+    return k.to(device)
+
+
+def _halves(k):
+    if isinstance(k, tuple):
+        return k
+    return k[..., 0], k[..., 1]
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _bcast(k, n_new: int):
+    """Key words with ``n_new`` trailing axes for broadcasting against the
+    counters of a draw."""
+    k0, k1 = _halves(k)
+    if isinstance(k0, int):
+        return k0, k1
+    view = k0.shape + (1,) * n_new
+    return k0.reshape(view), k1.reshape(view)
+
+
+def _iota(shape, device):
+    n = math.prod(shape)
+    return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+
+
+def _device(k, device):
+    if device is not None:
+        return device
+    return "cpu" if isinstance(k, tuple) else k.device
+
+
+def split(k, num=2, device=None):
+    """``jax.random.split``: keys [..., *num, 2] from keys [..., 2] (a tuple
+    key gives a tensor on ``device``, the CPU by default): threefry of
+    the counters (0, i) for i over the new shape, its two words the new
+    key (``_threefry_split_foldlike``)."""
+    shape = _shape(num)
+    k0, k1 = _bcast(k, len(shape))
+    b0, b1 = threefry2x32(k0, k1, 0, _iota(shape, _device(k, device)))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def split_host(k, num: int = 2):
+    """``split`` of one tuple key on the host: a list of tuple keys."""
+    k0, k1 = k
+    return [threefry2x32(k0, k1, 0, i) for i in range(num)]
+
+
+def fold_in(k, data):
+    """``jax.random.fold_in``: threefry of the counters (0, data) under the
+    key.  A tuple key and an int give a tuple key; otherwise keys [..., 2]
+    (``data`` an int or an int64 tensor broadcast against the batch)."""
+    k0, k1 = _halves(k)
+    if isinstance(data, int):
+        data = data & _M32
+    else:
+        data = data.to(torch.int64) & _M32
+    b0, b1 = threefry2x32(k0, k1, 0, data)
+    if isinstance(b0, int):
+        return (b0, b1)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(k, shape, device=None):
+    """``jax.random.bits`` in 32 bits: [..., *shape] words, the xor of the
+    two threefry words of the counters (0, i), i the row-major index into
+    ``shape`` (``_threefry_random_bits_partitionable``)."""
+    shape = _shape(shape)
+    k0, k1 = _bcast(k, len(shape))
+    b0, b1 = threefry2x32(k0, k1, 0, _iota(shape, _device(k, device)))
+    return b0 ^ b1
+
+
+def _unit_floats(bits):
+    """Words -> float32 in [0, 1): the top 23 bits as the mantissa of a
+    float in [1, 2), minus 1 (``random.py _uniform``)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) \
+        - 1.0
+
+
+def uniform_of_bits(bits, minval: float = 0.0, maxval: float = 1.0):
+    """Words -> float32 uniforms in [minval, maxval) as ``jax.random.
+    uniform`` makes them: max(minval, f (maxval - minval) + minval) for
+    the unit floats f."""
+    f = _unit_floats(bits)
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    if span != 1.0 or lo != 0.0:
+        f = f * span + float(lo)
+    return torch.clamp(f, min=float(lo))
+
+
+def uniform(k, shape, device=None, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform`` in float32 of the key's words."""
+    return uniform_of_bits(random_bits(k, shape, device), minval, maxval)
+
+
+def uniform_host(k) -> np.float32:
+    """``jax.random.uniform(k, ())`` of one tuple key, on the host."""
+    b0, b1 = threefry2x32(k[0], k[1], 0, 0)
+    f = np.array([((b0 ^ b1) >> 9) | 0x3F800000], np.uint32)
+    return np.float32(f.view(np.float32)[0] - np.float32(1.0))
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal_of_bits(bits):
+    """Words -> float32 normals as ``jax.random.normal`` makes them:
+    sqrt(2) erf_inv(u) with u uniform in (nextafter(-1, 0), 1)."""
+    return _SQRT2 * erf_inv(uniform_of_bits(bits, _NORMAL_LO, 1.0))
+
+
+def normal(k, shape, device=None):
+    """``jax.random.normal`` in float32 of the key's words."""
+    return normal_of_bits(random_bits(k, shape, device))
+
+
+def randint(k, shape, minval: int, maxval: int, device=None):
+    """``jax.random.randint`` in int32 (int64 tensor): two 32-bit words per
+    value from the key's two halves, reduced modulo the span as JAX
+    does."""
+    if isinstance(k, tuple):
+        k = key_tensor(k, _device(k, device))
+    halves = split(k, 2)
+    hi = random_bits(halves[..., 0, :], shape)
+    lo = random_bits(halves[..., 1, :], shape)
+    span = max(int(maxval) - int(minval), 1) & _M32
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    return int(minval) + (off & _M32) % span
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel_noise(k, shape, device=None):
+    """``jax.random.gumbel`` (mode "low") in float32: -log(-log(u)) with u
+    uniform in [tiny, 1), through XLA's float32 log."""
+    return -_log(-_log(uniform(k, shape, device, _TINY, 1.0)))
+
+
+def categorical(k, logits, axis: int = -1):
+    """``jax.random.categorical``: argmax over ``axis`` of the logits plus
+    Gumbel noise of their shape (ties to the first index, as
+    ``jnp.argmax``)."""
+    g = gumbel_noise(k, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=axis)
+
+
+_THIRD = float(np.float32(1.0 / 3.0))
+
+
+def _gamma_one(keys, alpha: float):
+    """Marsaglia-Tsang draws of Gamma(alpha) with one key per draw (``keys``
+    [N, 2]; ``random.py _gamma_one``), as a masked loop over the draws
+    not yet accepted: each round splits an active key into three, draws a
+    normal x from a split of the second until v = 1 + c x > 0 and a
+    uniform U from the third, and accepts where U < 1 - 0.0331 x^4 or
+    log U < x^2 / 2 + d (1 - v^3 + log v^3)."""
+    dev = keys.device
+    alpha32 = np.float32(alpha)
+    boost = bool(alpha32 >= 1.0)
+    a = alpha32 if boost else np.float32(alpha32 + np.float32(1.0))
+    d = float(np.float32(a - np.float32(_THIRD)))
+    c = float(np.float32(np.float32(_THIRD) / np.sqrt(np.float32(d))))
+    n = keys.shape[0]
+    first = split(keys, 2)
+    key_c, subkey = first[:, 0], first[:, 1]
+    X = torch.zeros(n, dtype=torch.float32, device=dev)
+    V = torch.ones(n, dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+    lanes = torch.tensor([1, 1, 2], device=dev)
+    counts = torch.tensor([0, 1, 0], dtype=torch.int64, device=dev)
+    while idx.numel():
+        parts = split(key_c[idx], 3)
+        key_c[idx] = parts[:, 0]
+        # one threefry pass for the split of the normal's key (its first
+        # round) and the uniform U
+        b0, b1 = threefry2x32(parts[:, lanes, 0], parts[:, lanes, 1], 0,
+                              counts)
+        U = uniform_of_bits(b0[:, 2] ^ b1[:, 2])
+        x_key = torch.stack([b0[:, 0], b1[:, 0]], dim=-1)
+        sub = torch.stack([b0[:, 1], b1[:, 1]], dim=-1)
+        x = normal(sub, ())
+        # 1 + x c as one fused multiply-add, as XLA's CPU code has it
+        v = _fma(x, torch.full_like(x, c), torch.ones_like(x))
+        pend = torch.nonzero(v <= 0.0).flatten()
+        while pend.numel():
+            kx = split(x_key[pend], 2)
+            x_key[pend] = kx[:, 0]
+            xp = normal(kx[:, 1], ())
+            x[pend] = xp
+            v[pend] = _fma(xp, torch.full_like(xp, c), torch.ones_like(xp))
+            pend = pend[v[pend] <= 0.0]
+        Xi = x * x
+        Vi = v * v * v
+        X[idx] = Xi
+        V[idx] = Vi
+        more = (U >= 1.0 - 0.0331 * (Xi * Xi)) \
+            & (_log(U) >= Xi * 0.5 + d * ((1.0 - Vi) + _log(Vi)))
+        idx = idx[more]
+    out = d * V
+    if not boost:
+        s = 1.0 - uniform(subkey, ())
+        out = out * torch.pow(s, float(np.float32(1.0) / alpha32))
+    return out
+
+
+def gamma(k, alpha: float, shape, device=None):
+    """``jax.random.gamma(k, alpha, shape)`` in float32, for keys [..., 2]
+    (or a tuple key): one key per draw by ``split(k, prod(shape))``, then
+    :func:`_gamma_one` (``random.py _gamma_impl``)."""
+    shape = _shape(shape)
+    if isinstance(k, tuple):
+        k = key_tensor(k, _device(k, device))
+    keys = split(k, math.prod(shape))
+    out = _gamma_one(keys.reshape(-1, 2), alpha)
+    return out.reshape(k.shape[:-1] + shape)
+
+
+def t_scale(z, k, shape, dof: int):
+    """Normals ``z`` [..., *shape] drawn from keys ``k`` [..., 2] made
+    Student-t(dof): z / sqrt(g / s) with g ``gamma(fold_in(k, 1), s)``
+    and s = dof / 2; dof == 0 leaves z."""
+    if dof <= 0:
+        return z
+    s = 0.5 * dof
+    return z / torch.sqrt(gamma(fold_in(k, 1), s, shape, z.device) / s)
+
+
+def rand_t(k, shape, dof: int, device=None):
+    """Independent Student-t(dof) draws (``automix_tpu/ops/randoms.py
+    rand_t``): :func:`t_scale` of ``normal(k)``; dof == 0 gives the
+    normals."""
+    return t_scale(normal(k, shape, device), k, shape, dof)
+
+
+def keyed_words(keys, counts):
+    """One threefry pass for several draws at once: ``keys`` [..., n, 2]
+    and ``counts`` [n] give the words [..., n] of each key at its count
+    (the words of ``random_bits`` for draws laid side by side)."""
+    b0, b1 = threefry2x32(keys[..., 0], keys[..., 1], 0, counts)
+    return b0 ^ b1

@@ -2,7 +2,13 @@
 
 Counterpart of ``automix_tpu/sampler.py``: ``estimate_conditional_probs``
 (stage 1 + stage 2), ``set_proposal``, ``burn_samples``,
-``rjmcmc_samples``, ``model_probs`` and ``save``/``load``.  Stage 3 runs
+``rjmcmc_samples``, ``model_probs``, ``retune_hmc``, ``smc_evidence`` and
+``save``/``load``.  The sampler carries JAX's key chain: a threefry key
+of the seed, split at each use in JAX's order (stage 1, stage 2, the HMC
+tuner, the chains, SMC), so a run's stage-1 keys, chain keys, tuning
+key and SMC key are JAX's.  Stage 2 draws its seeding indices from a
+torch.Generator of the seed; it still takes its key, so the later keys
+stay aligned.  Stage 3 runs
 as a host loop over ``sweep_chunk``-sweep kernel launches; chunk
 statistics stay on the device for ``chunk_flush_every`` chunks, then are
 absorbed on the host in int64/float64.  The chain continues across
@@ -43,6 +49,7 @@ import torch
 from automix_tpu_torch.config import EngineConfig
 from automix_tpu_torch.kernels import em, fused, rjmcmc, rwm
 from automix_tpu_torch.model import Model, ModelSet
+from automix_tpu_torch.ops import randoms
 from automix_tpu_torch.state import Chains, CondProbStats, Proposal, RunStats
 
 
@@ -73,6 +80,7 @@ class AMSampler:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.generator = torch.Generator().manual_seed(int(config.seed))
+        self.key = randoms.key(int(config.seed))
         self.proposal: Optional[Proposal] = None
         self.chains: Optional[Chains] = None
         self.cpstats = CondProbStats()
@@ -80,6 +88,10 @@ class AMSampler:
         self._runners = {}
 
     # -- internals --------------------------------------------------------
+
+    def _next_key(self):
+        self.key, sub = randoms.split_host(self.key, 2)
+        return sub
 
     def _runner(self, burning: bool, collect: bool):
         """The stage-3 runner of the engine the rule picks; ``collect``
@@ -107,10 +119,20 @@ class AMSampler:
         if self.proposal is None:
             self.estimate_conditional_probs()
 
+    def _ensure_hmc_tuned(self):
+        """Dual-average the per-model HMC step multipliers before the
+        first stage-3 runner is built: a no-op unless within_move='hmc'
+        with autotune on and a still-scalar hmc_step_scale."""
+        if (self.cfg.within_move != "hmc" or not self.cfg.hmc_autotune
+                or isinstance(self.cfg.hmc_step_scale, tuple)
+                or self._runners):
+            return
+        self.retune_hmc()
+
     def _ensure_chains(self):
         if self.chains is None:
             self.chains = rjmcmc.init_chains(self.modelset, self.cfg,
-                                             self.generator, self.device)
+                                             self._next_key(), self.device)
 
     def _run_sweeps(self, nsweeps: int, burning: bool, collect: bool,
                     stats: Optional[RunStats]):
@@ -165,10 +187,11 @@ class AMSampler:
         t0 = time.perf_counter()
         nsweeps = nsweep2 if nsweep2 is not None else self.cfg.stage1_sweeps
         sig, samples, tele = rwm.run_stage1(
-            self.modelset, self.cfg, self.generator, nsweeps, self.device,
+            self.modelset, self.cfg, self._next_key(), nsweeps, self.device,
             n_chains_per_model=n_chains_stage1)
         _sync(self.device)
         t1 = time.perf_counter()
+        self._next_key()          # stage 2's key in JAX's order
         self.proposal, em_tele = em.fit_proposal(
             self.modelset, self.cfg, samples, sig, generator=self.generator)
         _sync(self.device)
@@ -183,6 +206,10 @@ class AMSampler:
         self.cpstats.timesecs_stage2 = t2 - t1
         self.cpstats.timesecs_condprobs = time.perf_counter() - t0
         self.cpstats.initialized = True
+        if (self.cfg.within_move == "hmc" and self.cfg.hmc_autotune
+                and isinstance(self.cfg.hmc_step_scale, tuple)):
+            # tuned against the old fit's sig, which the re-fit changed
+            self.retune_hmc()
         return self.proposal
 
     def set_proposal(self, proposal: Proposal):
@@ -198,6 +225,7 @@ class AMSampler:
         """Burn-in sweeps: pk adaptation off."""
         t0 = time.perf_counter()
         self._ensure_proposal()
+        self._ensure_hmc_tuned()
         self._ensure_chains()
         self._run_sweeps(nsweeps, burning=True, collect=False, stats=None)
         if self.stats is None:
@@ -213,6 +241,7 @@ class AMSampler:
             collect = self.cfg.trace_chain0
         t0 = time.perf_counter()
         self._ensure_proposal()
+        self._ensure_hmc_tuned()
         self._ensure_chains()
         if self.stats is None:
             self.stats = RunStats(self.modelset.nmodels, self.modelset.dmax)
@@ -228,6 +257,37 @@ class AMSampler:
         if self.stats is None:
             raise RuntimeError("run rjmcmc_samples first")
         return self.stats.model_probs
+
+    def retune_hmc(self):
+        """Run the HMC step-size tuner (``kernels/hmc.py
+        tune_step_scale``) against the current proposal's sig with the
+        next key, install the per-model multipliers as
+        ``hmc_step_scale`` and drop the stage-3 runners built with the
+        old ones.  Returns the [K] multipliers."""
+        if self.cfg.within_move != "hmc":
+            raise RuntimeError("retune_hmc requires within_move='hmc'")
+        self._ensure_proposal()
+        from automix_tpu_torch.kernels.hmc import tune_step_scale
+        scales = tune_step_scale(self.modelset, self.cfg, self.proposal.sig,
+                                 self._next_key(), device=self.device)
+        self.cfg = dataclasses.replace(
+            self.cfg, hmc_step_scale=tuple(float(x) for x in scales))
+        self._runners.clear()
+        return scales
+
+    def smc_evidence(self, n_particles: int = 2048, n_temps: int = 20,
+                     n_moves: int = 3, tempering: str = "adaptive",
+                     ess_target: float = 0.5):
+        """Annealed-SMC model evidences (``kernels/smc.py run_smc``) from
+        the fitted proposal, with the next key: a dict of
+        ``log_evidence``, ``model_probs``, ``ess``, ``betas_used``,
+        ``theta`` and ``logp`` as numpy arrays."""
+        from automix_tpu_torch.kernels import smc
+        self._ensure_proposal()
+        return smc.run_smc(self.modelset, self.cfg, self.proposal,
+                           self._next_key(), n_particles=n_particles,
+                           n_temps=n_temps, n_moves=n_moves,
+                           tempering=tempering, ess_target=ess_target)
 
     def save(self, path: str):
         """Checkpoint the resumable state (chains, proposal, statistics);

@@ -3,15 +3,18 @@
 Counterpart of ``automix_tpu/state.py``.  ``Proposal`` and ``Chains`` are
 dataclasses of tensors in the JAX package's layouts (padded to
 ``dmax`` and ``lmax``: coordinates beyond a model's dim are 0, dead
-mixture components have lam 0, mu 0, B = I, logdetB 0).  Chains carry no
-per-chain PRNG key: every random word is a hash of (seed, sweep, chain,
-slot).  ``RunStats`` and ``CondProbStats`` stay host numpy int64/float64,
+mixture components have lam 0, mu 0, B = I, logdetB 0).  Chains carry
+one threefry key per chain, as JAX's do: the general engine's
+``threefry`` stream folds it with the sweep, while the hash streams and
+K4 draw words from (seed, sweep, chain, slot) and leave it as it is.
+``RunStats`` and ``CondProbStats`` stay host numpy int64/float64,
 so visit counters never overflow.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,8 +40,10 @@ class Proposal:
 @dataclasses.dataclass
 class Chains:
     """Stage-3 chain batch: k [S] int32, theta [S, D], logp [S],
-    pk [S, K], pkllim [S], nreinit [S] int32, and the global 1-based sweep
-    counter shared by all chains (a Python int)."""
+    pk [S, K], pkllim [S], nreinit [S] int32, the global 1-based sweep
+    counter shared by all chains (a Python int) and the chains' threefry
+    keys [S, 2] (uint32 words in int64; None for a batch made without
+    them, which only the hash streams and K4 can sweep)."""
 
     k: torch.Tensor
     theta: torch.Tensor
@@ -47,6 +52,7 @@ class Chains:
     pkllim: torch.Tensor
     nreinit: torch.Tensor
     sweep: int
+    key: Optional[torch.Tensor] = None
 
     @property
     def n_chains(self) -> int:

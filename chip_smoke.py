@@ -17,7 +17,8 @@ PyTorch twin on the card, then drives the port's paths at full size:
 * the sweep kernel's forms at toy2's (5, 5) on toy2's state, each
   bitwise equal to its twin and timed per launch of 100 and of 16
   sweeps (the CLI's launch), and a drive of its hw perm + Student-t form;
-* the CLI on toy1 with Student-t perturbations (``-t 5``), p(M) against
+* the CLI on toy1 with Student-t perturbations (``-t 5``) in its AutoRJ
+  mode (``-m 2``: one Normal per model, no lmax-30 EM), p(M) against
   the exact 0.3 / 0.7, then its (2, 2) perm + Student-t forms on the
   state of the CLI's proposal, bitwise and timed as toy2's;
 * rb9 (10 models, dmax 5): stages 1-2 through ``AMSampler`` at the bench
@@ -71,7 +72,16 @@ PyTorch twin on the card, then drives the port's paths at full size:
   per-theta densities and no CUDA density at 16384 chains through the
   general stage 1, stage 2 at lmax 10 and stage 3, p(M) against the
   exact values; and the CLI on ``examples/model_selection_torch.py``'s
-  per-theta set by ``module:function``, p(M) against its closed form.
+  per-theta set by ``module:function``, p(M) against its closed form;
+* the general engine's extensions: toy2 per-theta with Student-t(5)
+  perturbations on JAX's threefry stream (stage 1 on the general engine
+  with AutoRJ, then stage 3 from the Gaussian toy2 run's proposal and
+  chains at 16384), p(M) against the exact values; HMC
+  within-model moves on the tutorial from the main path's proposal
+  (autotuned scales, 16384 chains), p(M) against the published values;
+  and SMC evidences on the tutorial from that proposal (16384 particles
+  per model, adaptive tempering), p(M) against the published values and
+  the ESS above 0.2 N.  These paths launch no kernel.
 
 ``fused_rng="auto"`` is the hw stream on the card, so every sampler path
 above runs the sweep kernel's hw form (K1f).  Beside them: 20000 timed
@@ -215,11 +225,12 @@ CPT_REPLICAS = 8
 # The general engine (plain torch, eager: every sweep is a few hundred
 # launches, ~8-25 ms, so its paths run fewer sweeps than the kernels').
 # The tutorial from the main path's proposal: K4 (rng="pallas") for 500
-# burn-in and 2000 timed sweeps, then the fast hash for 1000 timed sweeps
-# from the same state; toy2's whole pipeline at 16384 chains (stage 1 at
-# the CLI's 2048 chains per model, 1000 sweeps; lmax 10; 300 burn-in and
-# 1000 timed sweeps); the CLI on the example at 2048 chains.
-GEN_BURN, GEN_TIMED, GEN_FAST_TIMED = 500, 2000, 1000
+# burn-in and 500 timed sweeps, then the fast hash for 500 timed sweeps
+# from the same state (6.6e7 chain-sweeps for each p(M) check); toy2's
+# whole pipeline at 16384 chains (stage 1 at the CLI's 2048 chains per
+# model, 1000 sweeps; lmax 10; 300 burn-in and 1000 timed sweeps); the
+# CLI on the example at 2048 chains.
+GEN_BURN, GEN_TIMED, GEN_FAST_TIMED = 500, 500, 500
 K4_SHAPES = ((N_CHAINS, 25, 4), (3000, 37, 5))
 K4_ULPS = 2
 TOY2_GEN_CHAINS = 16_384
@@ -235,6 +246,34 @@ TOY2_GEN_BURN, TOY2_GEN_TIMED = 300, 1000
 # 0.005, or 3 times their spread where that is larger, and to the exact
 # values within 0.02, twice JAX's own distance.
 TOY2_GEN_TOL, TOY2_GEN_SPREADS, TOY2_GEN_EXACT = 0.005, 3.0, 0.02
+
+# The general engine's extensions, each its own AMSampler run.  toy2
+# per-theta with Student-t(5) on the threefry stream, its own pipeline:
+# stage 1 at the CLI's 2048 chains per model for 220 sweeps, AutoRJ (one
+# Normal per model), stage 3 from fresh chains at 16384, 50 burn-in and
+# 300 timed sweeps (51-82 and 69-99 ms a sweep on the card, by host).  A
+# single Normal over each model's modes 10 apart mixes slowly: the JAX
+# package's XLA engine at this configuration reads p(M) 0.0250-0.0328
+# from exact over three seeds, 0.0149 apart (tools/toy2_t_witness.py,
+# tests/data/toy2_t_jax_reference.json), so the run is held to JAX's.
+# Its seed is JAX's first, so stage 1 draws the same threefry words and
+# the fit follows: p(M) must lie within 0.005 of that run (the port read
+# it to 4 digits on the card and on the CPU) and within 3 spreads of the
+# three runs' mean; its distance from exact is logged beside JAX's.  HMC
+# on the tutorial (autotuned, 16384 chains).  SMC on the tutorial (16384
+# particles per model, at most 20 steps of 3 moves): adaptive from the
+# fitted proposal, which bridges in a step or two, and a linear ladder of
+# SMC_TEMPS steps from that proposal with every scale widened SMC_WIDEN
+# times, so the resampler and the moves carry the particles across.
+# Bounds: PARITY_TOL for HMC, and 0.02 for SMC (the JAX test bounds 1024
+# particles at 0.05; 16 times the particles gives a quarter of the
+# spread), its ESS above 0.2 N.
+T_STAGE1, T_BURN, T_TIMED = 200, 50, 300
+T_CHAINS, T_SEED = 16_384, 1
+T_JAX_TOL, T_JAX_SPREADS = 0.005, 3.0
+HMC_CHAINS, HMC_BURN, HMC_TIMED = 16_384, 200, 500
+SMC_PARTICLES, SMC_TEMPS, SMC_MOVES, SMC_WIDEN = 16_384, 20, 3, 3.0
+SMC_TOL, SMC_ESS = 0.02, 0.2
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
 # cores and HBM3.  Every bound below is against these.
@@ -633,8 +672,9 @@ def uniform(ms):
 
 def stage1_start(ms, C, dev):
     import torch
+    from automix_tpu_torch.ops import randoms
     K, D = ms.nmodels, ms.dmax
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     theta = init[torch.arange(K * C) // C].T.contiguous().to(dev)
     dims = torch.as_tensor(ms.dims)
     sig = (10.0 * (torch.arange(D)[None] < dims[:, None])).float().to(dev)
@@ -763,7 +803,8 @@ def check_sweep_runner(ms, dev):
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
-    init = ms.init_points(torch.Generator())
+    from automix_tpu_torch.ops import randoms
+    init = ms.init_points(randoms.key(0))
     cfg = EngineConfig(seed=3)
     n = 330
     reset_counts()
@@ -792,8 +833,9 @@ def stage1_routes(ms, C, nsweeps, dev, label):
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
+    from automix_tpu_torch.ops import randoms
     cfg = EngineConfig(seed=0)
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     out, secs, counts = [], [], []
     for run in (fused_stage1.run_fused_stage1,
                 fused_stage1.run_fused_stage1_sweeps):
@@ -1636,8 +1678,9 @@ def check_stage1_route(ms, C, dev, label="K3 + log"):
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
+    from automix_tpu_torch.ops import randoms
     cfg = EngineConfig(seed=5, stage1_adapt="log")
-    init = ms.init_points(torch.Generator())
+    init = ms.init_points(randoms.key(0))
 
     def run(sweep_fn=None):
         return fused_stage1.run_fused_stage1_sweeps(
@@ -1764,6 +1807,7 @@ def changepoint_paths(dev):
     from automix_tpu_torch.io import reports
     from automix_tpu_torch.kernels import fused, rwm
     from automix_tpu_torch.models import changepoint
+    from automix_tpu_torch.ops import randoms
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data")
     ref = json.load(open(os.path.join(data, "cpt_jax_reference.json")))
@@ -1785,7 +1829,7 @@ def changepoint_paths(dev):
         cpt, EngineConfig(n_chains_stage1=CPT_C_K2,
                           stage1_sweeps=CPT_STAGE1_SWEEPS, seed=5,
                           stage1_adapt="log"),
-        torch.Generator().manual_seed(5), CPT_STAGE1_SWEEPS, dev)
+        randoms.key(5), CPT_STAGE1_SWEEPS, dev)
     torch.cuda.synchronize()
     out["stage1"] = read_counts()
     rate_sig = [float(sig[m, :m + 2].max()) for m in range(cpt.nmodels)]
@@ -2127,6 +2171,173 @@ def general_paths(tut, tut_prop, k1_rate, dev):
     return out
 
 
+def student_t_path(smi):
+    """toy2 per-theta with Student-t(5) perturbations on the threefry
+    stream, its whole pipeline on the general engine: stage 1, AutoRJ,
+    stage 3 from fresh chains; p(M) held to the JAX package's runs of
+    the same configuration, and no kernel launched.  Every reading is
+    logged beside ``smi``, the card's name and power limit."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.kernels import sweep_rng
+    from automix_tpu_torch.models import toy
+    t0 = time.perf_counter()
+    cfg = EngineConfig(n_chains=T_CHAINS, n_chains_stage1=TOY2_C_K3,
+                       stage1_sweeps=T_STAGE1, mix_fit="autorj",
+                       student_t_dof=5, seed=T_SEED, trace_chain0=False)
+    if sweep_rng.resolve_rng(cfg) != "threefry":
+        fail("a Student-t run did not resolve to the threefry stream")
+    ref = json.load(open(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+        "toy2_t_jax_reference.json")))
+    want = dict(n_chains=T_CHAINS, n_chains_stage1=TOY2_C_K3,
+                stage1_sweeps=T_STAGE1, mix_fit="autorj", student_t_dof=5,
+                burn=T_BURN, timed=T_TIMED)
+    if any(ref["config"][k] != v for k, v in want.items()):
+        fail("the Student-t JAX reference was made at another configuration")
+    am = AMSampler(per_theta(toy.toy2_set()), cfg, device="cuda")
+    reset_counts()
+    am.estimate_conditional_probs()
+    cp = am.cpstats
+    if not bool(torch.isfinite(am.proposal.sig).all()):
+        fail("the Student-t stage 1 gave non-finite scales")
+    am.burn_samples(T_BURN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = am.rjmcmc_samples(T_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    probs = np.asarray(stats.model_probs)
+    same = np.asarray(ref["runs"][str(T_SEED)])
+    err_seed = float(np.abs(probs - same).max())
+    err_jax = float(np.abs(probs - np.asarray(ref["mean"])).max())
+    tol = max(T_JAX_TOL, T_JAX_SPREADS * ref["spread"])
+    err = float(np.abs(probs - np.asarray(TOY2_EXACT)).max())
+    jax_err = float(np.abs(np.asarray(ref["mean"])
+                           - np.asarray(TOY2_EXACT)).max())
+    n1 = T_STAGE1 * 11 // 10
+    log(f"toy2 per-theta, Student-t(5), threefry [{smi}]: stage 1 "
+        f"{cp.timesecs_stage1:.3f} s ({TOY2_C_K3} chains per model, {n1} "
+        f"sweeps: {cp.timesecs_stage1 / n1 * 1e3:.3f} ms per sweep), "
+        f"AutoRJ {cp.timesecs_stage2:.3f} s; burn-in "
+        f"{stats.timesecs_burn:.3f} s, {T_TIMED} timed sweeps x {T_CHAINS} "
+        f"in {secs:.3f} s ({secs / T_TIMED * 1e3:.3f} ms per sweep); p(M) "
+        f"= {np.round(probs, 4).tolist()}; vs the JAX XLA engine's run of "
+        f"seed {T_SEED} {np.round(same, 4).tolist()}: max err "
+        f"{err_seed:.4f} (bound {T_JAX_TOL}); vs its mean of three "
+        f"{np.round(ref['mean'], 4).tolist()} (spread {ref['spread']:.4f}): "
+        f"max err {err_jax:.4f} (bound {tol:.4f}); vs exact "
+        f"{list(TOY2_EXACT)}: max err {err:.4f} (JAX's mean {jax_err:.4f}); "
+        f"launches {counts}")
+    if err_seed > T_JAX_TOL or err_jax > tol:
+        fail("toy2 per-theta with Student-t misses the JAX package's p(M)")
+    if any(counts.values()):
+        fail("the Student-t general-engine run launched a kernel")
+    if am.chains.key is None or not bool(
+            torch.isfinite(am.chains.theta).all()):
+        fail("the threefry run lost its keys or its chain state is not "
+             "finite")
+    log(f"phase toy2 Student-t threefry: {time.perf_counter() - t0:.2f} s")
+
+
+def hmc_path(tut, tut_prop, smi):
+    """HMC within-model moves on the tutorial from the main path's
+    proposal: the tuner, then burn-in and timed sweeps, p(M) against the
+    published values, no kernel launched."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    t0 = time.perf_counter()
+    am = AMSampler(tut, EngineConfig(
+        n_chains=HMC_CHAINS, within_move="hmc", seed=3,
+        sweep_chunk=SWEEP_CHUNK, trace_chain0=False), device="cuda")
+    am.set_proposal(tut_prop)
+    reset_counts()
+    t1 = time.perf_counter()
+    scales = am.retune_hmc()
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t1
+    am.burn_samples(HMC_BURN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = am.rjmcmc_samples(HMC_TIMED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    probs = np.asarray(stats.model_probs)
+    err = float(np.abs(probs - np.asarray(PUBLISHED)).max())
+    acc = stats.naccrwmb / max(stats.ntryrwmb, 1)
+    log(f"tutorial HMC [{smi}]: tuned scales "
+        f"{[round(float(x), 5) for x in scales]} in {tune_s:.3f} s, "
+        f"burn-in {stats.timesecs_burn:.3f} s, {HMC_TIMED} timed sweeps x "
+        f"{HMC_CHAINS} in {secs:.3f} s ({secs / HMC_TIMED * 1e3:.3f} ms "
+        f"per sweep), HMC acceptance {acc:.4f}, jump acceptance "
+        f"{stats.nacctd / max(stats.ntrytd, 1):.4f}; p(M) = "
+        f"{np.round(probs, 4).tolist()} vs published {list(PUBLISHED)}: "
+        f"max err {err:.4f} (bound {PARITY_TOL}); launches {counts}")
+    if err > PARITY_TOL:
+        fail("the tutorial with HMC misses the published p(M)")
+    if any(counts.values()):
+        fail("the HMC run launched a kernel")
+    if not 0.2 < acc < 0.999:
+        fail(f"HMC acceptance {acc:.4f} is off its tuned target")
+    log(f"phase tutorial HMC: {time.perf_counter() - t0:.2f} s")
+
+
+def smc_path(tut, tut_prop, smi):
+    """SMC evidences on the tutorial: adaptive from the main path's
+    proposal, then a linear ladder of SMC_TEMPS steps from that proposal
+    widened SMC_WIDEN times; each run's p(M) against the published
+    values, its ESS bound and its steps, no kernel launched."""
+    import numpy as np
+    import torch
+    from automix_tpu_torch import AMSampler, EngineConfig
+    t0 = time.perf_counter()
+    dims = torch.as_tensor(tut.dims, dtype=torch.float32,
+                           device=tut_prop.B.device)
+    wide = dataclasses.replace(
+        tut_prop, B=tut_prop.B * SMC_WIDEN,
+        logdetB=tut_prop.logdetB + dims[:, None] * math.log(SMC_WIDEN))
+    for name, prop, tempering in (("adaptive", tut_prop, "adaptive"),
+                                  (f"linear, scales x{SMC_WIDEN:g}", wide,
+                                   "linear")):
+        am = AMSampler(tut, EngineConfig(seed=4), device="cuda")
+        am.set_proposal(prop)
+        reset_counts()
+        t1 = time.perf_counter()
+        out = am.smc_evidence(n_particles=SMC_PARTICLES, n_temps=SMC_TEMPS,
+                              n_moves=SMC_MOVES, tempering=tempering)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = read_counts()
+        probs = np.asarray(out["model_probs"])
+        err = float(np.abs(probs - np.asarray(PUBLISHED)).max())
+        steps = (np.asarray(out["betas_used"]) < 1.0).sum(axis=0) + 1
+        ess_min = float(np.min(out["ess"]))
+        log(f"tutorial SMC, {name} [{smi}]: {SMC_PARTICLES} particles per "
+            f"model, cap {SMC_TEMPS} steps of {SMC_MOVES} moves, steps per "
+            f"model {steps.tolist()}, {secs:.3f} s; log Z = "
+            f"{[round(float(x), 4) for x in out['log_evidence']]}; p(M) = "
+            f"{[round(float(x), 4) for x in probs]} vs published "
+            f"{list(PUBLISHED)}: max err {err:.4f} (bound {SMC_TOL}); min "
+            f"ESS {ess_min:.1f} (bound {SMC_ESS * SMC_PARTICLES:.1f}); "
+            f"launches {counts}")
+        if err > SMC_TOL or not ess_min > SMC_ESS * SMC_PARTICLES:
+            fail(f"SMC ({name}) on the tutorial misses the published p(M) "
+                 f"or its ESS")
+        if tempering == "linear" and steps.tolist() != [SMC_TEMPS] * len(
+                steps):
+            fail(f"the linear SMC ladder took {steps.tolist()} steps, not "
+                 f"{SMC_TEMPS}")
+        if any(counts.values()):
+            fail("the SMC run launched a kernel")
+        if not np.isfinite(out["theta"]).all():
+            fail("non-finite SMC particles")
+    log(f"phase tutorial SMC: {time.perf_counter() - t0:.2f} s")
+
+
 def run_cli(argv, reset=True):
     """``cli.main(argv)`` in process; returns (stdout text, launch counts
     since the last reset, seconds).  ``reset`` sets the counts to 0 just
@@ -2311,6 +2522,9 @@ def main():
 
     # ---- 5b. the general engine: K4, tutorial, toy2 per-theta, the CLI -----
     gen = general_paths(ms, tut_prop, rate, dev)
+    student_t_path(smi)
+    hmc_path(ms, tut_prop, smi)
+    smc_path(ms, tut_prop, smi)
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 6. toy2: stages 1-2, then the CLI in mode 1 at its defaults --
@@ -2384,9 +2598,9 @@ def main():
         del am
         log(f"phase K1 variant checks: {time.perf_counter() - t1:.2f} s")
 
-        # ---- 8. the CLI on toy1 with Student-t -------------------------------
+        # ---- 8. the CLI on toy1 with Student-t, AutoRJ (no EM) ------------
         out, t_counts, secs = run_cli(
-            ["toy1", "-t", "5", "--chains", str(N_CHAINS), "-N",
+            ["toy1", "-t", "5", "-m", "2", "--chains", str(N_CHAINS), "-N",
              str(CLI_SWEEPS), "-s", "2", "-f", os.path.join(tmp, "toy1")])
         log(f"launches on the toy1 Student-t CLI path: {t_counts}")
         check_probs("toy1 -t 5 CLI", probs_of(out), TOY1_EXACT)

@@ -20,6 +20,7 @@ from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import rwm
 from automix_tpu_torch.model import N_DENSITY_CONSTS
 from automix_tpu_torch.models import changepoint as cp
+from automix_tpu_torch.ops import randoms
 from _torch_threads import one_torch_thread  # noqa: F401
 
 _ORACLE = os.path.join(os.path.dirname(__file__), "data",
@@ -153,7 +154,7 @@ def test_models_match_jax_structure(name):
     assert list(ms.dims) == list(jms.dims) == [3, 5, 7, 9, 11, 13]
     assert [m.name for m in ms.models] == [m.name for m in jms.models]
     np.testing.assert_array_equal(
-        ms.init_points(torch.Generator()).numpy(),
+        ms.init_points(randoms.key(0)).numpy(),
         np.asarray(jms.init_points(None)))
     np.testing.assert_array_equal(cp.COAL_DATA, jcp.COAL_DATA)
     data = (jcp.COAL_DATA if name == "cpt"
@@ -271,7 +272,7 @@ def test_stage1_log_rule_moves_sig_to_the_rates_scale():
     sig = {}
     for rule in ("log", "aap"):
         cfg = EngineConfig(seed=2, n_chains_stage1=64, stage1_adapt=rule)
-        sig[rule] = rwm.run_stage1(ms, cfg, torch.Generator(), 150,
+        sig[rule] = rwm.run_stage1(ms, cfg, randoms.key(0), 150,
                                    "cpu")[0].numpy()
     jsig = np.asarray(jrwm.run_stage1(
         jcp.cpt_set(), JaxConfig(seed=2, n_chains_stage1=64,

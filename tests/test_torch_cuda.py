@@ -107,7 +107,7 @@ def test_sweep_runner_matches_segment_runner(cuda, name, C, rule):
     burn-in): sig, samples, telemetry and logp bitwise equal, with one K2
     launch per segment and one K3 launch per sweep."""
     ms = _SHAPE_SETS[name]()
-    init = ms.init_points(torch.Generator())
+    init = ms.init_points(randoms.key(0))
     cfg = EngineConfig(seed=3, stage1_adapt=rule)
     before = (fused_stage1.segment.launches, fused_stage1.sweep.launches)
     a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 300, C, init, cuda)
@@ -225,7 +225,7 @@ def test_shape_sets_cover_every_instantiation():
 
 def _stage1_state(ms, C, dev, scale):
     K, D = ms.nmodels, ms.dmax
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     theta = init[torch.arange(K * C) // C].T.contiguous().to(dev)
     mask = torch.arange(D)[None] < torch.as_tensor(ms.dims)[:, None]
     return theta, (scale * mask).float().to(dev)
@@ -282,7 +282,7 @@ def _start_proposal(ms, L=2):
     """A two-component proposal around each model's start point, scale
     0.5 on its own coordinates."""
     K, D = ms.nmodels, ms.dmax
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     dm = torch.arange(D)[None, None] < torch.as_tensor(ms.dims)[:, None, None]
     mu = (init[:, None, :] + torch.tensor([0.1, -0.1])[None, :, None]) * dm
     B = torch.where(dm[..., None] & dm[..., None, :],
@@ -309,7 +309,7 @@ def test_sweep_kernel_matches_twin_at_every_shape(cuda, name, dof, perm):
     tabs = type(tabs)(**{f: getattr(tabs, f).to(cuda)
                          for f in tabs.__dataclass_fields__})
     S = 2048
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     k = torch.as_tensor(np.random.default_rng(1).integers(0, K, S),
                         dtype=torch.int32)
     theta = init[k.long()].T.contiguous()
@@ -424,7 +424,7 @@ def _start_state(ms, dev, S, seed=0, sweep=5):
     tabs = fused.prep_tables(_start_proposal(ms), ms.dims)
     tabs = type(tabs)(**{f: getattr(tabs, f).to(dev)
                          for f in tabs.__dataclass_fields__})
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     k = torch.as_tensor(np.random.default_rng(seed).integers(0, K, S),
                         dtype=torch.int32)
     theta = init[k.long()]
@@ -773,7 +773,7 @@ def _scaled_state(ms, scale, dev, S, L, seed, sweep):
     per-coordinate scales ``scale`` [K, D]; pk uniform."""
     K, D = ms.nmodels, ms.dmax
     rng = np.random.default_rng(seed)
-    init = ms.init_points(torch.Generator().manual_seed(0)).numpy()
+    init = ms.init_points(randoms.key(0)).numpy()
     dm = np.arange(D)[None] < ms.dims[:, None]                  # [K, D]
     scale = scale * dm
     mu = (init[:, None] + 0.3 * scale[:, None]
@@ -1041,7 +1041,7 @@ def test_changepoint_sweep_runner_log_rule_matches_twin(cuda):
     twin on the card: sig, samples, telemetry and logp bitwise equal."""
     ms = changepoint.cpt_set()
     cfg = EngineConfig(seed=5, stage1_adapt="log")
-    init = ms.init_points(torch.Generator())
+    init = ms.init_points(randoms.key(0))
     before = fused_stage1.sweep.launches
     a = fused_stage1.run_fused_stage1_sweeps(ms, cfg, 30, 1024, init, cuda)
     assert fused_stage1.sweep.launches == before + 33
@@ -1623,7 +1623,7 @@ def test_k3_update_in_launch_matches_twin_runner(cuda, name, C, nsweeps,
     ms = _SHAPE_SETS[name]()
     cfg = EngineConfig(seed=3, stage1_adapt=rule)
     assert _k3_block_sweeps(ms, cfg, nsweeps, C)
-    init = ms.init_points(torch.Generator())
+    init = ms.init_points(randoms.key(0))
     n = nsweeps * 11 // 10
     before = fused_stage1.sweep.launches
     got = fused_stage1.run_fused_stage1_sweeps(ms, cfg, nsweeps, C, init,
@@ -1778,7 +1778,7 @@ def test_toy_sweep_kernel_forms_match_twin_exactly(cuda, name, perm, dof,
     tabs = type(tabs)(**{f: getattr(tabs, f).to(cuda)
                          for f in tabs.__dataclass_fields__})
     S = 4096
-    init = ms.init_points(torch.Generator().manual_seed(0))
+    init = ms.init_points(randoms.key(0))
     k = torch.as_tensor(np.random.default_rng(2).integers(0, K, S),
                         dtype=torch.int32)
     theta = init[k.long()].T.contiguous()

@@ -22,6 +22,7 @@ from automix_tpu_torch import AMSampler, EngineConfig
 from automix_tpu_torch.kernels import _build, fused
 from automix_tpu_torch.model import ModelSet
 from automix_tpu_torch.models import ddi, ddi_stats
+from automix_tpu_torch.ops import randoms
 from automix_tpu_torch.state import Proposal
 from _torch_threads import one_torch_thread  # noqa: F401
 
@@ -231,7 +232,7 @@ def _proposal(L=2, seed=0):
     ms = ddi.ddi_set()
     K, D = 2, 16
     rng = np.random.default_rng(seed)
-    init = ms.init_points(torch.Generator()).numpy()
+    init = ms.init_points(randoms.key(0)).numpy()
     dm = np.arange(D)[None] < ms.dims[:, None]
     scale = np.where(np.arange(D) == 15, 5.0, 0.1)[None].repeat(K, 0)
     scale[1, 9] = 5.0
@@ -257,7 +258,7 @@ def test_twin_carries_the_cache():
     (automix_tpu/models/ddi_cols.py:29-32) but not exact."""
     ms = ddi.ddi_set()
     S = 64
-    init = ms.init_points(torch.Generator())
+    init = ms.init_points(randoms.key(0))
     k = torch.as_tensor(np.random.default_rng(1).integers(0, 2, S),
                         dtype=torch.int32)
     theta = init[k.long()].T.contiguous()

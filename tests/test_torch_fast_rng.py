@@ -203,8 +203,7 @@ def test_k4_choose_block_and_resolve_rng():
     assert sweep_rng.resolve_rng(EngineConfig(student_t_dof=4)) == "threefry"
     assert sweep_rng.resolve_rng(EngineConfig(rng="pallas")) == "pallas"
     assert sweep_rng.resolve_rng(EngineConfig(rng="fast")) == "fast"
-    with pytest.raises(NotImplementedError):
-        EngineConfig(rng="threefry")
+    assert sweep_rng.resolve_rng(EngineConfig(rng="threefry")) == "threefry"
     with pytest.raises(ValueError):
         EngineConfig(rng="pallas", student_t_dof=3)
 

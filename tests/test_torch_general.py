@@ -3,8 +3,9 @@
 Stage 3: a few sweeps of ``kernels/rjmcmc.py``'s chunk runner against
 JAX's ``build_chunk_runner`` (``fused="off"``, ``rng="fast"``) from the same
 converted chains and proposal.  Stage 1: the general scan against JAX's
-XLA scan (``fused_stage1="off"``), statistically (the port draws its
-stage-1 words from the counter hash, JAX from threefry).  And the engine
+XLA scan (``fused_stage1="off"``), statistically (its words are JAX's
+threefry words, and tests/test_torch_threefry.py holds a few sweeps of
+it to JAX's scan from one key).  And the engine
 rule of ``AMSampler``: which engine serves which set, and its log line."""
 
 import logging
@@ -25,6 +26,7 @@ from automix_tpu_torch.convert import chains_from_arrays, proposal_from_arrays
 from automix_tpu_torch.kernels import fused, fused_stage1, rjmcmc, rwm
 from automix_tpu_torch.kernels import sweep_rng
 from automix_tpu_torch.models import toy, tutorial
+from automix_tpu_torch.ops import randoms
 from _torch_threads import one_torch_thread  # noqa: F401
 
 S = 1024
@@ -132,7 +134,7 @@ def test_collected_traces_follow_the_chains():
     ms, _ = _sets("toy2")
     cfg = EngineConfig(seed=1, n_chains=64, fused="off", n_trace_chains=4)
     prop = proposal_from_arrays(_proposal("toy2"))
-    chains = rjmcmc.init_chains(ms, cfg, torch.Generator().manual_seed(0),
+    chains = rjmcmc.init_chains(ms, cfg, randoms.key(0),
                                 "cpu")
     run = rjmcmc.build_chunk_runner(ms, cfg, burning=False, collect=True)
     out, chunk = run(chains, prop, 6)
@@ -160,7 +162,7 @@ def test_stage1_scan_matches_jax_statistically(name, rule):
                        n_chains_stage1=C, stage1_target_samples=1024)
     jcfg = JaxConfig(seed=3, fused_stage1="off", stage1_adapt=rule,
                      n_chains_stage1=C, stage1_target_samples=1024)
-    sig, samples, tele = rwm.run_stage1(ms, cfg, torch.Generator(), nsw,
+    sig, samples, tele = rwm.run_stage1(ms, cfg, randoms.key(0), nsw,
                                         "cpu")
     jsig, jsamples, _ = jrwm.run_stage1(jms, jcfg, jax.random.PRNGKey(3),
                                         nsw)
@@ -249,17 +251,22 @@ def test_fused_on_raises_for_a_set_the_kernels_cannot_serve():
 
 
 def test_student_t_and_threefry_raise_on_the_general_engine():
-    """JAX sends Student-t runs on its XLA engine to threefry, which is
-    not ported: the general engine raises for them; the kernels keep
-    running Student-t."""
+    """JAX sends Student-t runs on its XLA engine to threefry, and so does
+    the port: the general engine builds both stages' runs for them
+    (tests/test_torch_threefry.py holds their words and sweeps to JAX's).
+    What raises is what raises in JAX: a Gaussian-only stream asked for
+    a Student-t run.  The kernels keep running Student-t."""
     ms = _per_theta(toy.toy2_set())
     cfg = EngineConfig(student_t_dof=5)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        rjmcmc.build_chunk_runner(ms, cfg, burning=True, collect=False)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        rwm.run_stage1(ms, cfg, torch.Generator(), 10, "cpu")
-    with pytest.raises(NotImplementedError):
-        EngineConfig(rng="threefry")
+    assert sweep_rng.resolve_rng(cfg) == "threefry"
+    rjmcmc.build_chunk_runner(ms, cfg, burning=True, collect=False)
+    sig, _, _ = rwm.run_stage1(ms, cfg, randoms.key(0), 10, "cpu",
+                               n_chains_per_model=8)
+    assert bool(torch.isfinite(sig).all())
+    for rng in ("fast", "pallas"):
+        with pytest.raises(ValueError, match="student_t_dof"):
+            EngineConfig(rng=rng, student_t_dof=5)
+    assert EngineConfig(rng="threefry").rng == "threefry"
     assert fused.eligible(toy.toy2_set(), cfg, 4, "cpu")[0]
 
 

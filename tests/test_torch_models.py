@@ -9,6 +9,7 @@ from automix_tpu.kernels.fused import make_logpost_cols
 from automix_tpu.models import tutorial as jtutorial
 from automix_tpu.ops.plmath import pal_gammaln as jax_gammaln
 from automix_tpu_torch.models import tutorial
+from automix_tpu_torch.ops import randoms
 from automix_tpu_torch.ops.plmath import pal_gammaln
 from _torch_threads import one_torch_thread  # noqa: F401
 
@@ -64,7 +65,7 @@ def test_tutorial_constants_match():
     ms = tutorial.tutorial_set()
     assert [m.dim for m in ms.models] == [2, 2, 2]
     np.testing.assert_array_equal(
-        ms.init_points(torch.Generator()).numpy(),
+        ms.init_points(randoms.key(0)).numpy(),
         np.asarray(jtutorial.tutorial_set().init_points(None)))
 
 

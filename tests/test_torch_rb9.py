@@ -13,6 +13,7 @@ from automix_tpu.kernels.fused import make_logpost_cols
 from automix_tpu.models import rb9 as jrb9
 from automix_tpu_torch.model import N_DENSITY_CONSTS
 from automix_tpu_torch.models import rb9
+from automix_tpu_torch.ops import randoms
 from _torch_threads import one_torch_thread  # noqa: F401
 
 _ORACLE = os.path.join(os.path.dirname(__file__), "data",
@@ -90,7 +91,7 @@ def test_models_match_jax_structure():
     jms, ms = jrb9.rb9_set(), rb9.rb9_set()
     assert list(ms.dims) == list(jms.dims)
     np.testing.assert_array_equal(
-        ms.init_points(torch.Generator()).numpy(),
+        ms.init_points(randoms.key(0)).numpy(),
         np.asarray(jms.init_points(None)))
     np.testing.assert_array_equal(rb9.X_DATA, jrb9.X_DATA)
     k, th = _states(5, 512)

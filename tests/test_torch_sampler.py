@@ -111,15 +111,23 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("knob", [dict(student_t_dof=3, within_move="hmc"),
-                                  dict(within_move="hmc"),
-                                  dict(mix_fit="autorj", within_move="hmc"),
-                                  dict(stage1_adapt="log", within_move="hmc"),
+                                  dict(within_move="nuts"),
+                                  dict(mix_fit="autorj", within_move="hmc",
+                                       student_t_dof=1),
+                                  dict(stage1_adapt="log", within_move="hmc",
+                                       rng="bogus"),
                                   dict(dtype=torch.float64)])
 def test_unported_knobs_raise(knob):
-    """HMC and float64 are not ported: each raises, alone or beside a
-    ported knob (the log stage-1 rule among them)."""
-    with pytest.raises(NotImplementedError):
+    """What JAX's EngineConfig rejects raises ValueError in the port too
+    (HMC with Student-t perturbations, an unknown move or stream, alone or
+    beside ported knobs, the log stage-1 rule among them); float64, which
+    the port does not run, raises NotImplementedError."""
+    err = NotImplementedError if "dtype" in knob else ValueError
+    with pytest.raises(err):
         EngineConfig(**knob)
+    if err is ValueError:
+        with pytest.raises(ValueError):
+            JaxConfig(**knob)
 
 
 @pytest.mark.parametrize("knob", [dict(perm=True), dict(student_t_dof=3),
@@ -130,7 +138,15 @@ def test_unported_knobs_raise(knob):
                                   dict(trace_every=4, pk_mode="pooled"),
                                   dict(stage1_adapt="log"),
                                   dict(stage1_adapt="log",
-                                       stage1_log_gain=1.5)])
+                                       stage1_log_gain=1.5),
+                                  dict(rng="threefry"),
+                                  dict(rng="threefry", student_t_dof=5),
+                                  dict(within_move="hmc", hmc_steps=3,
+                                       hmc_jitter=False),
+                                  dict(within_move="hmc",
+                                       hmc_step_scale=(0.1, 0.3),
+                                       hmc_autotune=False,
+                                       hmc_target_accept=0.8)])
 def test_ported_knobs_accepted(knob):
     cfg = EngineConfig(**knob)
     for name, value in knob.items():

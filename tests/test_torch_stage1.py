@@ -95,7 +95,7 @@ def test_segment_ref_from_jax_state_is_segment_invariant():
 def test_run_stage1_telemetry():
     cfg = dataclasses.replace(EngineConfig(seed=1), n_chains_stage1=32)
     sig, samples, tele = rwm.run_stage1(tutorial.tutorial_set(), cfg,
-                                        torch.Generator(), 100, "cpu")
+                                        randoms.key(0), 100, "cpu")
     assert sig.shape == (3, 2) and tele["nsweeps"] == 110
     assert samples.shape[0] == 3 and samples.shape[2] == 2
     acc = tele["accept_trace"].numpy()
@@ -195,7 +195,7 @@ def test_sweep_ref_update_mode_matches_moves_and_pooled_update(rule):
     from the start, block moves after sweep 4)."""
     ms = toy.toy2_set()
     K, D, Cn = ms.nmodels, ms.dmax, 64
-    theta = ms.init_points(torch.Generator()).repeat_interleave(Cn, 0).T
+    theta = ms.init_points(randoms.key(0)).repeat_interleave(Cn, 0).T
     theta = theta.contiguous()
     sig = torch.where(torch.arange(D)[None] < torch.tensor(ms.dims)[:, None],
                       2.0, 0.0)
@@ -251,6 +251,6 @@ def test_stage1_cpu_path_runs_the_twins():
         is fused_stage1.run_fused_stage1
     before = (fused_stage1.segment.launches, fused_stage1.sweep.launches)
     cfg = dataclasses.replace(cfg, n_chains_stage1=16)
-    rwm.run_stage1(toy.toy2_set(), cfg, torch.Generator(), 20, "cpu")
+    rwm.run_stage1(toy.toy2_set(), cfg, randoms.key(0), 20, "cpu")
     assert (fused_stage1.segment.launches,
             fused_stage1.sweep.launches) == before

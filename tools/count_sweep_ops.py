@@ -6,7 +6,10 @@ operation count more than the chain count.  This script counts, with a
 ``TorchDispatchMode``, the operations of one stage-3 sweep of the
 tutorial (column densities), toy2 (column densities) and toy2 with
 per-theta densities, and of the ``fast`` stream's draw alone, at 256
-chains (the count does not depend on it).
+chains (the count does not depend on it).  Then the same for one
+Student-t(5) sweep of toy2 per-theta on the threefry stream at the card
+run's 16384 chains, where it does: the gamma's masked loop runs until
+the last of the chains' draws accepts, and the script prints its rounds.
 
     python3 tools/count_sweep_ops.py
 """
@@ -56,7 +59,7 @@ def main():
                      ("toy2", toy.toy2_set()),
                      ("toy2 per-theta", per_theta)):
         cfg = EngineConfig(n_chains=256, fused="off", seed=1)
-        chains = rjmcmc.init_chains(ms, cfg, torch.Generator(), "cpu")
+        chains = rjmcmc.init_chains(ms, cfg, randoms.key(0), "cpu")
         chains.sweep = 3              # a componentwise sweep
         prop = proposal(ms)
         tables = rjmcmc.precompute_tables(prop, np.asarray(ms.dims))
@@ -72,6 +75,37 @@ def main():
               f"{sum(draw.ops.values())} of them the fast draw, "
               f"{sum(dens.ops.values())} per logpost_batch of every "
               f"model; most frequent {total.ops.most_common(5)}")
+
+    # Student-t(5) on threefry: the gamma's outer rounds counted by its
+    # uniform U, drawn once a round
+    cfg = EngineConfig(n_chains=16_384, fused="off", seed=1,
+                       student_t_dof=5)
+    chains = rjmcmc.init_chains(per_theta, cfg, randoms.key(0), "cpu")
+    chains.sweep = 3
+    prop = proposal(per_theta)
+    tables = rjmcmc.precompute_tables(prop, np.asarray(per_theta.dims))
+    sweep = rjmcmc.build_sweep_all(per_theta, cfg, False, "threefry")
+    rounds = []
+    gamma_one, u_of_bits = randoms._gamma_one, randoms.uniform_of_bits
+
+    def counted_gamma(keys, alpha):
+        rounds.append(0)
+        return gamma_one(keys, alpha)
+
+    def counted_u(bits, *args):
+        if rounds:
+            rounds[-1] += 1
+        return u_of_bits(bits, *args)
+
+    randoms._gamma_one, randoms.uniform_of_bits = counted_gamma, counted_u
+    try:
+        with Count() as total:
+            sweep(chains, prop, tables)
+    finally:
+        randoms._gamma_one, randoms.uniform_of_bits = gamma_one, u_of_bits
+    print(f"toy2 per-theta, Student-t(5), threefry, 16384 chains: "
+          f"{sum(total.ops.values())} operations per sweep; the gamma's "
+          f"rounds {rounds} ({sum(rounds)} in all)")
 
 
 if __name__ == "__main__":

@@ -470,6 +470,7 @@ def k3_part(dev):
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
+    from automix_tpu_torch.ops import randoms
     has_update = "nacc" in inspect.signature(fused_stage1.sweep).parameters
     out = {}
     for name, setname, C in K3_POPULATIONS:
@@ -493,7 +494,7 @@ def k3_part(dev):
         for form, one in forms.items():
             out[f"{at} kernel ms, {form}, from Python"] = cs.cuda_ms(one, 200)
             out[f"{at} kernel ms, {form}, graph"] = cs.graph_ms(one, 100)
-        init = ms.init_points(torch.Generator().manual_seed(0))
+        init = ms.init_points(randoms.key(0))
         cfg = EngineConfig(seed=0)
         fused_stage1.run_fused_stage1_sweeps(ms, cfg, 20, C, init, dev)
         for turn in range(2):
@@ -591,12 +592,13 @@ def stage1_part(dev):
     import torch
     from automix_tpu_torch import EngineConfig
     from automix_tpu_torch.kernels import fused_stage1
+    from automix_tpu_torch.ops import randoms
     out = {}
     for name, setname, C, nsweeps, rule in STAGE1_PATHS:
         ms = model_set(setname)
         cfg = EngineConfig(seed=0, n_chains_stage1=C, stage1_sweeps=nsweeps,
                            stage1_adapt=rule)
-        init = ms.init_points(torch.Generator().manual_seed(0))
+        init = ms.init_points(randoms.key(0))
         routes = [("K3", fused_stage1.run_fused_stage1_sweeps)]
         if ms.nmodels * C <= fused_stage1.segment_capacity(ms, dev):
             routes.insert(0, ("K2", fused_stage1.run_fused_stage1))
@@ -621,6 +623,7 @@ def main():
     from automix_tpu_torch.models import changepoint, ddi
     from automix_tpu_torch.models.rb9 import rb9_set
     from automix_tpu_torch.models.tutorial import tutorial_set
+    from automix_tpu_torch.ops import randoms
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", required=True)
     ap.add_argument("--parts", default=",".join(PARTS))
@@ -756,7 +759,7 @@ def main():
             lambda: fused_stage1.segment(
                 cpt, theta, sig, zi, zi, C=cs.CPT_C_K2, sweep0=0, seed=777,
                 nburn=50, n_active=100, rule="log", log_gain=3.0), 10)
-        init = cpt.init_points(torch.Generator())
+        init = cpt.init_points(randoms.key(0))
         n = cs.CPT_ROUTE_SWEEPS + cs.CPT_ROUTE_SWEEPS // 10
         out["ms"]["cpt K3 + log route 6 x 1024, per sweep"] = cs.cuda_ms(
             lambda: fused_stage1.run_fused_stage1_sweeps(
