@@ -9,10 +9,17 @@
 // drives it is run_fused_stage1_sweeps there.
 //
 // One launch runs global sweep ``t`` for all N = K*C stage-1 chains (lane
-// i belongs to model i / C), one thread per chain.  A chain draws 3*D hash
-// words at counters i * 3D + slot, so its words equal the segment kernel's
-// for the same sweep.  On the first sweep of a segment (``seg_start``)
-// logp is recomputed from theta, as the segment kernel does at its start.
+// i belongs to model m = i / C, at position pos = i - m * C among its
+// model's chains), one thread per chain.  The chain base: a chain draws
+// 3*D hash words at counters (m * C_total + chain_off + pos) * 3D + slot,
+// the words of global chain m * C_total + chain_off + pos, as JAX's
+// gchain (fused_stage1.py:332-342).  A launch over the whole population
+// (C_total = C, chain_off 0) draws at i * 3D + slot, the segment kernel's
+// words for the same sweep; the launches of the ranks of a population
+// split across devices (C chains of each model from position chain_off
+// of C_total) draw what that one launch draws.  On the first sweep of a
+// segment (``seg_start``) logp is recomputed from theta, as the segment
+// kernel does at its start.
 // The moves are the segment kernel's (fused_stage1.cu): the componentwise
 // coordinates at run time, theta's entries by compare, so the code holds
 // one copy of the density, and at DDI's shape the density reads a shared
@@ -92,8 +99,9 @@ __device__ __forceinline__ float logpost(int kind, const float* c, int dim,
 
 template <int K, int D, bool kT>
 __global__ void __launch_bounds__(kMaxThreads) fused_stage1_sweep_kernel(
-    int N, int C, int t, uint32_t seed, int nburn, int seg_start, AmT tc,
-    int rule, float log_gain, const int* __restrict__ kinds_g,
+    int N, int C, int C_total, int chain_off, int t, uint32_t seed,
+    int nburn, int seg_start, AmT tc, int rule, float log_gain,
+    const int* __restrict__ kinds_g,
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,
     const float* __restrict__ th_in, const float* __restrict__ lp_in,
     float* sig_g, int* nacc_g, int* ntry_g, float* __restrict__ th_out,
@@ -137,7 +145,9 @@ __global__ void __launch_bounds__(kMaxThreads) fused_stage1_sweep_kernel(
   uint32_t accbits = 0;                             // bit j: coordinate j
   if (valid) {
     const AmSalts sa = am_sweep_salts(seed, (uint32_t)t);
-    const uint32_t cb = (uint32_t)i * (uint32_t)(3 * D);
+    const uint32_t gchain =
+        (uint32_t)(m * C_total + chain_off + (i - m * C));
+    const uint32_t cb = gchain * (uint32_t)(3 * D);
     float th[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) th[d] = th_in[(size_t)d * N + i];
@@ -252,8 +262,9 @@ int grid_of(int N, int* threads, int* blocks) {
 }
 
 template <int K, int D, bool kT>
-int launch_sweep(int N, int C, int t, unsigned int seed, int nburn,
-                 int seg_start, AmT tc, int rule, float log_gain,
+int launch_sweep(int N, int C, int C_total, int chain_off, int t,
+                 unsigned int seed, int nburn, int seg_start, AmT tc,
+                 int rule, float log_gain,
                  const void* kinds, const void* consts, const void* dims,
                  const void* th_in, const void* lp_in, void* sig, void* nacc,
                  void* ntry, void* th_out, void* lp_out, void* work,
@@ -262,7 +273,8 @@ int launch_sweep(int N, int C, int t, unsigned int seed, int nburn,
   const int rc = grid_of(N, &threads, &blocks);
   if (rc != 0) return rc;
   fused_stage1_sweep_kernel<K, D, kT><<<blocks, threads, 0, st>>>(
-      N, C, t, seed, nburn, seg_start, tc, rule, log_gain, (const int*)kinds,
+      N, C, C_total, chain_off, t, seed, nburn, seg_start, tc, rule,
+      log_gain, (const int*)kinds,
       (const float*)consts, (const int*)dims, (const float*)th_in,
       (const float*)lp_in, (float*)sig, (int*)nacc, (int*)ntry,
       (float*)th_out, (float*)lp_out, (int*)work);
@@ -280,15 +292,20 @@ int launch_sweep(int N, int C, int t, unsigned int seed, int nburn,
 // accept counts, and sig, nacc and ntry (may be null) are not written.
 // ``rule`` 0 (AAP) or 1 (log, gain ``log_gain``): ``work`` is a device
 // int[K*D + 1], zero before the launch and after it, and the launch
-// updates ``sig``, ``nacc`` and ``ntry`` [K, D] in place.
+// updates ``sig``, ``nacc`` and ``ntry`` [K, D] in place; it needs the
+// whole population (C_total = C, chain_off 0).  ``C_total`` and
+// ``chain_off``: the chain base (header note), C_total >= chain_off + C.
 extern "C" int AM_K3_SYMBOL(
-    int K, int D, int N, int C, int t, unsigned int seed, int nburn,
+    int K, int D, int N, int C, int C_total, int chain_off, int t,
+    unsigned int seed, int nburn,
     int seg_start, const float* tconsts, int rule, float log_gain,
     const void* kinds, const void* consts, const void* dims,
     const void* th_in, const void* lp_in, void* sig, void* nacc, void* ntry,
     void* th_out, void* lp_out, void* work, void* stream) {
   if (N < 1 || C < 1 || N != K * C || rule < -1 || rule > 1) return -1;
-  if (rule >= 0 && !(nacc && ntry)) return -1;
+  if (chain_off < 0 || C_total < chain_off + C) return -1;
+  if (rule >= 0 && !(nacc && ntry && C_total == C && chain_off == 0))
+    return -1;
   if ((tconsts != nullptr) != (AM_K3_T != 0)) return -1;
   AmT tc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (tconsts) tc = {tconsts[0], tconsts[1], tconsts[2], tconsts[3],
@@ -297,8 +314,9 @@ extern "C" int AM_K3_SYMBOL(
 #define AM_CASE(k, d)                                                        \
   if (K == k && D == d)                                                      \
     return launch_sweep<k, d, AM_K3_T != 0>(                                 \
-        N, C, t, seed, nburn, seg_start, tc, rule, log_gain, kinds, consts,  \
-        dims, th_in, lp_in, sig, nacc, ntry, th_out, lp_out, work, st);
+        N, C, C_total, chain_off, t, seed, nburn, seg_start, tc, rule,       \
+        log_gain, kinds, consts, dims, th_in, lp_in, sig, nacc, ntry,        \
+        th_out, lp_out, work, st);
   AM_SHAPES(AM_CASE)
 #undef AM_CASE
   return -1;

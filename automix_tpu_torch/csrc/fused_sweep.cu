@@ -21,6 +21,13 @@
 // AM_K1D_GRID_SYMBOL (below).  The plain PyTorch twin is
 // automix_tpu_torch/kernels/fused.py:sweep_chunk_ref.
 //
+// The chain base: the per-chain launcher takes ``chain0``, the global index
+// of its chain 0, and thread i keys its hash counters and its hw stream by
+// chain0 + i (the JAX _shard_index() * S_local, fused.py:900-905), so the
+// launches over the blocks of a population split across devices draw the
+// words one launch over the whole population draws.  K1c and K1d take a
+// whole population and keep the base 0.
+//
 // Layout: one thread per chain.  The chain's state (k, theta, logp, pk,
 // pkllim, nreinit) stays in registers for the whole chunk; device memory sees
 // one read and one write of the state per chunk.  The proposal tables
@@ -335,7 +342,7 @@ __device__ __forceinline__ float am_alloc(int m, const float (&x)[D], int dm,
 // The kernels' parameters, in the order of SweepArgs and coop_launch.
 #define AM_SWEEP_PARAMS                                                       \
     int S, int L, uint32_t seed, int sweep0, int n_sweeps, int adapt,         \
-    int rng, AmT tc,                                                          \
+    int rng, int chain0, AmT tc,                                              \
     int* __restrict__ ghist, float inv_S,                                     \
     const float* __restrict__ tab, const int* __restrict__ kinds_g,           \
     const float* __restrict__ consts_g, const int* __restrict__ dims_g,       \
@@ -371,7 +378,7 @@ fused_scan_kernel(AM_SWEEP_PARAMS) {
 struct SweepArgs {
   int S, L;
   unsigned int seed;
-  int sweep0, n_sweeps, adapt, rng;
+  int sweep0, n_sweeps, adapt, rng, chain0;
   AmT tc;
   int* ghist;
   float inv_S;
@@ -485,8 +492,8 @@ int max_l(int* L) {
 int coop_launch(const void* fn, SweepArgs a, int blocks, size_t smem,
                 cudaStream_t st) {
   void* args[] = {&a.S, &a.L, &a.seed, &a.sweep0, &a.n_sweeps, &a.adapt,
-                  &a.rng, &a.tc, &a.ghist, &a.inv_S, &a.tab, &a.kinds,
-                  &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
+                  &a.rng, &a.chain0, &a.tc, &a.ghist, &a.inv_S, &a.tab,
+                  &a.kinds, &a.consts, &a.dims, &a.k_in, &a.th_in, &a.lp_in,
                   &a.pk_in, &a.pkl_in, &a.nri_in, &a.k_out, &a.th_out,
                   &a.lp_out, &a.pk_out, &a.pkl_out, &a.nri_out, &a.ks_out,
                   &a.ts_out, &a.tq_out, &a.cnt_out};
@@ -512,7 +519,7 @@ int launch_sweep(SweepArgs a, cudaStream_t st) {
                        blocks, smem, st);
   }
   fused_sweep_kernel<K, D, false><<<blocks, kThreads, smem, st>>>(
-      a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.rng, a.tc,
+      a.S, a.L, a.seed, a.sweep0, a.n_sweeps, a.adapt, a.rng, a.chain0, a.tc,
       a.ghist, a.inv_S, a.tab, a.kinds, a.consts, a.dims, a.k_in, a.th_in,
       a.lp_in, a.pk_in, a.pkl_in, a.nri_in, a.k_out, a.th_out, a.lp_out,
       a.pk_out, a.pkl_out, a.nri_out, a.ks_out, a.ts_out, a.tq_out,
@@ -566,20 +573,25 @@ int dispatch(int K, int D, SweepArgs a, cudaStream_t st) {
 // follows from (K, D): at the cached shape (AM_DDI_K, AM_DDI_D) the kernel
 // evaluates the DDI density with its cache, elsewhere the stateless
 // densities of common.cuh.  ``rng`` is the stream, AM_RNG_HASH or AM_RNG_HW
-// (K1f).  ``tconsts`` is a host array of the five Student-t constants (AmT);
-// the Normal variants ignore it.
+// (K1f).  ``chain0`` is the global index of chain 0 of this launch (the
+// chain base): chain i draws the words of global chain chain0 + i, so a
+// rank holding chains chain0 ... chain0 + S - 1 of a population split
+// across devices draws what one launch over the whole population would
+// (0 for a whole population).  ``tconsts`` is a host array of the five
+// Student-t constants (AmT); the Normal variants ignore it.
 extern "C" int AM_K1_SYMBOL(
     int K, int D, int S, int L, unsigned int seed, int sweep0, int n_sweeps,
-    int adapt, int rng, const float* tconsts, const void* tab,
+    int adapt, int rng, int chain0, const float* tconsts, const void* tab,
     const void* kinds, const void* consts, const void* dims,
     const void* k_in, const void* th_in, const void* lp_in,
     const void* pk_in, const void* pkl_in, const void* nri_in, void* k_out,
     void* th_out, void* lp_out, void* pk_out, void* pkl_out, void* nri_out,
     void* ks_out, void* ts_out, void* tq_out, void* cnt_out, void* stream) {
-  if (L < 1 || L > kLMax || S < 1) return -1;
+  if (L < 1 || L > kLMax || S < 1 || chain0 < 0) return -1;
   if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
   if (kTdist && !tconsts) return -1;
-  SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, rng, t_consts(tconsts),
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, adapt, rng, chain0,
+                 t_consts(tconsts),
                  nullptr, 0.0f,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,
@@ -592,7 +604,8 @@ extern "C" int AM_K1_SYMBOL(
   return dispatch<false>(K, D, a, (cudaStream_t)stream);
 }
 
-// K1c: the same sweeps with pooled pk adaptation (adapt must be 1).
+// K1c: the same sweeps with pooled pk adaptation (adapt must be 1), over
+// a whole population (chain base 0): its update needs every chain.
 // ``ghist`` is a zeroed device int[3 * K], ``inv_S`` float32(1 / S).
 // Returns -2 when S exceeds the chains the card holds resident
 // (AM_K1C_CAP_SYMBOL).
@@ -607,7 +620,7 @@ extern "C" int AM_K1C_SYMBOL(
   if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
   if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
   if (kTdist && !tconsts) return -1;
-  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, t_consts(tconsts),
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, 0, t_consts(tconsts),
                  (int*)ghist, inv_S,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, (const int*)k_in,
@@ -672,7 +685,7 @@ extern "C" int AM_K1D_SYMBOL(
   if (L < 1 || L > kLMax || S < 1 || K < 2) return -1;
   if (rng != AM_RNG_HASH && rng != AM_RNG_HW) return -1;
   if (kTdist && !tconsts) return -1;
-  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, t_consts(tconsts),
+  SweepArgs a = {S, L, seed, sweep0, n_sweeps, 1, rng, 0, t_consts(tconsts),
                  (int*)ghist, inv_S,
                  (const float*)tab, (const int*)kinds, (const int*)dims,
                  (const float*)consts, nullptr, nullptr, nullptr,

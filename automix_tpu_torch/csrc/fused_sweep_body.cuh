@@ -126,8 +126,8 @@
 #if AM_SCAN_FORM
   uint64_t st = 0;
 #else
-  uint64_t st = am_stream_init(rng, seed, sweep0, (uint32_t)i,
-                               (uint32_t)i * (uint32_t)NW);
+  const uint32_t gi = (uint32_t)chain0 + (uint32_t)i;   // global chain
+  uint64_t st = am_stream_init(rng, seed, sweep0, gi, gi * (uint32_t)NW);
 #endif
   // RWM perturbation and latent filler of coordinate d this sweep
   auto z_rwm = [&](const AmWords& wd, int d) {

@@ -13,6 +13,13 @@ otherwise (another ``sweep_chunk``, or a resume inside a chunk) it draws
 other words.  A checkpoint without keys (written before the port carried
 them) gets keys made as ``init_chains`` makes them from the sampler's
 seed, and says so in a log line.  Written atomically.
+
+A sampler across devices (``AMSampler(mesh=)``) saves the whole run: the
+ranks' chains are gathered and the mesh's first rank writes them, the
+others waiting until the file is there; loading splits the chains over
+the loading sampler's mesh (JAX checkpoint.py:113-116).  So a checkpoint
+written on several devices resumes on one, and one written on one
+resumes on several, continuing the same trajectories.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from automix_tpu_torch.parallel import mesh as mesh_lib
 from automix_tpu_torch.state import Chains, Proposal, RunStats
 
 FORMAT_VERSION = 1
@@ -36,18 +44,24 @@ _STATS_ARRAYS = ("ksummary", "theta_sum", "theta_sqsum", "theta_count")
 
 
 def save_checkpoint(path: str, sampler) -> None:
-    """Serialize an AMSampler's resumable state to ``path`` (.npz)."""
+    """Serialize an AMSampler's resumable state to ``path`` (.npz).
+    Under a mesh every rank calls it (module note)."""
+    mesh = getattr(sampler, "mesh", None)
+    chains = (None if sampler.chains is None
+              else mesh_lib.gather_chains(sampler.chains, mesh))
+    if mesh is not None and mesh.rank != 0:
+        mesh_lib.barrier(mesh)
+        return
     arrays = {}
     meta = {"version": FORMAT_VERSION, "seed": sampler.cfg.seed,
             "nmodels": sampler.modelset.nmodels,
             "dmax": sampler.modelset.dmax}
-    if sampler.chains is not None:
+    if chains is not None:
         for f in _CHAIN_FIELDS:
-            arrays[f"chains.{f}"] = getattr(sampler.chains, f).cpu().numpy()
-        arrays["chains.sweep"] = np.asarray(sampler.chains.sweep)
-        if sampler.chains.key is not None:
-            arrays["chains.key"] = \
-                sampler.chains.key.cpu().numpy().astype(np.uint32)
+            arrays[f"chains.{f}"] = getattr(chains, f).cpu().numpy()
+        arrays["chains.sweep"] = np.asarray(chains.sweep)
+        if chains.key is not None:
+            arrays["chains.key"] = chains.key.cpu().numpy().astype(np.uint32)
     if sampler.proposal is not None:
         for f in _PROP_FIELDS:
             arrays[f"proposal.{f}"] = \
@@ -64,11 +78,13 @@ def save_checkpoint(path: str, sampler) -> None:
     with open(tmp, "wb") as fh:
         np.savez_compressed(fh, **arrays)
     os.replace(tmp, path)
+    mesh_lib.barrier(mesh)
 
 
 def load_checkpoint(path: str, sampler) -> None:
     """Restore state saved by :func:`save_checkpoint` into ``sampler``,
-    on the sampler's device, after checking the model-set shape."""
+    on the sampler's device, after checking the model-set shape; under
+    the sampler's mesh each rank keeps its block of the chains."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
         if meta["version"] != FORMAT_VERSION:
@@ -107,6 +123,9 @@ def load_checkpoint(path: str, sampler) -> None:
                              if f in ("k", "nreinit") else torch.float32)
                    for f in _CHAIN_FIELDS},
                 sweep=int(z["chains.sweep"]), key=key)
+            mesh = getattr(sampler, "mesh", None)
+            if mesh is not None:
+                sampler.chains = mesh_lib.shard_chains(sampler.chains, mesh)
         if "stats.ksummary" in z:
             st = RunStats(ms.nmodels, ms.dmax)
             for f in _STATS_ARRAYS:

@@ -127,7 +127,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _I, _P]
+    **{sweep_symbol(p, t): [_I, _I, _I, _I, _U, _I, _I, _I, _I, _I, _P]
        + [_P] * 4 + [_P] * 6 + [_P] * 6 + [_P] * 4 + [_P]
        for p in (0, 1) for t in (0, 1)},
     **{sweep_symbol(p, t, "pooled"): [_I, _I, _I, _I, _U, _I, _I, _I, _P]
@@ -144,8 +144,8 @@ _SIGNATURES = {
     **{stage1_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I, _F]
        + [_P] + [_P] * 3 + [_P] * 4 + [_P] * 5 + [_P] for t in (0, 1)},
     **{stage1_symbol(t, "cap"): [_I, _I, _P] for t in (0, 1)},
-    **{stage1_sweep_symbol(t): [_I, _I, _I, _I, _I, _U, _I, _I, _P, _I,
-                                _F] + [_P] * 3 + [_P] * 2 + [_P] * 3
+    **{stage1_sweep_symbol(t): [_I, _I, _I, _I, _I, _I, _I, _U, _I, _I,
+                                _P, _I, _F] + [_P] * 3 + [_P] * 2 + [_P] * 3
        + [_P] * 3 + [_P] for t in (0, 1)},
     **{stage1_sweep_symbol(t, "grid"): [_I, _P, _P] for t in (0, 1)},
     "am_sweep_rng": [_I, _I, _I, _I, _U, _U, _I, _P, _P, _P],

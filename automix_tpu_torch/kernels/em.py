@@ -11,6 +11,14 @@ The JAX ``lax.while_loop`` under ``vmap`` becomes a Python loop that runs
 while any model continues and keeps the old state of models that stopped.
 Deciding whether to go on reads one flag per iteration on the host: on
 the card that is one device-to-host sync per EM iteration.
+
+Across devices (``mesh=``) the sample axis stays split over the ranks, as
+stage 1 leaves it: every sample-axis sum (responsibility sums, weighted
+means and Gram matrices, the mixture log-likelihood) is summed across the
+ranks (JAX's ``psum`` points, em.py:79,186,195,197), and only the
+component seeding gathers the samples, so every rank starts from the same
+components and takes the same decisions.  The AutoRJ fit gathers its
+samples first.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from automix_tpu_torch.config import (EM_ANNIHILATION_THRESHOLD,
                                       EM_DEGENERATE_LOGSUM,
                                       EM_DEGENERATE_PENALTY, EngineConfig)
 from automix_tpu_torch.ops import linalg
+from automix_tpu_torch.parallel import mesh as mesh_lib
 from automix_tpu_torch.state import Proposal
 
 
@@ -31,8 +40,9 @@ def _renormalize(lam, alive):
     return lam / torch.clamp(lam.sum(-1, keepdim=True), min=1e-38)
 
 
-def _e_step(lam, alive, lpdata):
-    """Responsibilities w [K, N, L] and mixture log-likelihood lpn [K]."""
+def _e_step(lam, alive, lpdata, psum=lambda x: x):
+    """Responsibilities w [K, N, L] and mixture log-likelihood lpn [K]
+    (``psum`` sums it over the ranks holding the samples)."""
     alive_f = alive.to(lpdata.dtype)
     n_alive = torch.clamp(alive_f.sum(-1), min=1.0)
     loglam = torch.where(alive, torch.log(torch.clamp(lam, min=1e-38)),
@@ -44,7 +54,8 @@ def _e_step(lam, alive, lpdata):
     softmax = torch.exp(logw - shift[..., None]) * alive_f[:, None, :]
     uniform = (alive_f / n_alive[:, None])[:, None, :]
     w = torch.where(degenerate[..., None], uniform, softmax)
-    lpn = torch.where(degenerate, EM_DEGENERATE_PENALTY, logsum).sum(-1)
+    lpn = psum(torch.where(degenerate, EM_DEGENERATE_PENALTY,
+                           logsum).sum(-1))
     return w, lpn
 
 
@@ -82,14 +93,23 @@ def _pad_l(x, fill, lmax: int):
 
 
 def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
-                   generator: torch.Generator = None, seed_idx=None):
+                   generator: torch.Generator = None, seed_idx=None,
+                   mesh=None):
     """Fit every model's mixture.  ``samples`` [K, N, D] padded, ``dims``
     [K] int tensor.  Seeding indices come from ``generator`` (N distinct
     samples per model, tiled to lmax) unless ``seed_idx`` [K, lmax] is
     given.  Returns dict with lam, mu, B [K, lmax, ...], alive, nmix,
-    iters and the per-iteration telemetry."""
-    K, N, D = samples.shape
+    iters and the per-iteration telemetry.  Under a ``mesh`` ``samples``
+    is this rank's block of the sample axis (module note); the seeding
+    indices index the gathered [K, N_total, D], and every rank's
+    generator must be in the same state."""
     dev, dtype = samples.device, samples.dtype
+
+    def psum(x):
+        return mesh_lib.all_reduce_sum(x, mesh)
+
+    samples_g = mesh_lib.all_gather(samples, mesh, dim=1)
+    K, N, D = samples_g.shape
     dims = dims.to(dev)
     dimf = dims.to(dtype)
     nparams = dimf + dimf * (dimf + 1.0) / 2.0                  # [K]
@@ -106,15 +126,17 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
         reps = -(-lmax // n_pick)
         seed_idx = idx.repeat(1, reps)[:, :lmax]
     seed_idx = torch.as_tensor(seed_idx, dtype=torch.int64).to(dev)
-    mu0 = torch.gather(samples, 1, seed_idx[..., None].expand(K, lmax, D))
-    var = samples.var(dim=1, unbiased=False) * coord_mask        # [K, D]
+    mu0 = torch.gather(samples_g, 1,
+                       seed_idx[..., None].expand(K, lmax, D))
+    var = samples_g.var(dim=1, unbiased=False) * coord_mask      # [K, D]
+    del samples_g
     sigma = var.sum(-1) / (10.0 * dimf)
     diag0 = torch.where(coord_mask > 0, torch.sqrt(sigma)[:, None], 1.0)
     B0 = torch.diag_embed(diag0)[:, None].expand(K, lmax, D, D).clone()
     alive0 = (torch.arange(lmax, device=dev) < l_init).expand(K, lmax)
     lam0 = torch.where(alive0, 1.0 / l_init, 0.0).to(dtype)
     lpdata0 = _lnormprob_slots(samples, mu0, B0, dims)
-    w0, lpn0 = _e_step(lam0, alive0, lpdata0)
+    w0, lpn0 = _e_step(lam0, alive0, lpdata0, psum)
 
     zk_i = torch.zeros(K, dtype=torch.int32, device=dev)
     zk_f = torch.zeros(K, dtype=dtype, device=dev)
@@ -140,7 +162,7 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
         Updates the iteration's own copies of mu, B, lpdata in place."""
         lam, alive, w = st["lam"], st["alive"], st["w"]
         process = alive[:, l1]
-        sumw = w.sum(1)                                          # [K, L]
+        sumw = psum(w.sum(1))                                    # [K, L]
         wnew = torch.clamp(sumw - nparams[:, None] / 2.0, min=0.0) \
             * alive.to(dtype)
         lam_upd = lam.clone()
@@ -151,10 +173,11 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
         # refit component l1
         wl = w[:, :, l1]                                         # [K, N]
         sw = torch.clamp(sumw[:, l1], min=1e-38)
-        mean = torch.einsum("kn,knd->kd", wl, samples) / sw[:, None] \
-            * coord_mask
+        mean = psum(torch.einsum("kn,knd->kd", wl, samples)) \
+            / sw[:, None] * coord_mask
         xc = (samples - mean[:, None]) * coord_mask[:, None]
-        cov = torch.einsum("kn,kni,knj->kij", wl, xc, xc) / sw[:, None, None]
+        cov = psum(torch.einsum("kn,kni,knj->kij", wl, xc, xc)) \
+            / sw[:, None, None]
         cov = torch.where(torch.isfinite(cov), cov, eye)
         B_l1 = linalg.chol(cov, dims, jitter=1e-6)
         B_l1 = torch.where(torch.isfinite(B_l1), B_l1, eye)
@@ -178,7 +201,7 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
         mu[:, l1] = _where_k(upd_keep, mean, mu[:, l1])
         B[:, l1] = _where_k(upd_keep, B_l1, B[:, l1])
         lpdata[:, :, l1] = _where_k(upd_keep, lp_l1, lpdata[:, :, l1])
-        w, lpn = _e_step(lam, alive, lpdata)
+        w, lpn = _e_step(lam, alive, lpdata, psum)
         return dict(st, lam=lam, alive=alive, w=w,
                     Lkk=st["Lkk"] - upd_ann.to(torch.int32),
                     lpn=lpn, natann=st["natann"] | upd_ann)
@@ -225,7 +248,7 @@ def fit_figueiredo(samples, dims, lmax: int, max_iters: int,
         lam_d[ar_k, ldel] = 0.0
         lam_f = _where_k(force, _renormalize(lam_d, alive_f), st["lam"])
         Lkk_f = st["Lkk"] - force.to(torch.int32)
-        w_f, lpn_f = _e_step(lam_f, alive_f, st["lpdata"])
+        w_f, lpn_f = _e_step(lam_f, alive_f, st["lpdata"], psum)
         cost_f = _mml_cost(lam_f, alive_f, Lkk_f, lpn_f, nparams, N)
         lam = _where_k(force, lam_f, st["lam"])
         alive = _where_k(force, alive_f, st["alive"])
@@ -310,18 +333,23 @@ def fit_autorj(samples, dims):
 
 
 def fit_proposal(modelset, cfg: EngineConfig, samples, sig,
-                 generator: torch.Generator = None, seed_idx=None):
+                 generator: torch.Generator = None, seed_idx=None,
+                 mesh=None):
     """Fit every model's proposal: ``samples`` [K, C, D] stage-1 output,
     ``sig`` [K, D] adapted scales.  ``cfg.mix_fit`` selects the
     Figueiredo-Jain mixture or the AutoRJ single Normal.  Returns
     (Proposal trimmed to the largest live mixture, telemetry dict; the
-    AutoRJ fit has no telemetry)."""
+    AutoRJ fit has no telemetry).  Under a ``mesh`` ``samples`` is this
+    rank's block of the sample axis (module note) and every rank gets
+    the same proposal."""
     K, _, D = samples.shape
     dev, dtype = samples.device, samples.dtype
     dims = torch.as_tensor(modelset.dims, device=dev)
     lmax = cfg.max_mix_comps
     if cfg.mix_fit == "autorj":
-        means, Bs = fit_autorj(samples, dims)
+        # a small input: gathered, then fitted alike on every rank
+        means, Bs = fit_autorj(mesh_lib.all_gather(samples, mesh, dim=1),
+                               dims)
         lam = torch.zeros((K, lmax), dtype=dtype, device=dev)
         lam[:, 0] = 1.0
         mu = torch.zeros((K, lmax, D), dtype=dtype, device=dev)
@@ -332,7 +360,8 @@ def fit_proposal(modelset, cfg: EngineConfig, samples, sig,
         telemetry = {}
     else:
         out = fit_figueiredo(samples, dims, lmax, cfg.max_em_iters,
-                             generator=generator, seed_idx=seed_idx)
+                             generator=generator, seed_idx=seed_idx,
+                             mesh=mesh)
         lam, mu, B, nmix = out["lam"], out["mu"], out["B"], out["nmix"]
         telemetry = {"em_iters": out["iters"], "em_trace": out["tele"]}
     logdetB = linalg.log_det_tri(B, dims[:, None])

@@ -52,11 +52,21 @@ memory, so their size bounds L: at the change-point shape (6, 13) on the
 H100 the wrappers refuse L > 27 before any launch (:func:`check_tables`
 asks the kernel's launcher).
 
-Chain i draws its hash words at counters i * NW + slot, which is the JAX
-kernel's chain_id for the flat chain index; its hw stream is keyed by i
-too, so neither depends on the launch geometry.  The slots follow the JAX
-layout: D RWM accepts, the RJ accept, L + K + L Gumbel words, then
-``s_perm = 2L + K + D + 1`` (D permutation keys with perm),
+Chain i draws its hash words at counters (chain0 + i) * NW + slot, which
+is the JAX kernel's chain_id for the flat global chain index; its hw
+stream is keyed by chain0 + i too, so neither depends on the launch
+geometry.  ``chain0``, the chain base, is 0 for a whole population and a
+rank's first global chain when the population is split across devices
+(``mesh=``, ``parallel/mesh.py``): the JAX ``_shard_index() * S_local``.
+Under a mesh the runner launches the per-chain kernel on its rank's
+chains and sums the chunk statistics across the ranks once a chunk (JAX
+``fused.py:907-930``); an adapting pooled run takes the one-sweep route
+with each sweep's histogram summed across the ranks before the shared
+update, as JAX sends every meshed pooled run to ``_compiled_pooled``.
+K1c and K1d need the whole population and are not run under a mesh.
+
+The slots follow the JAX layout: D RWM accepts, the RJ accept, L + K + L
+Gumbel words, then ``s_perm = 2L + K + D + 1`` (D permutation keys with perm),
 ``s_bm = s_perm + (D if perm else 0)`` and
 ``NW = s_bm + (4D if student_t_dof > 0 else 2D)``; with perm off and
 Normal draws that is NW = 3D + 1 + 2L + K.  The kernel layouts are
@@ -78,6 +88,7 @@ from automix_tpu_torch.config import EngineConfig, LOG_ACCEPT_CLAMP, NEG_INF
 from automix_tpu_torch.kernels import _build
 from automix_tpu_torch.model import make_density
 from automix_tpu_torch.ops import linalg, randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 from automix_tpu_torch.state import Chains, Proposal
 
 _LOG_2PI = 1.8378770664093453
@@ -211,13 +222,15 @@ def _gains(sweep0: int, n_sweeps: int, device) -> torch.Tensor:
 def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                     tables: SweepTables, *, seed: int, sweep0: int,
                     n_sweeps: int, adapt: bool, perm: bool = False,
-                    tdist=None, pooled: bool = False, rng: str = "hash"):
+                    tdist=None, pooled: bool = False, rng: str = "hash",
+                    chain0: int = 0):
     """Plain PyTorch twin of the sweep kernel: ``n_sweeps`` sweeps (global
     sweeps sweep0 ...) of every chain.  ``theta`` is [D, S] and ``pk``
     [K, S]; ``perm`` permutes the RJ latent and ``tdist`` (a
     ``randoms.StudentT``) selects Student-t perturbations.  ``rng`` is the
     word stream, "hash" or "hw" (seeded here from (seed, sweep0, chain)
-    and stepped once per sweep).  ``pooled``
+    and stepped once per sweep).  ``chain0`` is the chain base: chain i
+    draws global chain chain0 + i's words.  ``pooled``
     (K1c's twin) adapts pk from the population's visit histogram; every
     row of pk, pkllim and nreinit then stays equal.  Returns (k, theta,
     logp, pk, pkllim, nreinit, ksum [K, S], tsum [K*D, S], tqsum
@@ -230,7 +243,7 @@ def sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
     density = make_density(modelset)
     s_uacc, s_gall, s_gmod, s_gcmp, s_perm, s_bm, NW = word_slots(
         K, D, L, perm, tdist is not None)
-    chain = torch.arange(S, device=dev)
+    chain = torch.arange(chain0, chain0 + S, device=dev)
     if rng == "hw":
         stream = randoms.hw_state(seed, sweep0, chain)
     elif rng != "hash":
@@ -469,7 +482,7 @@ def check_tables(K: int, D: int, L: int, device, perm: bool = False,
             f"kernel holds at most L={fit} here (EngineConfig.max_mix_comps)")
 
 
-def eligible(modelset, cfg: EngineConfig, L: int, device):
+def eligible(modelset, cfg: EngineConfig, L: int, device, mesh=None):
     """(True, why) when the stage-3 kernels serve the model set at
     proposal size L on ``device``, else (False, why not); the counterpart
     of JAX's ``fused_eligible``.  The kernels serve it when ``fused`` is
@@ -477,8 +490,9 @@ def eligible(modelset, cfg: EngineConfig, L: int, device):
     engine, as on JAX's XLA engine), every model has a CUDA density, the kernels are
     instantiated at its (K, D) in the density's form (:func:`check_form`)
     and L is within what the sweep kernel's launcher holds there (on the
-    CPU, where the twins run, within kLMax).  ``fused="on"`` raises where
-    they do not serve it."""
+    CPU, where the twins run, within kLMax); under a ``mesh`` the ranks
+    must split ``cfg.n_chains`` evenly.  ``fused="on"`` raises where they
+    do not serve it."""
     K, D = modelset.nmodels, modelset.dmax
     missing = [m.name for m in modelset.models if m.cuda is None]
     ok = False
@@ -490,6 +504,9 @@ def eligible(modelset, cfg: EngineConfig, L: int, device):
         why = f"models {missing} have no CUDA density"
     elif (K, D) not in _build.SHAPES:
         why = f"no kernel instantiation at (K, D) = ({K}, {D})"
+    elif mesh is not None and cfg.n_chains % mesh.size:
+        why = (f"n_chains={cfg.n_chains} does not split evenly over the "
+               f"{mesh.size} ranks of the mesh")
     else:
         try:
             check_form(modelset)
@@ -548,10 +565,12 @@ def occupancy(modelset, L: int, device, perm: bool = False,
 def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
                 tables: SweepTables, *, seed: int, sweep0: int,
                 n_sweeps: int, adapt: bool, perm: bool = False,
-                tdist=None, pooled: bool = False, rng: str = "hash"):
+                tdist=None, pooled: bool = False, rng: str = "hash",
+                chain0: int = 0):
     """``n_sweeps`` stage-3 sweeps of every chain: the CUDA kernel for
     tensors on the card, its plain twin for tensors on the CPU.  Same
-    arguments and results as :func:`sweep_chunk_ref`.  ``pooled`` launches
+    arguments and results as :func:`sweep_chunk_ref`; ``chain0``, the
+    chain base, is the kernel's run-time argument.  ``pooled`` launches
     K1c, whose launcher refuses a population above :func:`pooled_capacity`
     (then this raises).  Launches count by stream: the per-chain kernel in
     ``sweep_chunk.launches`` (hash) and ``sweep_chunk.hw_launches`` (K1f),
@@ -561,13 +580,19 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     or launch raises, and nothing falls back to the twin."""
     if pooled and not (adapt and modelset.nmodels > 1):
         raise ValueError("sweep_chunk: pooled pk needs adapt and K > 1")
+    if pooled and chain0:
+        raise ValueError("sweep_chunk: pooled pk needs the whole population "
+                         "(chain0 = 0)")
     if rng not in RNG_STREAMS:
         raise ValueError(f"sweep_chunk: unknown rng {rng!r}")
+    if chain0 < 0:
+        raise ValueError(f"sweep_chunk: chain0={chain0} < 0")
     if k.device.type == "cpu":
         return sweep_chunk_ref(modelset, k, theta, logp, pk, pkllim, nreinit,
                                tables, seed=seed, sweep0=sweep0,
                                n_sweeps=n_sweeps, adapt=adapt, perm=perm,
-                               tdist=tdist, pooled=pooled, rng=rng)
+                               tdist=tdist, pooled=pooled, rng=rng,
+                               chain0=chain0)
     K, D = modelset.nmodels, modelset.dmax
     S = k.shape[0]
     L = tables.loglam.shape[1]
@@ -618,7 +643,7 @@ def sweep_chunk(modelset, k, theta, logp, pk, pkllim, nreinit,
     symbol = _build.sweep_symbol(perm, tdist is not None)
     status = getattr(_build.library(), symbol)(
         K, D, S, L, seed & 0xFFFFFFFF, sweep0, n_sweeps, int(adapt),
-        RNG_STREAMS[rng], _build.tconsts(tdist), *state)
+        RNG_STREAMS[rng], int(chain0), _build.tconsts(tdist), *state)
     _build.check(status, symbol)
     if rng == "hw":
         sweep_chunk.hw_launches += 1
@@ -654,7 +679,7 @@ def pooled_update(pk_vec, pkl, nri, hist, gamma, inv_s, inv_k):
 
 def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
                   *, seed: int, perm: bool = False, tdist=None,
-                  sweep_fn=None, rng: str = "hash"):
+                  sweep_fn=None, rng: str = "hash", mesh=None):
     """The one-sweep pooled route (the JAX ``_compiled_pooled`` as a host
     loop): each sweep one launch of the per-chain kernel with pk frozen
     (``sweep_fn``, :func:`sweep_chunk` by default), then
@@ -666,10 +691,16 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
     ``rng="hw"``, whose one-sweep launches reseed the stream every sweep).
     The runner takes K1d (:func:`pooled_scan`) instead; this route is what
     K1d is held to on the card, and with ``sweep_fn=sweep_chunk_ref`` it
-    is K1d's plain version on any device."""
+    is K1d's plain version on any device.  Under a ``mesh`` (the route of
+    every adapting pooled run across devices) ``chains`` are this rank's,
+    each launch takes the rank's chain base, each sweep's histogram is
+    summed across the ranks before the update (the JAX psum, fused.py:
+    1034-1036) and the float sums and counters once at the end."""
     sweep_fn = sweep_fn or sweep_chunk
     K, D = modelset.nmodels, modelset.dmax
-    S = chains.n_chains
+    S_local = chains.n_chains
+    S = S_local * (1 if mesh is None else mesh.size)
+    c0 = mesh_lib.chain0(mesh, S_local)
     dev = chains.k.device
     f32, i64 = torch.float32, torch.int64
     inv_s = torch.tensor(1.0 / S, dtype=f32, device=dev)
@@ -677,7 +708,7 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
     gains = _gains(chains.sweep, n_sweeps, dev)
     pk_vec = chains.pk[0].clone()
     pkl, nri = chains.pkllim[0].clone(), chains.nreinit[0].clone()
-    pk_in = pk_vec[:, None].expand(K, S).contiguous()
+    pk_in = pk_vec[:, None].expand(K, S_local).contiguous()
     k, th, lp = chains.k, chains.theta.T.contiguous(), chains.logp
     ks_a = torch.zeros(K, dtype=i64, device=dev)
     ts_a = torch.zeros(K * D, dtype=f32, device=dev)
@@ -687,21 +718,23 @@ def pooled_sweeps(modelset, chains: Chains, tables: SweepTables, n_sweeps,
         outs = sweep_fn(modelset, k, th, lp, pk_in, chains.pkllim,
                         chains.nreinit, tables, seed=seed,
                         sweep0=chains.sweep + tr, n_sweeps=1, adapt=False,
-                        perm=perm, tdist=tdist, rng=rng)
+                        perm=perm, tdist=tdist, rng=rng, chain0=c0)
         k, th, lp = outs[0], outs[1], outs[2]
-        hist = outs[6].sum(dim=1, dtype=i64)
+        hist = mesh_lib.all_reduce_sum(outs[6].sum(dim=1, dtype=i64), mesh)
         ks_a += hist
         ts_a += outs[7].sum(dim=1)
         tq_a += outs[8].sum(dim=1)
         cnt_a += outs[9].sum(dim=1, dtype=i64)
         pk_vec, pkl, nri = pooled_update(pk_vec, pkl, nri, hist, gains[tr],
                                          inv_s, inv_k)
-        pk_in.copy_(pk_vec[:, None].expand(K, S))
+        pk_in.copy_(pk_vec[:, None].expand(K, S_local))
     chains_out = Chains(k=k, theta=th.T.contiguous(), logp=lp,
-                        pk=pk_vec[None, :].expand(S, K).contiguous(),
-                        pkllim=pkl.expand(S).contiguous(),
-                        nreinit=nri.expand(S).contiguous(),
+                        pk=pk_vec[None, :].expand(S_local, K).contiguous(),
+                        pkllim=pkl.expand(S_local).contiguous(),
+                        nreinit=nri.expand(S_local).contiguous(),
                         sweep=chains.sweep + n_sweeps, key=chains.key)
+    ts_a, tq_a, cnt_a = (mesh_lib.all_reduce_sum(x, mesh)
+                         for x in (ts_a, tq_a, cnt_a))
     return chains_out, _chunk(ks_a, ts_a, tq_a, cnt_a, K, D)
 
 
@@ -818,7 +851,8 @@ def _chunk(ks, ts, tq, cnt, K: int, D: int) -> dict:
     }
 
 
-def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
+def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool,
+                             mesh=None):
     """``runner(chains, prop, n_sweeps) -> (chains', chunk)`` where
     ``chunk`` holds device tensors: ksummary [K], theta_sum and
     theta_sqsum [K, D], and the six acceptance counters.  pk adapts only
@@ -826,7 +860,11 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
     when the card holds the population resident (on the CPU, where both
     routes are twins, always) and K1d otherwise or when
     ``_FORCE_POOLED_SCAN`` is set.  The words follow ``cfg.fused_rng``
-    resolved on the chains' device (:func:`resolve_rng`)."""
+    resolved on the chains' device (:func:`resolve_rng`).  Under a
+    ``mesh`` ``chains`` are this rank's block: the per-chain kernel runs
+    at the rank's chain base and the chunk statistics are summed across
+    the ranks (every rank gets the global ones); an adapting pooled run
+    takes :func:`pooled_sweeps` with the histogram summed every sweep."""
     K, D = modelset.nmodels, modelset.dmax
     adapt = cfg.adapt and not burning
     pooled = cfg.pk_mode == "pooled" and adapt and K > 1
@@ -845,6 +883,10 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
         tables = tables_for(prop)
         dev = chains.k.device
         rng = resolve_rng(cfg.fused_rng, dev)
+        if pooled and mesh is not None:
+            return pooled_sweeps(modelset, chains, tables, n_sweeps,
+                                 seed=int(cfg.seed), perm=cfg.perm,
+                                 tdist=tdist, rng=rng, mesh=mesh)
         if pooled and (_FORCE_POOLED_SCAN or (
                 dev.type == "cuda" and chains.n_chains > pooled_capacity(
                     modelset, tables.loglam.shape[1], dev, cfg.perm,
@@ -857,15 +899,17 @@ def build_fused_chunk_runner(modelset, cfg: EngineConfig, burning: bool):
             chains.pk.T.contiguous(), chains.pkllim, chains.nreinit,
             tables, seed=int(cfg.seed), sweep0=chains.sweep,
             n_sweeps=n_sweeps, adapt=adapt, perm=cfg.perm, tdist=tdist,
-            pooled=pooled, rng=rng)
+            pooled=pooled, rng=rng,
+            chain0=mesh_lib.chain0(mesh, chains.n_chains))
         (k2, th2, lp2, pk2, pkl2, nri2, ks2, ts2, tq2, cnt2) = outs
         chains_out = Chains(k=k2, theta=th2.T.contiguous(), logp=lp2,
                             pk=pk2.T.contiguous(), pkllim=pkl2,
                             nreinit=nri2, sweep=chains.sweep + n_sweeps,
                             key=chains.key)
+        sums = (ks2.sum(dim=1, dtype=torch.int64), ts2.sum(dim=1),
+                tq2.sum(dim=1), cnt2.sum(dim=1, dtype=torch.int64))
         return chains_out, _chunk(
-            ks2.sum(dim=1, dtype=torch.int64), ts2.sum(dim=1),
-            tq2.sum(dim=1), cnt2.sum(dim=1, dtype=torch.int64), K, D)
+            *(mesh_lib.all_reduce_sum(x, mesh) for x in sums), K, D)
 
     return runner
 

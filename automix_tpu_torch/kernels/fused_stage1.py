@@ -28,7 +28,12 @@ JAX's grouping of the products.  Both kernels apply it inside their
 launch.  The one-sweep kernel also has a moves-only mode, which writes
 the sweep's counts alone, for a caller that sums them across devices
 before the rule (:func:`pooled_update`), as the JAX ``seg_fn`` does
-outside its kernel.
+outside its kernel; it takes a chain base (``C_total``, ``chain_off``), so
+that a rank's chains draw their global chains' words.  Across devices
+(``mesh=``) stage 1 always runs :func:`run_fused_stage1_sweeps` in that
+mode, the counts summed over the ranks every sweep (JAX's
+``run_fused_stage1_sharded``); the segment kernel, whose update needs the
+whole population in one launch, is not run there, as in JAX.
 
 Randomness is the counter hash of (seed_eff, 1-based global sweep, chain,
 slot) with ``seed_eff = (seed * 1000003 + 777) & 0x7FFFFFFF``, so the
@@ -56,15 +61,18 @@ from automix_tpu_torch.config import (EngineConfig, LOG_ACCEPT_CLAMP,
                                       RWM_TARGET_ACCEPT, STAGE1_RULES)
 from automix_tpu_torch.kernels import _build
 from automix_tpu_torch.ops import randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 
 _SEG_DEFAULT = 100
 
 
-def stage1_eligible(modelset, cfg: EngineConfig):
+def stage1_eligible(modelset, cfg: EngineConfig, mesh=None, C=None):
     """(True, why) when the stage-1 kernels serve the model set, else
     (False, why not): ``fused_stage1`` is not "off", every model has a
-    CUDA density, and the kernels are instantiated at its (K, D).
-    ``fused_stage1="on"`` raises where they do not serve it."""
+    CUDA density, the kernels are instantiated at its (K, D) and, under a
+    ``mesh``, its ranks split the ``C`` chains of each model evenly (JAX
+    fused_stage1.py:107-116).  ``fused_stage1="on"`` raises where they do
+    not serve it."""
     K, D = modelset.nmodels, modelset.dmax
     missing = [m.name for m in modelset.models if m.cuda is None]
     if cfg.fused_stage1 == "off":
@@ -73,6 +81,9 @@ def stage1_eligible(modelset, cfg: EngineConfig):
         ok, why = False, f"models {missing} have no CUDA density"
     elif (K, D) not in _build.SHAPES:
         ok, why = False, f"no kernel instantiation at (K, D) = ({K}, {D})"
+    elif mesh is not None and C % mesh.size:
+        ok, why = False, (f"{C} chains per model do not split evenly over "
+                          f"the {mesh.size} ranks of the mesh")
     else:
         ok, why = True, (f"every model has a CUDA density at (K, D) = "
                          f"({K}, {D})")
@@ -196,9 +207,16 @@ def _moves(modelset, th, lp, sig_l, model_of, active, u, z, block: bool):
     return th, lp, accs
 
 
-def _lane_layout(modelset, N: int, C: int, dev):
+def _lane_layout(modelset, N: int, C: int, dev, C_total=None,
+                 chain_off: int = 0):
+    """(global chain of each lane, its model, per-coordinate activity):
+    lane i of model m = i // C is global chain m * C_total + chain_off +
+    (i - m * C), the chain base of a population split across devices
+    (C_total = C and chain_off 0 for a whole one: lane i is chain i)."""
     lane = torch.arange(N, device=dev)
     model_of = lane // C
+    if C_total is not None:
+        lane = model_of * C_total + chain_off + (lane - model_of * C)
     dims = torch.as_tensor(modelset.dims, device=dev).long()
     active = [(dims[model_of] > d).to(torch.float32)
               for d in range(modelset.dmax)]
@@ -330,7 +348,8 @@ def pooled_update(modelset, sig, nacc, ntry, cnt, *, C: int, t: int,
 
 def sweep_ref(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
               nburn: int, seg_start: bool, tdist=None, nacc=None, ntry=None,
-              rule: str = "aap", log_gain: float = 3.0):
+              rule: str = "aap", log_gain: float = 3.0, C_total=None,
+              chain_off: int = 0):
     """Plain PyTorch twin of the one-sweep kernel: global sweep ``t`` of
     every lane; logp is recomputed from theta when ``seg_start``.  Moves
     only (``nacc`` and ``ntry`` None): returns (theta [D, N], logp [N],
@@ -338,11 +357,16 @@ def sweep_ref(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     sweep).  With ``nacc`` and ``ntry`` [K, D], the sweep's pooled update
     (:func:`pooled_update`, the rule ``rule`` with ``log_gain``) is
     applied to ``sig``, ``nacc`` and ``ntry`` in place, as the kernel
-    applies it inside its launch, and the counts come back as None."""
+    applies it inside its launch, and the counts come back as None.
+    ``C_total`` and ``chain_off`` are the chain base: these C chains of
+    each model are its chains chain_off ... of C_total (moves only; the
+    update needs the whole population)."""
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
     dev = theta.device
-    lane, model_of, active = _lane_layout(modelset, N, C, dev)
+    _check_base(C, C_total, chain_off, nacc is not None, "sweep_ref")
+    lane, model_of, active = _lane_layout(modelset, N, C, dev, C_total,
+                                          chain_off)
     th = [theta[d] for d in range(D)]
     lp = modelset.logpost_cols(model_of, th) if seg_start else logp
     w = randoms.sweep_words(seed, t, lane, range(3 * D))
@@ -363,13 +387,29 @@ def sweep_ref(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     return torch.stack(th), lp, None
 
 
+def _check_base(C: int, C_total, chain_off: int, update: bool, fn: str):
+    """Raise unless the chain base holds C chains of each model from
+    position ``chain_off`` of ``C_total``, and the pooled update (which
+    needs every chain) goes with the whole population."""
+    if C_total is None:
+        C_total = C
+    if chain_off < 0 or C_total < chain_off + C:
+        raise ValueError(f"{fn}: chains {chain_off} ... {chain_off + C - 1} "
+                         f"of each model's {C_total}")
+    if update and (C_total != C or chain_off):
+        raise ValueError(f"{fn}: the pooled update needs the whole "
+                         "population; sum the moves-only counts across "
+                         "devices, then pooled_update")
+
+
 # The one-sweep kernel's rule codes (csrc/fused_stage1_sweep.cu; -1 is
 # moves only).
 _K3_RULES = {"aap": 0, "log": 1}
 
 def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
           nburn: int, seg_start: bool, tdist=None, nacc=None, ntry=None,
-          rule: str = "aap", log_gain: float = 3.0, work=None):
+          rule: str = "aap", log_gain: float = 3.0, work=None,
+          C_total=None, chain_off: int = 0):
     """One stage-1 sweep: the CUDA kernel for tensors on the card, its
     plain twin for tensors on the CPU.  Same arguments and results as
     :func:`sweep_ref`: with ``nacc`` and ``ntry`` the kernel applies the
@@ -378,11 +418,14 @@ def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     counts a caller can sum across devices before the rule).  ``work``,
     with the update, is the launch's counts and ticket: int32 [K * D + 1],
     zero before the launch and left zero by it, so a caller that runs many
-    sweeps makes it once; None makes a zeroed one for this call."""
+    sweeps makes it once; None makes a zeroed one for this call.
+    ``C_total`` and ``chain_off``, the chain base, are the kernel's
+    run-time arguments (moves only)."""
     if theta.device.type == "cpu":
         return sweep_ref(modelset, theta, logp, sig, C=C, t=t, seed=seed,
                          nburn=nburn, seg_start=seg_start, tdist=tdist,
-                         nacc=nacc, ntry=ntry, rule=rule, log_gain=log_gain)
+                         nacc=nacc, ntry=ntry, rule=rule, log_gain=log_gain,
+                         C_total=C_total, chain_off=chain_off)
     K, D = modelset.nmodels, modelset.dmax
     N = theta.shape[1]
     dev = theta.device
@@ -396,6 +439,7 @@ def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     update = nacc is not None
     if update != (ntry is not None):
         raise ValueError("sweep: nacc and ntry go together")
+    _check_base(C, C_total, chain_off, update, "sweep")
     checks = [("theta", theta, torch.float32, (D, N)),
               ("logp", logp, torch.float32, (N,)),
               ("sig", sig, torch.float32, (K, D))]
@@ -416,7 +460,8 @@ def sweep(modelset, theta, logp, sig, *, C: int, t: int, seed: int,
     lp_o = torch.empty_like(logp)
     symbol = _build.stage1_sweep_symbol(tdist is not None)
     status = getattr(_build.library(), symbol)(
-        K, D, N, C, t, seed, nburn, int(seg_start), _build.tconsts(tdist),
+        K, D, N, C, C if C_total is None else C_total, chain_off, t, seed,
+        nburn, int(seg_start), _build.tconsts(tdist),
         _K3_RULES[rule] if update else -1, float(log_gain),
         kinds.data_ptr(), consts.data_ptr(), dims.data_ptr(),
         theta.data_ptr(), logp.data_ptr(), sig.data_ptr(),
@@ -443,12 +488,14 @@ def sweep_grid(N: int, device, tdist=None):
     return threads.value, blocks.value
 
 
-def _start(modelset, cfg, nsweeps, C, init_theta, device):
-    """Shared start of both runners: schedule, theta at the start points,
-    sig 10 on each model's coordinates, zero counts, the stage-1 seed."""
+def _start(modelset, cfg, nsweeps, C, init_theta, device, C_local=None):
+    """Shared start of both runners: schedule, theta at the start points
+    (of ``C_local`` chains a model, C by default), sig 10 on each model's
+    coordinates, zero counts, the stage-1 seed."""
     K, D = modelset.nmodels, modelset.dmax
-    N = K * C
-    model_of = torch.arange(N) // C
+    C_local = C if C_local is None else C_local
+    N = K * C_local
+    model_of = torch.arange(N) // C_local
     theta = init_theta.to(torch.float32)[model_of].T.contiguous().to(device)
     dims = torch.as_tensor(modelset.dims).long()
     coord_active = torch.arange(D)[None, :] < dims[:, None]     # [K, D]
@@ -508,7 +555,8 @@ def run_fused_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
 
 
 def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
-                            C: int, init_theta, device, sweep_fn=None):
+                            C: int, init_theta, device, sweep_fn=None,
+                            mesh=None):
     """Stage 1 for a population the segment kernel cannot hold resident:
     the one-device form of the JAX ``run_fused_stage1_sharded``.  Each
     sweep is one launch of the one-sweep kernel, which applies the pooled
@@ -517,11 +565,25 @@ def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
     blends included; telemetry is read at segment ends.  Same schedule,
     arguments and results as :func:`run_fused_stage1`, and bitwise the
     same values in the twins.  ``sweep_fn=sweep_ref`` is the runner's
-    plain twin on any device."""
+    plain twin on any device.
+
+    Under a ``mesh`` (the JAX ``run_fused_stage1_sharded``) each rank runs
+    its C / size chains of every model, from position rank * C / size of
+    each model's C, in the one-sweep kernel's moves-only mode at that
+    chain base; every sweep its counts are summed across the ranks as
+    integers and :func:`pooled_update` applies the rule to the replicated
+    sig, nacc and ntry on every rank, so sig, the telemetry and each
+    chain's trajectory are the unsharded run's bit for bit.  The samples
+    and logp are the rank's chains' ([K, C / size * n_tail, D] and
+    [K, C / size]; ``parallel.mesh.all_gather`` along axis 1 gives the
+    unsharded layout)."""
+    C_local = C if mesh is None else mesh.local(C, "chains per model")
     ((total, nburn, seg, n_seg, snap_segs), coord_active, theta, sig, nacc,
      ntry, seed_eff, tdist) = _start(modelset, cfg, nsweeps, C, init_theta,
-                                     device)
-    if sweep_fn is None:
+                                     device, C_local)
+    if mesh is not None:
+        sweep_fn = _meshed(sweep_fn or sweep, mesh, C, C_local)
+    elif sweep_fn is None:
         # the kernel's counts and ticket, zeroed once: each launch leaves
         # them zeroed for the next
         K, D = modelset.nmodels, modelset.dmax
@@ -546,4 +608,29 @@ def run_fused_stage1_sweeps(modelset, cfg: EngineConfig, nsweeps: int,
             snaps.append(theta)
     if done != total:
         raise RuntimeError("stage-1 segments do not cover the schedule")
-    return _finish(modelset, C, coord_active, tele, snaps, lp, device)
+    return _finish(modelset, C_local, coord_active, tele, snaps, lp, device)
+
+
+def _meshed(sweep_fn, mesh, C: int, C_local: int):
+    """A one-sweep function of :func:`run_fused_stage1_sweeps`'s form for
+    this rank's C_local chains of each model: ``sweep_fn``'s moves-only
+    mode at the rank's chain base, the counts summed across the mesh,
+    then :func:`pooled_update` of sig, nacc and ntry in place with the
+    global C (JAX's seg_fn, fused_stage1.py:223-246)."""
+    off = mesh.rank * C_local
+
+    def run(modelset, theta, lp, sig, *, nacc, ntry, rule, log_gain, C,
+            **kw):
+        C_total = C
+        theta, lp, cnt = sweep_fn(modelset, theta, lp, sig, C=C_local,
+                                  C_total=C_total, chain_off=off, **kw)
+        cnt = mesh_lib.all_reduce_sum(cnt, mesh)
+        t = kw["t"]
+        block = t > kw["nburn"] and randoms.block_coin(kw["seed"], t)
+        new = pooled_update(modelset, sig, nacc, ntry, cnt, C=C_total, t=t,
+                            adapt=not block, rule=rule, log_gain=log_gain)
+        for x, v in zip((sig, nacc, ntry), new):
+            x.copy_(v)
+        return theta, lp, None
+
+    return run

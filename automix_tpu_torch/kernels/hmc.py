@@ -16,8 +16,11 @@ under ``hmc_jitter``, drawn from a stream indexed by the sweep alone
 steps.  Every chain's length is still marginally uniform, and a
 state-independent length keeps detailed balance.
 
-``tune_step_scale`` runs on one device: the JAX package's sharded
-tuner (``mesh=``) has no counterpart in the port yet.
+Across devices (``tune_step_scale(..., mesh=)``, as JAX's) the tuning
+chains split over the ranks in blocks of the [K * C] layout; each rank
+draws its momenta and accept uniforms from the round key folded with its
+rank, and the per-model acceptance sums are summed across the ranks every
+round, so the dual-averaging state is the same on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from automix_tpu_torch.config import EngineConfig
 from automix_tpu_torch.kernels.fused_stage1 import _accept
 from automix_tpu_torch.ops import randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 
 
 def sample_n_steps(cfg: EngineConfig, u) -> int:
@@ -77,7 +81,7 @@ def _log32(x: float) -> float:
 
 def tune_step_scale(modelset, cfg: EngineConfig, sig, key,
                     n_rounds: int = 100, n_chains_per_model: int = 256,
-                    device=None):
+                    device=None, mesh=None):
     """Dual averaging of the per-model HMC step multiplier (JAX's
     ``tune_step_scale``, Hoffman & Gelman 2014, Algorithm 5): ``n_rounds``
     HMC moves of ``n_chains_per_model`` chains pinned to each model, the
@@ -91,12 +95,18 @@ def tune_step_scale(modelset, cfg: EngineConfig, sig, key,
     Each round's key is split from the last, its length drawn from the
     round key folded with 0x5EED, its accept uniforms and momenta from the
     round key's two halves, as in JAX.  Returns the multipliers exp(log
-    sbar) as a [K] float64 numpy array."""
+    sbar) as a [K] float64 numpy array.  Under a ``mesh`` (module note;
+    its device) the same multipliers come back on every rank; the run's
+    momenta differ from the run on one device, as JAX's do."""
     dev = torch.device(device) if device is not None else sig.device
     f32 = torch.float32
     K, D = modelset.nmodels, modelset.dmax
     C = n_chains_per_model
     M = K * C
+    M_local = M if mesh is None else mesh.local(
+        M, "K * n_chains_per_model")
+    r0 = mesh_lib.chain0(mesh, M_local)
+    rows = slice(r0, r0 + M_local)
     delta = float(np.float32(cfg.hmc_target_accept))
     t0, gamma, kappa = 10.0, np.float32(0.05), np.float32(0.75)
     if np.ndim(cfg.hmc_step_scale) == 0:
@@ -104,7 +114,7 @@ def tune_step_scale(modelset, cfg: EngineConfig, sig, key,
     else:
         mu0 = _log32(2.0)
     dims = torch.as_tensor(modelset.dims, device=dev).long()
-    k_assign = torch.arange(K, device=dev).repeat_interleave(C)
+    k_assign = torch.arange(K, device=dev).repeat_interleave(C)[rows]
     mask = (torch.arange(D, device=dev)[None, :]
             < dims[k_assign][:, None]).to(f32)
     sig_k = sig.to(f32).to(dev)[k_assign]
@@ -120,14 +130,17 @@ def tune_step_scale(modelset, cfg: EngineConfig, sig, key,
         rkey, rk = randoms.split_host(rkey, 2)
         nst = sample_n_steps(cfg, randoms.uniform_host(
             randoms.fold_in(rk, 0x5EED)))
+        if mesh is not None:
+            rk = randoms.fold_in(rk, mesh.rank)
         ku, kz = randoms.split_host(rk, 2)
-        u = randoms.uniform(ku, (M,), dev)
-        z = randoms.normal(kz, (M, D), dev)
+        u = randoms.uniform(ku, (M_local,), dev)
+        z = randoms.normal(kz, (M_local, D), dev)
         eps = torch.exp(log_s)[k_assign][:, None] * sig_k
         theta, lp, acc = hmc_move(modelset, u, nst, z, k_assign, theta, lp,
                                   eps, mask)
-        a_k = torch.zeros(K, dtype=f32, device=dev).index_add_(
-            0, k_assign, acc.to(f32)) / float(C)
+        a_k = mesh_lib.all_reduce_sum(torch.zeros(
+            K, dtype=f32, device=dev).index_add_(0, k_assign, acc.to(f32)),
+            mesh) / float(C)
         tt = np.float32(t)
         w = float(np.float32(1.0) / (tt + np.float32(t0)))
         hbar = (1.0 - w) * hbar + w * (delta - a_k)

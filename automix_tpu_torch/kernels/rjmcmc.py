@@ -37,6 +37,14 @@ Student-t run; the latent terms of the jump then take t(dof) too.
 With ``within_move="hmc"`` the within-model move is a leapfrog HMC move
 (``kernels/hmc.py``) of a length drawn per sweep from
 ``fold_in(key(seed ^ 0x177A7EC7), sweep)``, shared by the batch.
+
+Across devices (``mesh=``, ``parallel/mesh.py``) each rank sweeps its block
+of chains: the ``fast`` words are drawn at the rank's first global chain
+(``chain0``), K4 at its first global block, and threefry from the chains'
+own keys, so every chain draws what it draws on one device.  The chunk's
+accumulators are summed across the ranks once a chunk, a pooled pk's
+visit histogram once a sweep, and the traces of the global chain prefix
+(rank 0's chains) are broadcast from rank 0 (JAX rjmcmc.py:545-595).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from automix_tpu_torch.config import EngineConfig, NEG_INF
 from automix_tpu_torch.kernels import hmc, sweep_rng
 from automix_tpu_torch.kernels.fused_stage1 import _accept
 from automix_tpu_torch.ops import linalg, randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 from automix_tpu_torch.state import Chains, Proposal
 
 _LOG_2PI = 1.8378770664093453
@@ -151,16 +160,19 @@ def draw_sweep_randoms(keys, sweep: int, mu_count: int, mz_count: int,
 
 
 def sweep_randoms(cfg: EngineConfig, rng_mode: str, chains: Chains,
-                  mu_count: int, mz_count: int):
+                  mu_count: int, mz_count: int, chain0: int = 0):
     """One sweep's u [S, MU] and z [S, MZ] from the ``fast`` hash, K4 or
-    the chains' threefry keys."""
+    the chains' threefry keys; ``chain0`` is the global index of the
+    batch's first chain (K4's first block is chain0 over its block size,
+    as JAX's)."""
     S, sweep, dev = chains.n_chains, chains.sweep, chains.theta.device
     if rng_mode == "fast":
-        return randoms.fast_sweep_randoms(int(cfg.seed), sweep, 0, S,
+        return randoms.fast_sweep_randoms(int(cfg.seed), sweep, chain0, S,
                                           mu_count, mz_count, dev)
     if rng_mode == "pallas":
-        return sweep_rng.draw(int(cfg.seed), sweep, 0, S, mu_count,
-                              mz_count, dev)
+        return sweep_rng.draw(int(cfg.seed), sweep,
+                              chain0 // sweep_rng.choose_block(S), S,
+                              mu_count, mz_count, dev)
     if rng_mode == "threefry":
         if chains.key is None:
             raise ValueError("rng='threefry' needs the chains' keys "
@@ -183,11 +195,12 @@ def hmc_length(cfg: EngineConfig, sweep: int) -> int:
 
 
 def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
-                    rng_mode: str = "fast"):
+                    rng_mode: str = "fast", mesh=None):
     """One sweep over all chains (JAX's ``build_sweep_all``):
     ``sweep_all(chains, prop, tables=None) -> (chains', stats)`` with
     stats int32 [S] per event kind.  ``tables`` is
-    :func:`precompute_tables` of ``prop``."""
+    :func:`precompute_tables` of ``prop``.  Under a ``mesh`` ``chains``
+    are this rank's block (module note)."""
     K, D = modelset.nmodels, modelset.dmax
     tc = (randoms.student_t(cfg.student_t_dof) if cfg.student_t_dof > 0
           else None)
@@ -219,7 +232,8 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
         tab = tables if tables is not None else precompute_tables(
             prop, dims_np)
         slots, mu_count, mz_count = rand_slots(D, L, K)
-        u, z = sweep_randoms(cfg, rng_mode, chains, mu_count, mz_count)
+        u, z = sweep_randoms(cfg, rng_mode, chains, mu_count, mz_count,
+                             mesh_lib.chain0(mesh, S))
 
         def us(name):
             a, b = slots[name]
@@ -343,8 +357,9 @@ def build_sweep_all(modelset, cfg: EngineConfig, burning: bool,
             gamma = gamma_f32(sweep)
             target = torch.nn.functional.one_hot(k, K).to(torch.float32)
             if cfg.pk_mode == "pooled":
-                target = (target.sum(dim=0) / float(S))[None, :] \
-                    .expand(S, K)
+                hist = mesh_lib.all_reduce_sum(target.sum(dim=0), mesh)
+                n_total = S if mesh is None else S * mesh.size
+                target = (hist / float(n_total))[None, :].expand(S, K)
             pk = pk + gamma * (target - pk)
             reinit = torch.any(pk < pkllim[:, None], dim=1)
             nreinit = nreinit + reinit.to(torch.int32)
@@ -369,12 +384,15 @@ def _kahan(s, c, x):
 
 
 def chunk_scan(sweep_all, modelset, cfg: EngineConfig, collect: bool,
-               chains: Chains, prop: Proposal, n_sweeps: int):
+               chains: Chains, prop: Proposal, n_sweeps: int, mesh=None):
     """``n_sweeps`` sweeps with the chunk statistics accumulated on the
     device (JAX's ``_chunk_scan``): visit counts, float32 Kahan sums of
     theta and theta^2 per model, the six acceptance counters and, with
     ``collect``, per-sweep traces of the first ``n_trace_chains`` chains'
-    k and chain 0's k, pk, logp and theta."""
+    k and chain 0's k, pk, logp and theta.  Under a ``mesh`` the
+    accumulators are summed across the ranks at the chunk's end and the
+    traces (of rank 0's chains, the global prefix) broadcast from rank 0,
+    so every rank returns the same chunk."""
     K, D = modelset.nmodels, modelset.dmax
     dev = chains.theta.device
     tables = precompute_tables(prop, modelset.dims)
@@ -404,25 +422,28 @@ def chunk_scan(sweep_all, modelset, cfg: EngineConfig, collect: bool,
             traces["pk0_trace"].append(chains.pk[0])
             traces["logp0_trace"].append(chains.logp[0])
             traces["theta0_trace"].append(chains.theta[0])
-    chunk = {"ksummary": ks, "theta_sum": ts - tsc,
-             "theta_sqsum": tq - tqc}
+    ks, ts, tq, cnt = (mesh_lib.all_reduce_sum(x, mesh)
+                       for x in (ks, ts - tsc, tq - tqc, cnt))
+    chunk = {"ksummary": ks, "theta_sum": ts, "theta_sqsum": tq}
     chunk.update({n: cnt[i] for i, n in enumerate(names)})
     if collect:
-        chunk.update({n: torch.stack(v) for n, v in traces.items()})
+        chunk.update({n: mesh_lib.broadcast(torch.stack(v), mesh)
+                      for n, v in traces.items()})
     return chains, chunk
 
 
 def build_chunk_runner(modelset, cfg: EngineConfig, burning: bool,
-                       collect: bool):
-    """``runner(chains, prop, n_sweeps) -> (chains', chunk)`` on one
-    device (JAX's ``build_chunk_runner`` without a mesh), with the stream
-    of ``sweep_rng.resolve_rng(cfg)``."""
+                       collect: bool, mesh=None):
+    """``runner(chains, prop, n_sweeps) -> (chains', chunk)`` (JAX's
+    ``build_chunk_runner``), with the stream of
+    ``sweep_rng.resolve_rng(cfg)``.  Under a ``mesh`` ``chains`` are this
+    rank's block and ``chunk`` the global statistics (module note)."""
     sweep_all = build_sweep_all(modelset, cfg, burning,
-                                sweep_rng.resolve_rng(cfg))
+                                sweep_rng.resolve_rng(cfg), mesh)
 
     def runner(chains: Chains, prop: Proposal, n_sweeps: int):
         return chunk_scan(sweep_all, modelset, cfg, collect, chains, prop,
-                          n_sweeps)
+                          n_sweeps, mesh)
 
     return runner
 

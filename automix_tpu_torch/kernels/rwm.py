@@ -21,6 +21,16 @@ key, the chains' key), one key per chain split from the third, folded
 with the sweep and then 0 for the uniforms and 1 for the perturbations
 (t(dof) for a Student-t run), and the block-move coin from the first key
 folded with 7 and then the sweep.
+
+Across devices (``mesh=``, ``parallel/mesh.py``) the chain axis splits per
+model, as JAX's [K, C] key layout does: each rank runs C / size chains of
+every model, the same global chains (keys and hash words) as in a run on
+one device.  The pooled acceptance counts are summed across the ranks as
+integers once a sweep, so sig, the telemetry and every chain's
+trajectory are the unsharded run's bit for bit; the kernels take their
+one-sweep route (K3 moves only, then the rule), as JAX's
+``run_fused_stage1_sharded`` does.  The samples and final logp come back
+as this rank's chains' blocks.
 """
 
 from __future__ import annotations
@@ -34,18 +44,25 @@ from automix_tpu_torch.config import EngineConfig, RWM_TARGET_ACCEPT
 from automix_tpu_torch.kernels import fused_stage1, rjmcmc
 from automix_tpu_torch.kernels.fused_stage1 import _accept
 from automix_tpu_torch.ops import randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 
 TELEMETRY_EVERY = 100
 
 
 def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
-                       init_theta, device, key, k_chains, n_tail: int = 1):
+                       init_theta, device, key, k_chains, n_tail: int = 1,
+                       mesh=None):
     """The general engine's stage 1 over K*C chains on ``device``: the
     block coin from ``fold_in(key, 7)``, the chains' keys split from
     ``k_chains`` (both threefry keys; :func:`run_stage1` splits them from
     the stage-1 key).  Returns (sig [K, D], samples [K, C * n_tail, D],
-    tele_sig and tele_acc [n_tele, K, D] on the CPU, final logp [K, C])."""
+    tele_sig and tele_acc [n_tele, K, D] on the CPU, final logp [K, C]).
+    Under a ``mesh`` this rank runs its C / size chains of each model and
+    returns their samples and logp; the counts are summed every sweep."""
     K, D = modelset.nmodels, modelset.dmax
+    C_total = C
+    if mesh is not None:
+        C = mesh.local(C_total, "chains per model")
     M = K * C
     f32 = torch.float32
     nburn = nsweeps // 10
@@ -55,7 +72,11 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     smp_start = total - n_tail * stride
     n_tele = max(1, total // TELEMETRY_EVERY)
     block_key = randoms.fold_in(key, 7)
-    chain_keys = randoms.split(k_chains, M, device)
+    chain_keys = randoms.split(k_chains, K * C_total, device)
+    if mesh is not None:
+        off = mesh.rank * C
+        chain_keys = chain_keys.reshape(K, C_total, 2)[:, off:off + C] \
+            .reshape(M, 2)
     coin = np.float32(0.1)
     # the models a componentwise move on coordinate j changes
     above = [[m for m in range(K) if modelset.dims[m] > j] for j in range(D)]
@@ -71,7 +92,7 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
     sig = torch.full((K, D), 10.0, dtype=f32, device=device)  # automix.c:595
     nacc = torch.zeros((K, D), dtype=torch.int32, device=device)
     ntry = torch.zeros((K, D), dtype=torch.int32, device=device)
-    try_inc = coord_active.to(torch.int32) * C
+    try_inc = coord_active.to(torch.int32) * C_total
     tele_sig = torch.zeros((n_tele, K, D), dtype=f32, device=device)
     tele_acc = torch.zeros((n_tele, K, D), dtype=f32, device=device)
     smp = torch.zeros((n_tail, M, D), dtype=f32, device=device)
@@ -100,8 +121,10 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
                 theta = torch.where(acc[:, None], theta_prop, theta)
                 lp = torch.where(acc, lpn, lp)
                 cols.append(acc.to(torch.int32).reshape(K, C).sum(dim=1))
-            acc_cols = torch.stack(cols, dim=1).to(torch.int32)
-            err = (acc_cols.to(f32) / C - RWM_TARGET_ACCEPT) * active_f
+            acc_cols = mesh_lib.all_reduce_sum(
+                torch.stack(cols, dim=1).to(torch.int32), mesh)
+            err = (acc_cols.to(f32) / C_total - RWM_TARGET_ACCEPT) \
+                * active_f
             if cfg.stage1_adapt == "log":
                 gain = float(np.float32(cfg.stage1_log_gain)
                              * np.float32(gamma))
@@ -126,20 +149,27 @@ def run_general_stage1(modelset, cfg: EngineConfig, nsweeps: int, C: int,
 
 
 def run_stage1(modelset, cfg: EngineConfig, key, nsweeps: int, device,
-               n_chains_per_model: int | None = None):
+               n_chains_per_model: int | None = None, mesh=None):
     """Returns ``(sig [K, D], samples [K, C * n_tail, D], telemetry)``; the
     telemetry holds the sig and pooled acceptance traces (at segment
     boundaries on the kernels, every 100 sweeps on the general engine),
     the final logp [K, C] and the sweep count.  ``key`` is the stage-1
     threefry key: split into three as in JAX, the second gives the start
-    points.  Logs the engine and why."""
+    points.  Logs the engine and why.  Under a ``mesh`` (on its device)
+    the chains split across its ranks (module note): the samples and the
+    final logp are this rank's blocks, the rest is the same on every
+    rank."""
     C = n_chains_per_model or cfg.n_chains_stage1
     key, k_init, k_chains = randoms.split_host(key, 3)
     init_theta = modelset.init_points(k_init)                # [K, D]
-    kernels, why = fused_stage1.stage1_eligible(modelset, cfg)
+    kernels, why = fused_stage1.stage1_eligible(modelset, cfg, mesh, C)
     logging.getLogger("automix_tpu_torch").info(
         "stage 1: %s engine (%s)", "kernel" if kernels else "general", why)
-    if kernels:
+    if kernels and mesh is not None:
+        sig, samples, tele_sig, tele_acc, lp = \
+            fused_stage1.run_fused_stage1_sweeps(
+                modelset, cfg, nsweeps, C, init_theta, device, mesh=mesh)
+    elif kernels:
         run = fused_stage1.stage1_runner(modelset, cfg, C, device)
         sig, samples, tele_sig, tele_acc, lp = run(
             modelset, cfg, nsweeps, C, init_theta, device)
@@ -147,7 +177,7 @@ def run_stage1(modelset, cfg: EngineConfig, key, nsweeps: int, device,
         target = cfg.stage1_target_samples or 1000 * modelset.dmax
         sig, samples, tele_sig, tele_acc, lp = run_general_stage1(
             modelset, cfg, nsweeps, C, init_theta, device, key, k_chains,
-            n_tail=-(-target // C))
+            n_tail=-(-target // C), mesh=mesh)
     return sig, samples, {
         "sig_trace": tele_sig,
         "accept_trace": tele_acc,

@@ -21,8 +21,16 @@ split for the start, one key per particle for the start draws, then per
 step a key split per model for the resampling uniforms and a key per
 move folded with the coordinate for the proposal normals and accept
 uniforms.  The key chain is host ints; the draws are on the particles'
-device.  The sharded form of the JAX package (``mesh=``) has no
-counterpart yet.
+device.
+
+Across devices (``mesh=``, as JAX's) the particle axis splits over the
+ranks; each rank folds its rank into the start key and the move keys, so
+the ranks draw disjoint streams.  Resampling needs the global weights:
+once a temperature step the ranks' weights (and the particle cloud, a few
+floats a particle) are gathered, the evidence increment, the ESS, the
+adaptive ladder's bisection and the resampling indices come from the
+global weights on every rank alike, and each rank keeps its slice of the
+resampled cloud.  The final particles are gathered.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from automix_tpu_torch.kernels.fused_stage1 import _accept
 from automix_tpu_torch.ops import linalg, randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _loglam(lam):
@@ -90,15 +99,21 @@ def _take(x, idx):
 
 def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
             n_temps: int = 20, n_moves: int = 3, betas=None,
-            tempering: str = "adaptive", ess_target: float = 0.5):
+            tempering: str = "adaptive", ess_target: float = 0.5,
+            mesh=None):
     """Annealed SMC for all models at once on the proposal's device (JAX's
     ``run_smc``).  ``key`` is a threefry key.  Returns a dict of numpy
     arrays: ``log_evidence`` [K], ``model_probs`` [K] (softmax of the
     evidences), ``ess`` [n_temps, K] (adaptive runs pad unused steps
     with N), ``betas_used`` [n_temps, K], and the final particles
-    ``theta`` [K, N, D] with their ``logp`` [K, N]."""
+    ``theta`` [K, N, D] with their ``logp`` [K, N].  Under a ``mesh``
+    (module note) ``n_particles`` is the global count, which its ranks
+    must split evenly, and every rank returns the same dict."""
     K, D = modelset.nmodels, modelset.dmax
     N = int(n_particles)
+    Nloc = N if mesh is None else mesh.local(N, "n_particles")
+    p0 = mesh_lib.chain0(mesh, Nloc)
+    mine = slice(p0, p0 + Nloc)
     dev = proposal.lam.device
     f32 = torch.float32
     adaptive = tempering == "adaptive" and betas is None
@@ -111,7 +126,7 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
                   proposal.B.to(f32))
     sig = proposal.sig.to(f32)
     dims = torch.as_tensor(modelset.dims, device=dev).long()
-    k_idx = torch.arange(K, device=dev).repeat_interleave(N)
+    k_idx = torch.arange(K, device=dev).repeat_interleave(Nloc)
     # the models a move on coordinate j changes (the others' values are
     # never accepted)
     above = [[m for m in range(K) if modelset.dims[m] > j] for j in range(D)]
@@ -121,11 +136,18 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
         return _mixture_logq(theta, lam, mu, B, dims)
 
     def logp_all(theta, models=None):
-        return modelset.logpost_batch(k_idx, theta.reshape(K * N, D),
-                                      models).reshape(K, N)
+        return modelset.logpost_batch(k_idx, theta.reshape(K * Nloc, D),
+                                      models).reshape(K, Nloc)
+
+    def gather(x):
+        return mesh_lib.all_gather(x, mesh, dim=1)
+
+    def rank_key(k):
+        return k if mesh is None else randoms.fold_in(k, mesh.rank)
 
     key, k_init = randoms.split_host(key, 2)
-    init_keys = randoms.split(k_init, K * N, dev).reshape(K, N, 2)
+    init_keys = randoms.split(rank_key(k_init), K * Nloc,
+                              dev).reshape(K, Nloc, 2)
     theta = _sample_mixture(init_keys, lam, mu, B, dims)
     logq = logq_all(theta)
     logp = logp_all(theta)
@@ -138,21 +160,23 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
         return torch.exp(2 * lse(lw) - lse(2 * lw))
 
     def step(theta, logp, logq, logz, key, beta_new, dbeta, delta):
+        # delta: the global logp - logq [K, N]
         lw = dbeta[:, None] * delta
         logz = logz + lse(lw) - log_n
         ess = ess_of(lw)
         key, k_rs = randoms.split_host(key, 2)
         idx = torch.stack([_systematic_resample(kk, lw[m], N) for m, kk in
-                           enumerate(randoms.split_host(k_rs, K))])
-        theta, logp, logq = _take(theta, idx), _take(logp, idx), \
-            _take(logq, idx)
+                           enumerate(randoms.split_host(k_rs, K))])[:, mine]
+        theta, logp, logq = _take(gather(theta), idx), \
+            _take(gather(logp), idx), _take(gather(logq), idx)
         key, k_mv = randoms.split_host(key, 2)
         b = beta_new[:, None]
         for mkey in randoms.split_host(k_mv, n_moves):
+            mkey = rank_key(mkey)
             for j in range(D):
                 ck = randoms.fold_in(mkey, j)
-                z = randoms.normal(randoms.fold_in(ck, 0), (K, N), dev)
-                u = randoms.uniform(randoms.fold_in(ck, 1), (K, N), dev)
+                z = randoms.normal(randoms.fold_in(ck, 0), (K, Nloc), dev)
+                u = randoms.uniform(randoms.fold_in(ck, 1), (K, Nloc), dev)
                 active = (j < dims)[:, None]
                 prop = theta[:, :, j] + sig[:, j][:, None] * z
                 theta_p = theta.clone()
@@ -175,7 +199,7 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
             dbk = torch.full((K,), float(np.float32(beta - prev)),
                              dtype=f32, device=dev)
             theta, logp, logq, logz, key, ess = step(
-                theta, logp, logq, logz, key, bk, dbk, logp - logq)
+                theta, logp, logq, logz, key, bk, dbk, gather(logp - logq))
             ess_buf[t], beta_buf[t] = ess, bk
             prev = beta
     else:
@@ -184,7 +208,7 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
         beta = torch.zeros(K, dtype=f32, device=dev)
         t = 0
         while t < n_temps and bool((beta < 1.0).any()):
-            delta = logp - logq
+            delta = gather(logp - logq)
             hi0 = 1.0 - beta
             full_ok = ess_of(hi0[:, None] * delta) >= target
             lo, hi = torch.zeros_like(beta), hi0
@@ -206,4 +230,5 @@ def run_smc(modelset, cfg, proposal, key, n_particles: int = 2048,
     probs = torch.softmax(logz, dim=0)
     return {k: v.cpu().numpy() for k, v in (
         ("log_evidence", logz), ("model_probs", probs), ("ess", ess_buf),
-        ("betas_used", beta_buf), ("theta", theta), ("logp", logp))}
+        ("betas_used", beta_buf), ("theta", gather(theta)),
+        ("logp", gather(logp)))}

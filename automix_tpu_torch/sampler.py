@@ -35,6 +35,15 @@ XLA engine does, and decimates as the kernels do.
 
 The device is explicit: ``device="cuda"`` (the default) raises when CUDA
 is missing, and nothing falls back to the CPU by itself.
+
+Across devices (``mesh=``, a ``parallel.mesh.ChainMesh``; JAX's
+``AMSampler(mesh=)``) the device is the mesh's.  Stage 1 and the EM run
+with their chains and samples split over the ranks; the stage-3 chains
+are built whole from the seed on every rank and then split
+(``shard_chains``), and the proposal is replicated from rank 0.  Every
+runner sums its statistics across the ranks, so every rank holds the
+same ``RunStats``.  ``n_chains`` and ``n_chains_stage1`` must split
+evenly over the ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from automix_tpu_torch.config import EngineConfig
 from automix_tpu_torch.kernels import em, fused, rjmcmc, rwm
 from automix_tpu_torch.model import Model, ModelSet
 from automix_tpu_torch.ops import randoms
+from automix_tpu_torch.parallel import mesh as mesh_lib
 from automix_tpu_torch.state import Chains, CondProbStats, Proposal, RunStats
 
 
@@ -62,8 +72,8 @@ class AMSampler:
     """Automatic RJMCMC sampler over a set of models."""
 
     def __init__(self, models: Union[ModelSet, Sequence[Model]],
-                 config: Optional[EngineConfig] = None, device="cuda",
-                 **overrides):
+                 config: Optional[EngineConfig] = None, device=None,
+                 mesh=None, **overrides):
         if config is None:
             config = EngineConfig(**overrides)
         elif overrides:
@@ -71,7 +81,15 @@ class AMSampler:
         self.cfg = config
         self.modelset = (models if isinstance(models, ModelSet)
                          else ModelSet(models))
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"AMSampler: device={device} is not the "
+                                 f"mesh's {mesh.device}")
+            device = mesh.device
+            for name in ("n_chains", "n_chains_stage1"):
+                mesh.local(getattr(config, name), name)
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("AMSampler(device='cuda'): CUDA is not "
@@ -97,16 +115,18 @@ class AMSampler:
         """The stage-3 runner of the engine the rule picks; ``collect``
         (per-sweep traces inside the chunk) only on the general engine."""
         kernels, why = fused.eligible(self.modelset, self.cfg,
-                                      self.proposal.lmax, self.device)
+                                      self.proposal.lmax, self.device,
+                                      self.mesh)
         key = (burning, collect and not kernels, kernels)
         if key not in self._runners:
             if kernels:
                 self._runners[key] = fused.build_fused_chunk_runner(
-                    self.modelset, self.cfg, burning=burning)
+                    self.modelset, self.cfg, burning=burning,
+                    mesh=self.mesh)
             else:
                 self._runners[key] = rjmcmc.build_chunk_runner(
                     self.modelset, self.cfg, burning=burning,
-                    collect=key[1])
+                    collect=key[1], mesh=self.mesh)
             engine = (f"kernel engine, rng "
                       f"{fused.resolve_rng(self.cfg.fused_rng, self.device)}"
                       if kernels else "general engine")
@@ -133,6 +153,9 @@ class AMSampler:
         if self.chains is None:
             self.chains = rjmcmc.init_chains(self.modelset, self.cfg,
                                              self._next_key(), self.device)
+            if self.mesh is not None:
+                self.chains = mesh_lib.shard_chains(self.chains, self.mesh)
+                self.proposal = mesh_lib.replicate(self.proposal, self.mesh)
 
     def _run_sweeps(self, nsweeps: int, burning: bool, collect: bool,
                     stats: Optional[RunStats]):
@@ -167,16 +190,16 @@ class AMSampler:
             flush()
 
     def _trace_snapshot(self):
-        """One trace entry from the current chain state."""
+        """One trace entry from the current chain state (of the global
+        chain prefix: under a mesh, rank 0's chains, broadcast)."""
         ch = self.chains
         nt = min(self.cfg.n_trace_chains, ch.n_chains)
-        return {
-            "k_trace": ch.k[None, :nt].to(torch.int8),
-            "k0_trace": ch.k[None, 0].to(torch.int8),
-            "pk0_trace": ch.pk[None, 0],
-            "logp0_trace": ch.logp[None, 0],
-            "theta0_trace": ch.theta[None, 0],
-        }
+        return {name: mesh_lib.broadcast(v, self.mesh) for name, v in (
+            ("k_trace", ch.k[None, :nt].to(torch.int8)),
+            ("k0_trace", ch.k[None, 0].to(torch.int8)),
+            ("pk0_trace", ch.pk[None, 0]),
+            ("logp0_trace", ch.logp[None, 0]),
+            ("theta0_trace", ch.theta[None, 0]))}
 
     # -- public API -------------------------------------------------------
 
@@ -188,12 +211,13 @@ class AMSampler:
         nsweeps = nsweep2 if nsweep2 is not None else self.cfg.stage1_sweeps
         sig, samples, tele = rwm.run_stage1(
             self.modelset, self.cfg, self._next_key(), nsweeps, self.device,
-            n_chains_per_model=n_chains_stage1)
+            n_chains_per_model=n_chains_stage1, mesh=self.mesh)
         _sync(self.device)
         t1 = time.perf_counter()
         self._next_key()          # stage 2's key in JAX's order
         self.proposal, em_tele = em.fit_proposal(
-            self.modelset, self.cfg, samples, sig, generator=self.generator)
+            self.modelset, self.cfg, samples, sig, generator=self.generator,
+            mesh=self.mesh)
         _sync(self.device)
         t2 = time.perf_counter()
         self.cpstats.sig_trace = tele["sig_trace"].numpy()
@@ -214,10 +238,13 @@ class AMSampler:
 
     def set_proposal(self, proposal: Proposal):
         """Install externally supplied proposal parameters (moved to the
-        sampler's device, slot axis trimmed to the live maximum)."""
+        sampler's device, slot axis trimmed to the live maximum; under a
+        mesh, rank 0's on every rank)."""
         moved = Proposal(**{f: getattr(proposal, f).to(self.device)
                             for f in ("lam", "mu", "B", "logdetB", "nmix",
                                       "sig")})
+        if self.mesh is not None:
+            moved = mesh_lib.replicate(moved, self.mesh)
         self.proposal = em.trim_proposal(moved)
         self.cpstats.initialized = True
 
@@ -246,7 +273,8 @@ class AMSampler:
         if self.stats is None:
             self.stats = RunStats(self.modelset.nmodels, self.modelset.dmax)
         stats = self.stats
-        stats.n_chains = self.chains.n_chains
+        stats.n_chains = self.chains.n_chains * (
+            1 if self.mesh is None else self.mesh.size)
         self._run_sweeps(nsweeps, burning=False, collect=collect,
                          stats=stats)
         stats.nsweeps += nsweeps
@@ -269,7 +297,8 @@ class AMSampler:
         self._ensure_proposal()
         from automix_tpu_torch.kernels.hmc import tune_step_scale
         scales = tune_step_scale(self.modelset, self.cfg, self.proposal.sig,
-                                 self._next_key(), device=self.device)
+                                 self._next_key(), device=self.device,
+                                 mesh=self.mesh)
         self.cfg = dataclasses.replace(
             self.cfg, hmc_step_scale=tuple(float(x) for x in scales))
         self._runners.clear()
@@ -287,11 +316,13 @@ class AMSampler:
         return smc.run_smc(self.modelset, self.cfg, self.proposal,
                            self._next_key(), n_particles=n_particles,
                            n_temps=n_temps, n_moves=n_moves,
-                           tempering=tempering, ess_target=ess_target)
+                           tempering=tempering, ess_target=ess_target,
+                           mesh=self.mesh)
 
     def save(self, path: str):
         """Checkpoint the resumable state (chains, proposal, statistics);
-        see io/checkpoint.py."""
+        see io/checkpoint.py.  Under a mesh every rank calls it: the
+        chains are gathered and the primary writes."""
         from automix_tpu_torch.io import checkpoint
         checkpoint.save_checkpoint(path, self)
 

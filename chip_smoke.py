@@ -64,6 +64,16 @@ PyTorch twin on the card, then drives the port's paths at full size:
   JAX's posterior) against cptrs within the JAX test's atol, and the CLI
   on cpt against the JAX package's CLI run from the same proposal
   (``tests/data/cpt_cli_witness.json``);
+* several devices: the chain base of the sweep kernel (K1 and K1f at the
+  tutorial's (3, 2), K1e at DDI's (2, 16)) and of K3 (moves only, at both
+  shapes), two launches over the halves of the chains bitwise one launch
+  over all of them; then ``multihost.initialize`` with NCCL at world size
+  1 (the card is one device, so NCCL across ranks is not measured) and
+  ``AMSampler(tutorial_set(), mesh=make_global_mesh())`` at the main
+  path's size on the hash: stage 1 on K3's moves-only route bitwise the
+  main path's sig, then from the main path's proposal 1000 burn-in and
+  2000 sweeps whose ksummary and chains equal a run without the mesh bit
+  for bit, p(M) against the published values;
 * the general engine (plain torch, for sets the kernels do not serve):
   K4, the ``rng="pallas"`` draw kernel, against its twin at the
   tutorial's stage-3 shapes and an odd shape; the tutorial at 131072
@@ -116,6 +126,7 @@ import io
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1615,6 +1626,9 @@ def ddi_paths(dev):
                                        label="K3 ddi")
         out["K3 route"] = stage1_routes(dd, DDI_C_STAGE1, DDI_STAGE1_SWEEPS,
                                         dev, "ddi")
+        out["K1e split"] = check_split(dd, prop, am.chains, "K1e ddi",
+                                       cache=True)
+        out["K3 split"] = check_split_k3(dd, DDI_C_STAGE1, dev, "K3 ddi")
         del am
         log(f"phase ddi kernel checks: {time.perf_counter() - t0:.2f} s")
 
@@ -2338,6 +2352,212 @@ def smc_path(tut, tut_prop, smi):
     log(f"phase tutorial SMC: {time.perf_counter() - t0:.2f} s")
 
 
+SPLIT_CHAINS = 16_384     # chains of the split-launch checks of K1 / K1f
+SPLIT_SWEEPS = 20         # sweeps of every split-launch check
+SPLIT_C_K3 = 1024         # chains per model of the K3 split checks
+MESH_BURN, MESH_SWEEPS = 1000, 2000   # the run on the mesh, stage 3
+
+
+def check_split(ms, prop, chains, label, rng="hash", cache=False):
+    """The sweep kernel's chain base: the first SPLIT_CHAINS chains of a
+    run's state (all of a smaller one) over SPLIT_SWEEPS sweeps as one
+    launch, and as two launches over the halves at chain bases 0 and
+    S / 2 (a population split across two devices): every output, state,
+    per-chain chunk sums and counters, bitwise equal.  The split pair is
+    timed on the card and its twin (the two halves on the card) on its
+    check run."""
+    import torch
+    from automix_tpu_torch.kernels import fused
+    tabs = fused.prep_tables(prop, ms.dims)
+    S = min(SPLIT_CHAINS, chains.n_chains)
+    h = S // 2
+    full = chunk_args(chains)
+
+    def args(a, b):
+        return tuple(x[..., a:b].contiguous() for x in full)
+
+    kw = dict(seed=13, sweep0=chains.sweep, n_sweeps=SPLIT_SWEEPS,
+              adapt=True, rng=rng)
+    whole = fused.sweep_chunk(ms, *args(0, S), tabs, **kw)
+
+    def halves(fn=fused.sweep_chunk):
+        return [fn(ms, *args(i * h, (i + 1) * h), tabs, chain0=i * h, **kw)
+                for i in (0, 1)]
+
+    parts = halves()
+    joined = [torch.cat([a, b], dim=-1) for a, b in zip(*parts)]
+    equal = all(torch.equal(a, b) for a, b in zip(whole, joined))
+    err = max(float((whole[i] - joined[i]).abs().max()) for i in (1, 2))
+    twin, ms_p = timed(lambda: halves(fused.sweep_chunk_ref))
+    twin_equal = all(torch.equal(a, torch.cat([x, y], dim=-1))
+                     for a, x, y in zip(joined, *twin))
+    log(f"{label} split ({S} chains x {SPLIT_SWEEPS} sweeps, {rng}): two "
+        f"launches at chain bases 0 and {h} vs one launch: every output "
+        f"equal {equal}, max|err| {err:.3e}; the halves equal their twin "
+        f"{twin_equal}")
+    if not (equal and twin_equal):
+        fail(f"{label}: launches split at a chain base differ from one "
+             "launch or from the twin")
+    ms_k = cuda_ms(halves, 5)
+    L, K, D = tabs.loglam.shape[1], ms.nmodels, ms.dmax
+    probs = k_probs(ms, chains.k[:S])
+    if cache:
+        cnt = whole[9].sum(1).double().cpu().numpy()
+        ops = S * SPLIT_SWEEPS * cache_sweep_ops(ms, L, probs, cnt, rng=rng)
+        b = dict(zip(("bound_ms", "bound_by"), bound(
+            ops, S * state_bytes(K, D) + 2 * tables_bytes(K, D, L))))
+    else:
+        b = bounds(lambda f: S * SPLIT_SWEEPS * sweep_ops(
+            ms, L, probs, rng=rng, full=f),
+            S * state_bytes(K, D) + 2 * tables_bytes(K, D, L))
+    log(f"{label} split pair: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        f"{bound_text(b)}")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, **b)
+
+
+def check_split_k3(ms, C, dev, label):
+    """K3's chain base, moves only: SPLIT_SWEEPS stage-1 sweeps of K x C
+    chains as one launch a sweep, and as two launches a sweep over each
+    model's first and last C / 2 chains (``C_total`` C, ``chain_off`` 0 and
+    C / 2): theta and logp bitwise equal lane for lane and the halves'
+    counts summing to the launch's, every sweep.  One sweep's pair timed
+    on the card, its twin on the check."""
+    import torch
+    from automix_tpu_torch.kernels import fused_stage1
+    K, D = ms.nmodels, ms.dmax
+    h = C // 2
+    theta, sig, _ = stage1_start(ms, C, dev)
+    sig = sig * 0.05
+    lp = torch.zeros(K * C, device=dev)
+
+    def half(x, i):
+        return x.reshape(*x.shape[:-1], K, C)[..., i * h:(i + 1) * h] \
+            .reshape(*x.shape[:-1], K * h).contiguous()
+
+    parts = [(half(theta, i), half(lp, i)) for i in (0, 1)]
+    kw = dict(seed=777, nburn=10)
+
+    def pair(t, parts, fn=fused_stage1.sweep):
+        return [fn(ms, *parts[i], sig, C=h, C_total=C, chain_off=i * h, t=t,
+                   seg_start=t == 1, **kw) for i in (0, 1)]
+
+    equal = True
+    for t in range(1, SPLIT_SWEEPS + 1):
+        theta, lp, cnt = fused_stage1.sweep(ms, theta, lp, sig, C=C, t=t,
+                                            seg_start=t == 1, **kw)
+        got = pair(t, parts)
+        equal &= torch.equal(got[0][2] + got[1][2], cnt)
+        parts = [g[:2] for g in got]
+        equal &= all(torch.equal(parts[i][j], half(x, i))
+                     for i in (0, 1) for j, x in enumerate((theta, lp)))
+    twin, ms_p = timed(lambda: pair(SPLIT_SWEEPS + 1, parts,
+                                    fused_stage1.sweep_ref))
+    kern = pair(SPLIT_SWEEPS + 1, parts)
+    twin_equal = all(torch.equal(a[2], b[2]) for a, b in zip(kern, twin))
+    log(f"{label} split ({K} x {C} chains x {SPLIT_SWEEPS} sweeps): two "
+        f"launches a sweep at chain_off 0 and {h} vs one: theta, logp and "
+        f"counts equal {equal}; the pair's counts equal its twin's "
+        f"{twin_equal}")
+    if not (equal and twin_equal):
+        fail(f"{label}: launches split at a chain base differ from one "
+             "launch")
+    ms_k = cuda_ms(lambda: pair(SPLIT_SWEEPS + 1, parts), 50)
+    N = K * C
+    b = bounds(lambda full: N * stage1_ops(ms, uniform(ms), full),
+               N * 4 * 2 * (D + 1))
+    log(f"{label} split pair (one sweep): kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, {bound_text(b)}")
+    return dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, **b)
+
+
+def several_devices(ms, prop, chains, dev):
+    """The port across devices on the card: the split-launch checks of the
+    sweep kernel (hash and K1f) and K3 at the tutorial's (3, 2), then
+    ``multihost.initialize`` with NCCL at world size 1 (the card is one
+    device) and ``AMSampler(tutorial_set(), mesh=make_global_mesh())`` at
+    the main path's size on the hash: its stage 1 on K3's moves-only route
+    (the counts summed over the mesh every sweep) bitwise the main path's
+    sig (K2's segments), then from the main path's proposal 1000 burn-in
+    and 2000 sweeps, ksummary and chains bitwise a run without the mesh,
+    and p(M) against the published values.  Returns (the checks' entries,
+    the sharded run's launches)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from automix_tpu_torch import AMSampler, EngineConfig
+    from automix_tpu_torch.kernels import rwm
+    from automix_tpu_torch.ops import randoms
+    from automix_tpu_torch.parallel import multihost
+    t0 = time.perf_counter()
+    out = {"K1": check_split(ms, prop, chains, "K1"),
+           "K1f": check_split(ms, prop, chains, "K1f", rng="hw"),
+           "K3": check_split_k3(ms, SPLIT_C_K3, dev, "K3")}
+    log(f"several devices: split checks {time.perf_counter() - t0:.2f} s")
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", num_processes=1,
+                         process_id=0)
+    try:
+        mesh = multihost.make_global_mesh()
+        log(f"several devices: {dist.get_backend()} group of "
+            f"{dist.get_world_size()}, mesh on {mesh.device}, primary "
+            f"{multihost.is_primary()}")
+        if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            fail("the mesh is not an NCCL group on the card")
+        cfg = EngineConfig(n_chains=N_CHAINS, n_chains_stage1=N_CHAINS_STAGE1,
+                           stage1_sweeps=STAGE1_SWEEPS,
+                           sweep_chunk=SWEEP_CHUNK, seed=0, fused_rng="hash",
+                           trace_chain0=False, n_trace_chains=1)
+        reset_counts()
+        sh = AMSampler(ms, cfg, mesh=mesh)
+        t1 = time.perf_counter()
+        # the sampler's stage-1 key (its first), without a second EM
+        _, k1 = randoms.split_host(randoms.key(cfg.seed), 2)
+        sig, _, _ = rwm.run_stage1(ms, cfg, k1, STAGE1_SWEEPS, sh.device,
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+        s1 = time.perf_counter() - t1
+        sh.set_proposal(prop)
+        sh.burn_samples(MESH_BURN)
+        t1 = time.perf_counter()
+        stats = sh.rjmcmc_samples(MESH_SWEEPS)
+        torch.cuda.synchronize()
+        s3 = time.perf_counter() - t1
+        counts = read_counts()
+        sig_equal = torch.equal(sig, prop.sig)
+        ref = AMSampler(ms, cfg, device=mesh.device)
+        ref.set_proposal(prop)
+        ref.burn_samples(MESH_BURN)
+        rstats = ref.rjmcmc_samples(MESH_SWEEPS)
+        same = all(torch.equal(getattr(sh.chains, f), getattr(ref.chains, f))
+                   for f in ("k", "theta", "logp", "pk", "pkllim",
+                             "nreinit"))
+        ks_equal = bool((stats.ksummary == rstats.ksummary).all())
+        probs = stats.model_probs
+        err = float(np.abs(probs - np.asarray(PUBLISHED)).max())
+        log(f"several devices: stage 1 on the mesh ({ms.nmodels} x "
+            f"{N_CHAINS_STAGE1} chains, {STAGE1_SWEEPS * 11 // 10} sweeps) "
+            f"{s1:.3f} s, sig bitwise the main path's {sig_equal}; "
+            f"{MESH_SWEEPS} sweeps x {N_CHAINS} chains {s3:.3f} s; chains "
+            f"bitwise the run without the mesh {same}, ksummary {ks_equal}; "
+            f"p(M) {np.round(probs, 4).tolist()}, max err {err:.4f}; "
+            f"launches {counts}")
+        if not (sig_equal and same and ks_equal):
+            fail("the run on the mesh differs from the run without it")
+        if err > PARITY_TOL:
+            fail(f"p(M) on the mesh misses the published values by {err:.4f}")
+        if counts["K3"] != STAGE1_SWEEPS * 11 // 10 or counts["K1"] == 0 \
+                or counts["K2"] + counts["K1f"]:
+            fail("the run on the mesh did not take K3 moves only and K1 on "
+                 "the hash alone")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase several devices: {time.perf_counter() - t0:.2f} s")
+    return out, counts
+
+
 def run_cli(argv, reset=True):
     """``cli.main(argv)`` in process; returns (stdout text, launch counts
     since the last reset, seconds).  ``reset`` sets the counts to 0 just
@@ -2516,9 +2736,13 @@ def main():
     k1 = check_sweep(ms, am.proposal, am.chains, dev)
     k1f = check_hw(ms, am.proposal, am.chains, "K1f tutorial")
     stream_times(ms, am.proposal, am.chains)
-    tut_prop = am.proposal
+    tut_prop, tut_chains = am.proposal, am.chains
     del am
     log(f"phase K1 check: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 5a. several devices: chain bases, NCCL at world size 1 -----------
+    mesh_out, mesh_counts = several_devices(ms, tut_prop, tut_chains, dev)
+    del tut_chains
 
     # ---- 5b. the general engine: K4, tutorial, toy2 per-theta, the CLI -----
     gen = general_paths(ms, tut_prop, rate, dev)
@@ -2848,6 +3072,21 @@ def main():
                    "automix_tpu/kernels/sweep_rng.py:139",
                    gen["tutorial"]["K4"], gen["K4"]),
              library_ms=gen["K4"]["library_ms"]),
+        # the chain base: split launches against one launch; launches of
+        # the run on the mesh (K1 on the hash, K3 moves only), else of the
+        # path that runs the form
+        entry("fused_sweep_chain_base", k1_src, k1_at, mesh_counts["K1"],
+              mesh_out["K1"]),
+        entry("fused_sweep_chain_base_hw", k1_src, k1_at,
+              main_counts["K1f"], mesh_out["K1f"]),
+        entry("fused_sweep_cache_chain_base_ddi", k1_src, k1_at,
+              ddi_out["drive"]["K1"], ddi_out["K1e split"]),
+        entry("fused_stage1_sweep_chain_base", "fused_stage1_sweep.cu",
+              "automix_tpu/kernels/fused_stage1.py:416", mesh_counts["K3"],
+              mesh_out["K3"]),
+        entry("fused_stage1_sweep_chain_base_ddi", "fused_stage1_sweep.cu",
+              "automix_tpu/kernels/fused_stage1.py:416",
+              ddi_out["K3 route"]["K3"], ddi_out["K3 split"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

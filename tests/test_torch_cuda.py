@@ -1793,3 +1793,88 @@ def test_toy_sweep_kernel_forms_match_twin_exactly(cuda, name, perm, dof,
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), i
     assert (got[0] != args[0]).float().mean() > 0.05
+
+
+def _assert_halves_match_whole(ms, ch, tabs, n_sweeps, **kw):
+    """The sweep kernel over all S chains in one launch, and over the two
+    halves of the chains in two launches at chain bases 0 and S / 2 (a
+    population split across two devices): every output, state, per-chain
+    chunk sums and counters, bitwise equal to the one launch's."""
+    S = ch.n_chains
+    h = S // 2
+
+    def args(rows):
+        return (ch.k[rows].contiguous(), ch.theta[rows].T.contiguous(),
+                ch.logp[rows].contiguous(), ch.pk[rows].T.contiguous(),
+                ch.pkllim[rows].contiguous(), ch.nreinit[rows].contiguous(),
+                tabs)
+
+    kw = dict(seed=3, sweep0=ch.sweep, n_sweeps=n_sweeps, adapt=True, **kw)
+    key = "hw_launches" if kw.get("rng") == "hw" else "launches"
+    before = getattr(fused.sweep_chunk, key)
+    whole = fused.sweep_chunk(ms, *args(slice(None)), **kw)
+    halves = [fused.sweep_chunk(ms, *args(slice(i * h, (i + 1) * h)),
+                                chain0=i * h, **kw) for i in (0, 1)]
+    assert getattr(fused.sweep_chunk, key) == before + 3
+    for i, w in enumerate(whole):
+        assert torch.equal(w, torch.cat([halves[0][i], halves[1][i]],
+                                        dim=-1)), i
+    assert (whole[0] != ch.k).any()                     # jumps happened
+
+
+@pytest.mark.parametrize("rng", ["hash", "hw"])
+def test_sweep_kernel_chain_base_splits(cuda, rng):
+    """K1 / K1f at the tutorial's (3, 2): 4096 chains x 30 sweeps from
+    sweep 5 as one launch and as two launches over the halves at chain
+    bases 0 and 2048, bitwise equal."""
+    ms, ch, tabs = _start_state(tutorial_set(), cuda, 4096)
+    _assert_halves_match_whole(ms, ch, tabs, 30, rng=rng)
+
+
+@pytest.mark.parametrize("rng", ["hash", "hw"])
+def test_cache_kernel_chain_base_splits(cuda, rng):
+    """K1e at DDI's (2, 16): 2048 chains x 20 sweeps (a cache refresh
+    after sweep 15) as one launch and as two halves at bases 0 and 1024,
+    bitwise equal."""
+    ms, ch, tabs = _ddi_state(cuda, 2048)
+    _assert_halves_match_whole(ms, ch, tabs, 20, rng=rng)
+
+
+@pytest.mark.parametrize("name", ["tutorial", "ddi"])
+def test_k3_chain_base_splits(cuda, name):
+    """K3 moves only at the tutorial's (3, 2) and DDI's (2, 16): 20 sweeps
+    of K x 512 chains as one launch a sweep, and as two launches a sweep
+    over each model's first and last 256 chains (``C_total`` 512,
+    ``chain_off`` 0 and 256): theta and logp bitwise equal lane for lane
+    and the two launches' counts summing to the one launch's."""
+    ms = tutorial_set() if name == "tutorial" else ddi.ddi_set()
+    K, D = ms.nmodels, ms.dmax
+    C, h = 512, 256
+    theta, sig = _stage1_state(ms, C, cuda, 0.5)
+    lp = torch.zeros(K * C, device=cuda)
+
+    def half(x, i):
+        return x.reshape(*x.shape[:-1], K, C)[..., i * h:(i + 1) * h] \
+            .reshape(*x.shape[:-1], K * h).contiguous()
+
+    parts = [(half(theta, i), half(lp, i)) for i in (0, 1)]
+    kw = dict(seed=777, nburn=10)
+    before = fused_stage1.sweep.launches
+    accepts = 0
+    for t in range(1, 21):
+        theta, lp, cnt = fused_stage1.sweep(ms, theta, lp, sig, C=C, t=t,
+                                            seg_start=t == 1, **kw)
+        cnts = []
+        for i in (0, 1):
+            th_i, lp_i, c_i = fused_stage1.sweep(
+                ms, *parts[i], sig, C=h, C_total=C, chain_off=i * h, t=t,
+                seg_start=t == 1, **kw)
+            parts[i] = (th_i, lp_i)
+            cnts.append(c_i.clone())
+        assert torch.equal(cnts[0] + cnts[1], cnt), t
+        accepts += int(cnt.sum())
+        for i in (0, 1):
+            assert torch.equal(parts[i][0], half(theta, i)), t
+            assert torch.equal(parts[i][1], half(lp, i)), t
+    assert fused_stage1.sweep.launches == before + 60
+    assert accepts > 0

@@ -74,7 +74,10 @@ def test_import_leaves_jax_out():
             "automix_tpu_torch.models.changepoint, "
             "automix_tpu_torch.kernels.rjmcmc, automix_tpu_torch.kernels.rwm, "
             "automix_tpu_torch.kernels.sweep_rng, "
-            "automix_tpu_torch.ops.randoms, examples.model_selection_torch; "
+            "automix_tpu_torch.ops.randoms, automix_tpu_torch.profiling, "
+            "automix_tpu_torch.parallel.mesh, "
+            "automix_tpu_torch.parallel.multihost, "
+            "examples.model_selection_torch; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'automix_tpu.'))"
             " or m == 'automix_tpu']; "
